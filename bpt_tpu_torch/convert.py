@@ -1,4 +1,4 @@
-"""Carry scenes, cameras and render state between the JAX package and the port.
+"""Carry scenes, cameras, render state and parameters between the JAX package and the port.
 
 The inputs are the JAX package's NamedTuples after
 ``jax.tree.map(np.asarray, x)``: fields are read by name from numpy arrays,
@@ -48,6 +48,12 @@ def render_state_from_numpy(state_np, device=None) -> RenderState:
     return RenderState(accum=_tensor(state_np.accum, device, torch.float32),
                        sample_counter=float(state_np.sample_counter),
                        frame_counter=float(state_np.frame_counter))
+
+
+def params_from_numpy(params_np: dict, device=None, requires_grad: bool = True) -> dict:
+    """The JAX package's parameter pytree, a flat dict of numpy arrays (or
+    scalars), -> the port's float32 leaf tensors on ``device``."""
+    return {name: _tensor(v, device, torch.float32).requires_grad_(requires_grad) for name, v in params_np.items()}
 
 
 def to_numpy(x):

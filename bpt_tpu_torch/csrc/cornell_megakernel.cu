@@ -3,19 +3,34 @@
 // Replaces: bpt_tpu/kernels/megakernel.py::_make_kernel, launched through
 // _pallas_forward (monolithic mode), in its Cornell configuration: quads +
 // matrix-instanced unit spheres, env "none", quad-light next-event
-// estimation, param_grads off.  It computes what the plain PyTorch
+// estimation, with param_grads off (entry bpt_cornell_trace) and on
+// (entry bpt_cornell_trace_grads).  It computes what the plain PyTorch
 // integrator (bpt_tpu_torch/integrator/radiance.py, a mirror of the JAX
 // wavefront) computes, draw for draw: ray generation with tent AA and
 // thin-lens DoF (4 hash draws), then up to `bounces` bounces with the fixed
 // per-bounce schedule gate1, gate2 (blue noise) and hem.r, hem.phi, quad.x,
 // quad.y, quad.z (hash).
 //
+// The grads mode (template argument kGrads) writes the same 11 planes plus
+// the path-replay planes out_sg, (n_sg, H, W) planes-major, n_obj = ns + nq
+// objects in hit-id order (spheres, then quads): plane j counts the bounces
+// whose throughput factor is linear in object j's color (diffuse, metal, the
+// clearcoat base, a light hit that contributes, and refraction when
+// transparent_tint is on); with the tint off, plane n_obj + j sums 0.01 * t
+// over the refractions that leave glass object j, in bounce order (the
+// Beer-Lambert exponent).  The gate is the kernel's own absorption test
+// dot(n, rd) >= 0, so plane and absorption agree even at 0.  The backward
+// (kernels/megakernel.py, _PathReplay) turns the planes into gradients.
+//
 // What bounds it on this card: per-thread arithmetic and latency (the
 // intersection of every ray with 6 quads as 12 Moller-Trumbore triangles and
 // 2 instanced spheres, plus sin/cos/exp/log and IEEE divides and square
 // roots), with warp divergence across the four material branches.  It moves
 // almost no memory: a few hundred floats of scene constants, one blue-noise
-// texel and 11 output floats per pixel.
+// texel and 11 output floats per pixel.  The grads mode adds n_sg * 4 bytes
+// per pixel: 64 B, i.e. 64 MB per 1024^2 frame, for the Cornell box's 8
+// objects with the tint off (16 planes), which by itself is ~20 us of HBM
+// time at 3.35 TB/s.
 //
 // What the design does about that: one thread per pixel with its whole path
 // state in registers; the scene constants sit in shared memory, loaded once
@@ -27,6 +42,15 @@
 // bounce is still consumed, so the random streams stay aligned with the
 // plain version.  Making it fast (persistent blocks, material sorting) is
 // later work.
+//
+// The grads planes: a thread cannot hold n_obj accumulators (the wrapper
+// allows 256 quads + 64 spheres), but a path touches at most `bounces`
+// entries of its own pixel's planes.  So each thread first writes zeros to
+// its pixel's n_sg entries (the planes' only full write, coalesced across the
+// warp: n_sg * 4 B per pixel, no separate memset launch), then
+// read-modify-writes the entry of the object it hit on each bounce that
+// counts: at most `bounces` further 4-byte loads and stores per pixel, which
+// stay in L2.  One thread owns one pixel, so no atomics are needed.
 //
 // Numerics: no fast math; 1/sqrtf rather than rsqrtf; dot products summed
 // in (x + y) + z order, as the plain version does.  Built with --fmad=false:
@@ -180,6 +204,7 @@ __device__ __forceinline__ V3 quad_light(const float* lq, V3 x, V3 nl, float rx,
   return d;
 }
 
+template <bool kGrads>
 __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const float* __restrict__ quads_g, int nq,
                                      const float* __restrict__ spheres_g, int ns,
                                      const float* __restrict__ blue_noise, int bn_ox, int bn_oy, int width,
@@ -187,7 +212,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
                                      int camera_is_moving, int transparent_tint, uint32_t frame_u, float frame_f,
                                      float* __restrict__ out_color, float* __restrict__ out_normal,
                                      float* __restrict__ out_ocolor, float* __restrict__ out_oid,
-                                     float* __restrict__ out_sharp) {
+                                     float* __restrict__ out_sharp, float* __restrict__ out_sg) {
   extern __shared__ float smem[];
   float* cam = smem;
   float* quads = cam + kCamFloats;
@@ -210,6 +235,18 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
   const int px = blockIdx.x * blockDim.x + threadIdx.x;
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
+  const int pix = py * width + px;
+
+  // ---- grads mode: zero this pixel's path-replay entries -----------------
+  const size_t plane = (size_t)width * (size_t)height;
+  const int n_obj = ns + nq;
+  if constexpr (kGrads) {
+    const int n_sg = transparent_tint ? n_obj : 2 * n_obj;
+    for (int j = 0; j < n_sg; ++j) out_sg[j * plane + pix] = 0.0f;
+  }
+  auto add_sg = [&](int j, float v) {
+    if constexpr (kGrads) out_sg[j * plane + pix] += v;
+  };
 
   // ---- RNG seeds from absolute pixel coordinates -------------------------
   uint32_t sx = frame_u * (uint32_t)px;
@@ -254,6 +291,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
     V3 nrm = v3(0.0f, 0.0f, 0.0f), hc = v3(0.0f, 0.0f, 0.0f);
     int mat = -100;
     float hid = -kInf;
+    int hobj = -1;
     for (int s = 0; s < ns; ++s) {
       const float* m = spheres + s * kSphereFloats;
       V3 o = xform_point(m, ro), d = xform_dir(m, rd);
@@ -286,6 +324,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
         hc = load3(m + 16);
         mat = (int)m[19];
         hid = (float)s;
+        hobj = s;
       }
     }
     for (int q = 0; q < nq; ++q) {
@@ -298,6 +337,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
         hc = load3(Q + 15);
         mat = (int)Q[18];
         hid = (float)(ns + q);
+        hobj = ns + q;
       }
     }
     if (t_best >= kInf) break;  // env "none": a miss is black and ends the path
@@ -319,7 +359,10 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
     // ---- a light hit ends the path -----------------------------------------
     if (mat == kLight) {
       if (d_count == 0) sharp = 1.01f;
-      if (spec || sample_light) acc = v3(mask.x * hc.x, mask.y * hc.y, mask.z * hc.z);
+      if (spec || sample_light) {
+        acc = v3(mask.x * hc.x, mask.y * hc.y, mask.z * hc.z);
+        add_sg(hobj, 1.0f);
+      }
       break;
     }
     // ---- so does a failed shadow ray -------------------------------------
@@ -350,8 +393,10 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
       spec = false;
       sample_light = !go_indirect;
       d_count = dc;
+      add_sg(hobj, 1.0f);
     } else if (mat == kMetal) {
       mask = v3(mask.x * hc.x, mask.y * hc.y, mask.z * hc.z);
+      add_sg(hobj, 1.0f);
       rd = reflect(rd, nl);
       ro = add(x, mul(nl, eps));
       sample_light = false;
@@ -368,10 +413,12 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
         V3 absorb = v3(1.0f, 1.0f, 1.0f);
         if (transparent_tint) {
           absorb = hc;
+          add_sg(hobj, 1.0f);
         } else if (dot(n, rd) >= 0.0f) {  // inside: Beer-Lambert on exit
           absorb = v3(expf(logf(clampf(hc.x, 0.01f, 0.99f)) * 0.01f * t_best),
                       expf(logf(clampf(hc.y, 0.01f, 0.99f)) * 0.01f * t_best),
                       expf(logf(clampf(hc.z, 0.01f, 0.99f)) * 0.01f * t_best));
+          add_sg(n_obj + hobj, 0.01f * t_best);
         }
         float f = tr / (1.0f - p);
         mask = v3((mask.x * absorb.x) * f, (mask.y * absorb.y) * f, (mask.z * absorb.z) * f);
@@ -413,6 +460,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
         spec = false;
         d_count = dc;
         sharp = 0.0f;
+        add_sg(hobj, 1.0f);
       }
       ro = add(x, mul(nl, eps));
       coat_hit = true;
@@ -422,7 +470,6 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
     prev_mat = mat;
   }
 
-  const int pix = py * width + px;
   out_color[3 * pix + 0] = fmaxf(acc.x, 0.0f);
   out_color[3 * pix + 1] = fmaxf(acc.y, 0.0f);
   out_color[3 * pix + 2] = fmaxf(acc.z, 0.0f);
@@ -436,6 +483,22 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
   out_sharp[pix] = sharp;
 }
 
+template <bool kGrads>
+int launch(const float* cam, const float* quads, int nq, const float* spheres, int ns, const float* blue_noise,
+           int bn_ox, int bn_oy, int width, int height, int bounces, float eps, int light_index,
+           int diffuse_indirect_max, int camera_is_moving, int transparent_tint, unsigned int frame_u, float frame_f,
+           float* out_color, float* out_normal, float* out_ocolor, float* out_oid, float* out_sharp, float* out_sg,
+           void* stream) {
+  const dim3 block(16, 16);
+  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
+  const size_t smem = sizeof(float) * (kCamFloats + nq * kQuadFloats + ns * kSphereFloats);
+  cornell_trace_kernel<kGrads><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      cam, quads, nq, spheres, ns, blue_noise, bn_ox, bn_oy, width, height, bounces, eps, light_index,
+      diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color, out_normal, out_ocolor,
+      out_oid, out_sharp, out_sg);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int bpt_cornell_trace(const float* cam, const float* quads, int nq, const float* spheres, int ns,
@@ -444,12 +507,20 @@ extern "C" int bpt_cornell_trace(const float* cam, const float* quads, int nq, c
                                  int camera_is_moving, int transparent_tint, unsigned int frame_u, float frame_f,
                                  float* out_color, float* out_normal, float* out_ocolor, float* out_oid,
                                  float* out_sharp, void* stream) {
-  const dim3 block(16, 16);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  const size_t smem = sizeof(float) * (kCamFloats + nq * kQuadFloats + ns * kSphereFloats);
-  cornell_trace_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam, quads, nq, spheres, ns, blue_noise, bn_ox, bn_oy, width, height, bounces, eps, light_index,
-      diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color, out_normal, out_ocolor,
-      out_oid, out_sharp);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(cam, quads, nq, spheres, ns, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
+                       light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f,
+                       out_color, out_normal, out_ocolor, out_oid, out_sharp, nullptr, stream);
+}
+
+// As bpt_cornell_trace, plus the (n_sg, H, W) path-replay planes out_sg,
+// n_sg = ns + nq with transparent_tint and 2 * (ns + nq) without.
+extern "C" int bpt_cornell_trace_grads(const float* cam, const float* quads, int nq, const float* spheres, int ns,
+                                       const float* blue_noise, int bn_ox, int bn_oy, int width, int height,
+                                       int bounces, float eps, int light_index, int diffuse_indirect_max,
+                                       int camera_is_moving, int transparent_tint, unsigned int frame_u,
+                                       float frame_f, float* out_color, float* out_normal, float* out_ocolor,
+                                       float* out_oid, float* out_sharp, float* out_sg, void* stream) {
+  return launch<true>(cam, quads, nq, spheres, ns, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
+                      light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f,
+                      out_color, out_normal, out_ocolor, out_oid, out_sharp, out_sg, stream);
 }

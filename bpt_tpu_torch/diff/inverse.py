@@ -1,0 +1,103 @@
+"""Inverse rendering: optimize scene parameters to match a target image
+(port of ``bpt_tpu.diff.inverse``).
+
+The loop renders with matched RNG per step (the frame ids are shared with
+the target), takes the MSE against the target and steps Adam
+(``torch.optim.Adam`` with optax's defaults: betas 0.9 / 0.999, eps 1e-8
+added outside the square root).  By default it runs on the card, through the
+CUDA kernel's path-replay gradient.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Sequence
+
+import numpy as np
+import torch
+
+from bpt_tpu_torch.core.rng import blue_noise_table
+from bpt_tpu_torch.device import default_device
+from bpt_tpu_torch.integrator.config import IntegratorConfig
+from bpt_tpu_torch.integrator.frame import trace_image
+from bpt_tpu_torch.kernels.megakernel import trace_image_fused
+
+_RAND_VEC2 = np.array([0.3, 0.7], np.float32)
+
+
+class OptimizeResult(NamedTuple):
+    params: dict  # {name: detached tensor}
+    losses: torch.Tensor  # (steps,)
+
+
+def render_avg(scene, camera, cfg: IntegratorConfig, size: int, frames: Sequence[float], rand_vec2, blue_noise,
+               fused: bool = True, reorder: bool = False) -> torch.Tensor:
+    """Average of several 1-spp frames, (size, size, 3), on the scene's device:
+    the render on both sides of the inverse-rendering loss.
+
+    ``fused=True`` runs ``trace_image_fused(differentiable=True)``: the CUDA
+    kernel and its path-replay VJP on a CUDA device (gradients of material
+    and emission colors), its plain version on the CPU; a geometry or camera
+    tensor that requires a gradient raises ``NotImplementedError`` there.
+    ``fused=False`` is autograd through the wavefront ``trace_image`` (every
+    parameter).
+    ``reorder=True`` (the staged path) is not ported yet.
+    """
+    if reorder:
+        raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
+    bn = torch.as_tensor(blue_noise, dtype=torch.float32).to(scene.quads.v0.device)
+    acc = 0.0
+    for f in frames:
+        if fused:
+            r = trace_image_fused(scene, camera, cfg, size, size, f, rand_vec2, bn, differentiable=True)
+        else:
+            r = trace_image(scene, camera, cfg, size, size, f, rand_vec2, bn)
+        acc = acc + r.color
+    return acc / len(frames)
+
+
+def optimize(
+    build_scene: Callable[[dict], tuple],
+    init_params: dict,
+    target,
+    cfg: IntegratorConfig,
+    size: int,
+    steps: int = 50,
+    lr: float = 2e-2,
+    frames: Sequence[float] = (1.0, 2.0),
+    param_clip=None,
+    fused: bool = True,
+    reorder: bool = False,
+    device=None,
+) -> OptimizeResult:
+    """Adam loop: params -> scene -> render -> MSE(target).
+
+    ``build_scene(params) -> (scene, camera)``; the scene and camera are moved
+    to ``device`` (None means ``"cuda"``, and raises without a card), as are
+    the parameters and the target.  ``param_clip(params) -> params``
+    optionally maps the parameters back to a valid domain after each step
+    (applied in place, without gradient).  ``losses`` holds each step's loss
+    before its update.
+    """
+    if reorder:
+        raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
+    device = default_device(device)
+    bn = torch.as_tensor(blue_noise_table()).to(device)
+    target = torch.as_tensor(target, dtype=torch.float32).to(device)
+    params = {k: torch.as_tensor(v, dtype=torch.float32).to(device).detach().clone().requires_grad_(True)
+              for k, v in init_params.items()}
+    opt = torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad(set_to_none=True)
+        scene, camera = build_scene(params)
+        img = render_avg(scene.to(device), camera.to(device), cfg, size, frames, _RAND_VEC2, bn, fused=fused)
+        loss = torch.mean((img - target) ** 2)
+        loss.backward()
+        opt.step()
+        if param_clip is not None:
+            with torch.no_grad():
+                clipped = param_clip(params)
+                for k, p in params.items():
+                    p.copy_(clipped[k])
+        losses.append(loss.detach())
+    return OptimizeResult(params={k: p.detach() for k, p in params.items()}, losses=torch.stack(losses))

@@ -10,6 +10,16 @@ Draw order per bounce (the RNG seam shared with the kernel and the
 reference): blue noise gate1, gate2; hash hem.r, hem.phi, quad.x, quad.y,
 quad.z.  Discrete decisions are detached from autograd (``.detach()`` where
 the reference has ``stop_gradient``).
+
+With ``param_grads=True`` the pass also returns the path-replay planes of
+the TPU kernel's ``param_grads`` output (``bpt_tpu/kernels/megakernel.py``,
+its per-object accumulation): the plain version of the CUDA kernel's grads
+mode.  Planes 0..n_obj-1 count, per pixel, the bounces whose throughput
+factor is linear in object j's color (diffuse, metal, the clearcoat base,
+a contributing light hit, and tinted refraction when
+``cfg.transparent_tint``); with the tint off, planes n_obj..2*n_obj-1 sum
+0.01*t over the refractions that leave glass object j (Beer-Lambert).
+Object ids are the ``Hit.object_id`` order: spheres, then quads.
 """
 
 from __future__ import annotations
@@ -62,8 +72,19 @@ def calculate_radiance(
     rng: RngState,
     bn: BlueNoise,
     frame_counter,
-) -> tuple[RadianceResult, RngState, BlueNoise]:
-    """Trace one path per lane for up to cfg.bounces bounces."""
+    param_grads: bool = False,
+    lane_counts: list | None = None,
+):
+    """Trace one path per lane for up to cfg.bounces bounces.
+
+    Returns ``(result, rng, bn)``, and with ``param_grads=True``
+    ``(result, rng, bn, sg)``: sg is (n_sg,) + lanes float32, detached,
+    n_sg = n_obj with ``cfg.transparent_tint`` and 2 * n_obj without.
+
+    ``lane_counts``, for measurement, receives one pair of 0-d tensors per
+    bounce: the lanes still alive (those for which the kernel runs this
+    bounce's intersection) and, of those, the lanes that hit something.
+    """
     check_supported(scene, cfg)
     shape = ray_origin.shape[:-1]
     dev = ray_origin.device
@@ -93,10 +114,17 @@ def calculate_radiance(
     li = cfg.light_index if cfg.light_index >= 0 else quads.v0.shape[0] - 1
     lv0, lv1, lv2, lv3 = quads.v0[li], quads.v1[li], quads.v2[li], quads.v3[li]
     l_normal = normalize(quads.normal[li])
+    if param_grads:
+        n_obj = quads.v0.shape[0] + (0 if scene.spheres is None else scene.spheres.color.shape[0])
+        obj_ids = torch.arange(n_obj, dtype=f32, device=dev).reshape((n_obj,) + (1,) * len(shape))
+        sg_lin = torch.zeros((n_obj,) + shape, dtype=f32, device=dev)
+        sg_beer = None if cfg.transparent_tint else torch.zeros_like(sg_lin)
 
     for bounce in range(cfg.bounces):
         hit = scene_intersect(scene, ro, rd)
         miss = hit.t >= INFINITY
+        if lane_counts is not None:
+            lane_counts.append((alive.sum(), (alive & ~miss).sum()))
 
         n = normalize(hit.normal)
         nl = face_forward(n, rd)
@@ -121,7 +149,8 @@ def calculate_radiance(
         # ---- light hit terminates ------------------------------------------
         is_light = lane & (mat == LIGHT)
         sharp = torch.where(is_light & (d_count == 0), full(1.01), sharp)
-        accum = _where3(is_light & (spec | sample_light), mask * hit_color, accum)
+        lit = is_light & (spec | sample_light)
+        accum = _where3(lit, mask * hit_color, accum)
         alive = alive & ~is_light
         lane = alive
 
@@ -249,6 +278,20 @@ def calculate_radiance(
         sharp = torch.where(lane, new_sharp, sharp)
         prev_mat = torch.where(lane, mat, prev_mat)
 
+        if param_grads:
+            # the hit object's color enters this bounce's throughput linearly
+            # (d log f / d c = 1/c, applied in the backward) or, for a
+            # Beer-Lambert exit, as exp(0.01 t log c) (0.01 t / c)
+            refracted = b_trans & ~go_reflect_t
+            g_lin = b_diff | b_metal | (b_coat & ~go_reflect_c) | lit
+            if cfg.transparent_tint:
+                g_lin = g_lin | refracted
+            hit_j = hit.object_id.detach()[None] == obj_ids
+            sg_lin = sg_lin + torch.where(hit_j & g_lin[None], 1.0, 0.0)
+            if sg_beer is not None:
+                beer = torch.where(refracted & inside, 0.01 * hit.t.detach(), zero)
+                sg_beer = sg_beer + torch.where(hit_j, beer[None], 0.0)
+
     result = RadianceResult(
         color=torch.clamp(accum, min=0.0),
         object_normal=obj_normal,
@@ -256,4 +299,7 @@ def calculate_radiance(
         object_id=obj_id,
         pixel_sharpness=sharp,
     )
+    if param_grads:
+        sg = sg_lin if sg_beer is None else torch.cat([sg_lin, sg_beer])
+        return result, rng, bn, sg
     return result, rng, bn

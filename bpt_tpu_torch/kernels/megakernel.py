@@ -1,12 +1,20 @@
-"""The fused Cornell-family radiance pass: CUDA kernel wrapper + plain version.
+"""The fused Cornell-family radiance pass: CUDA kernel wrappers + plain versions.
 
 ``trace_image_fused`` is the port of ``bpt_tpu.kernels.megakernel``'s
 ``trace_image_pallas`` for the Cornell configuration (quads + unit spheres,
-env "none", quad-light NEE, no gradients).  On CUDA tensors it launches the
-hand-written kernel in ``csrc/cornell_megakernel.cu``; on CPU tensors it runs
-the plain PyTorch version, ``trace_image_fused_reference`` (the port's
-wavefront ``trace_image``).  There is no fallback: a failed build or launch
-raises.
+env "none", quad-light NEE).  On CUDA tensors it launches the hand-written
+kernel in ``csrc/cornell_megakernel.cu``; on CPU tensors it runs the plain
+PyTorch version, ``trace_image_fused_reference`` (the port's wavefront
+``trace_image``).  There is no fallback: a failed build or launch raises.
+
+``differentiable=True`` is the port of the path-replay VJP (``_prb_fn``):
+a ``torch.autograd.Function`` whose forward runs the kernel's grads mode
+(``trace_image_fused_grads``: the 11 planes plus the per-object
+∂log-throughput planes) and whose backward turns those planes into
+gradients of the quad and sphere colors in plain torch, as the JAX package
+leaves that part to XLA.  Geometry and the camera get no gradient through
+this route (as in JAX); ``diff.gradients.make_render_loss`` (wavefront
+autograd) is the route for them.
 """
 
 from __future__ import annotations
@@ -25,11 +33,18 @@ from bpt_tpu_torch.kernels import build
 from bpt_tpu_torch.scenes.types import Scene
 
 KERNEL = "cornell_megakernel"
-#: Kernel launches made by trace_image_fused (a plain count; reset freely).
+#: Launches of the forward kernel (entry bpt_cornell_trace); reset freely.
 LAUNCHES = 0
+#: Launches of the grads-mode kernel (entry bpt_cornell_trace_grads).
+GRAD_LAUNCHES = 0
 
-#: The plain PyTorch version of the kernel.
+#: The plain PyTorch version of the forward kernel.
 trace_image_fused_reference = trace_image
+
+
+def trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise):
+    """The plain PyTorch version of the grads-mode kernel: (RadianceResult, sg)."""
+    return trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, param_grads=True)
 
 _MAX_QUADS = 256
 _MAX_SPHERES = 64
@@ -38,6 +53,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, ctypes.c_uint, _F,
              _P, _P, _P, _P, _P, _P]
+_ARGTYPES_GRADS = _ARGTYPES[:-1] + [_P, _P]
 
 
 def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -69,9 +85,9 @@ def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
-    fn = lib.bpt_cornell_trace
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    for fn, argtypes in ((lib.bpt_cornell_trace, _ARGTYPES), (lib.bpt_cornell_trace_grads, _ARGTYPES_GRADS)):
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -84,26 +100,22 @@ def _check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
-                      frame_counter, rand_vec2, blue_noise: torch.Tensor) -> RadianceResult:
-    """One 1-spp frame of the Cornell family, the same RadianceResult as
-    ``integrator.frame.trace_image`` (same draws; float-level parity).
-
-    The device is ``blue_noise``'s: CPU runs the plain version, CUDA launches
-    the kernel on the current stream without synchronising.
-    """
-    global LAUNCHES
+def _check_call(scene: Scene, cfg: IntegratorConfig, width: int, height: int, blue_noise: torch.Tensor) -> None:
     check_supported(scene, cfg)
     if width <= 0 or height <= 0:
         raise ValueError(f"bad image size {width}x{height}")
     if tuple(blue_noise.shape) != (256, 256, 4):
         raise ValueError(f"blue_noise must be (256, 256, 4), got {tuple(blue_noise.shape)}")
-    device = blue_noise.device
-    if device.type == "cpu":
-        return trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
-    if device.type != "cuda":
-        raise ValueError(f"trace_image_fused runs on CPU or CUDA tensors, not {device}")
+    if blue_noise.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"trace_image_fused runs on CPU or CUDA tensors, not {blue_noise.device}")
 
+
+def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int, frame_counter,
+            rand_vec2, blue_noise: torch.Tensor, grads: bool):
+    """Pack, check and launch one kernel entry on the current stream:
+    (RadianceResult, sg or None).  CUDA tensors only."""
+    global LAUNCHES, GRAD_LAUNCHES
+    device = blue_noise.device
     quads, sph = pack_scene(scene)
     cam = pack_camera(camera, width, height)
     nq = quads.shape[0]
@@ -123,17 +135,135 @@ def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width
 
     color, normal, ocolor = empty(height, width, 3), empty(height, width, 3), empty(height, width, 3)
     oid, sharp = empty(height, width), empty(height, width)
-    fn = _library().bpt_cornell_trace
+    n_obj = nq + ns
+    sg = empty(n_obj if cfg.transparent_tint else 2 * n_obj, height, width) if grads else None
+    lib = _library()
+    args = (cam.data_ptr(), quads.data_ptr(), nq, 0 if sph is None else sph.data_ptr(), ns,
+            blue_noise.data_ptr(), ox, oy, width, height, cfg.bounces, cfg.eps_intersect, light,
+            cfg.diffuse_indirect_max, int(cfg.camera_is_moving), int(cfg.transparent_tint),
+            frame_to_u32(frame_counter), float(frame_counter),
+            color.data_ptr(), normal.data_ptr(), ocolor.data_ptr(), oid.data_ptr(), sharp.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(cam.data_ptr(), quads.data_ptr(), nq, 0 if sph is None else sph.data_ptr(), ns,
-                 blue_noise.data_ptr(), ox, oy, width, height, cfg.bounces, cfg.eps_intersect, light,
-                 cfg.diffuse_indirect_max, int(cfg.camera_is_moving), int(cfg.transparent_tint),
-                 frame_to_u32(frame_counter), float(frame_counter),
-                 color.data_ptr(), normal.data_ptr(), ocolor.data_ptr(), oid.data_ptr(), sharp.data_ptr(),
-                 stream)
+        if grads:
+            err = lib.bpt_cornell_trace_grads(*args, sg.data_ptr(), stream)
+        else:
+            err = lib.bpt_cornell_trace(*args, stream)
     if err != 0:
-        raise RuntimeError(f"cornell_trace_kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+        raise RuntimeError(f"cornell_trace_kernel{'<grads>' if grads else ''} launch failed: CUDA error {err}")
+    if grads:
+        GRAD_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return RadianceResult(color=color, object_normal=normal, object_color=ocolor, object_id=oid,
-                          pixel_sharpness=sharp)
+                          pixel_sharpness=sharp), sg
+
+
+def trace_image_fused_grads(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
+                            frame_counter, rand_vec2, blue_noise: torch.Tensor):
+    """The kernel's grads mode: ``(RadianceResult, sg)``, sg the (n_sg, H, W)
+    path-replay planes of ``integrator.radiance.calculate_radiance``.
+
+    CPU tensors run the plain version; CUDA tensors launch the kernel.
+    """
+    _check_call(scene, cfg, width, height, blue_noise)
+    if blue_noise.device.type == "cpu":
+        return trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2,
+                                                 blue_noise)
+    return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=True)
+
+
+def _pixel_sum(planes: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """sum over pixels of planes[j] * values[..., c]: (J, H, W) x (H, W, C)
+    -> (J, C), as one batched product per image row.  A single
+    (J, H*W) @ (H*W, C) product would hand cuBLAS a reduction of length
+    H*W over a one-tile output, which it runs on one SM."""
+    return torch.bmm(planes.transpose(0, 1), values).sum(0)
+
+
+class _PathReplay(torch.autograd.Function):
+    """Port of ``_prb_fn``: differentiable in the quad and sphere colors.
+
+    The forward runs the grads mode (kernel or plain version, by device) and
+    saves the clamped color, the first-hit ids, the sg planes and the colors
+    in object-id order.  The backward ports ``f_bwd`` term for term: the
+    hit counts carry d log f / d c = 1 / c, the Beer planes 0.01 t / c inside
+    the clamp's linear region, and the first-hit ``object_color`` record a
+    one-hot term.  An output the loss does not use gets no term.
+    """
+
+    @staticmethod
+    def forward(ctx, quad_color, sphere_color, scene, camera, cfg, width, height, frame_counter, rand_vec2,
+                blue_noise):
+        spheres = None if scene.spheres is None else scene.spheres._replace(color=sphere_color)
+        scene = scene._replace(quads=scene.quads._replace(color=quad_color), spheres=spheres)
+        result, sg = trace_image_fused_grads(scene, camera, cfg, width, height, frame_counter, rand_vec2,
+                                             blue_noise)
+        colors = quad_color if sphere_color is None else torch.cat([sphere_color, quad_color])
+        ctx.n_spheres = 0 if sphere_color is None else sphere_color.shape[0]
+        ctx.save_for_backward(result.color, result.object_id, sg, colors)
+        ctx.mark_non_differentiable(result.object_normal, result.object_id, result.pixel_sharpness)
+        ctx.set_materialize_grads(False)
+        return tuple(result)
+
+    @staticmethod
+    def backward(ctx, g_color, g_normal, g_ocolor, g_oid, g_sharp):
+        color, oid, sg, colors = ctx.saved_tensors
+        n_obj = colors.shape[0]
+        gcol = torch.zeros_like(colors)
+        if g_color is not None:
+            per_plane = _pixel_sum(sg, g_color * color)
+            inv_c = 1.0 / torch.clamp(colors, min=1e-8)
+            gcol = per_plane[:n_obj] * inv_c
+            if sg.shape[0] > n_obj:  # Beer-Lambert planes (tint off)
+                beer_gate = ((colors > 0.01) & (colors < 0.99)).to(colors.dtype)
+                gcol = gcol + per_plane[n_obj:] * beer_gate * inv_c
+        if g_ocolor is not None:
+            ids = torch.arange(n_obj, dtype=oid.dtype, device=oid.device)
+            onehot = (oid[None] == ids[:, None, None]).to(colors.dtype)
+            gcol = gcol + _pixel_sum(onehot, g_ocolor)
+        ns = ctx.n_spheres
+        return (gcol[ns:], gcol[:ns] if ns else None) + (None,) * 8
+
+
+def _check_fixed_inputs(scene: Scene, camera: Camera) -> None:
+    """Raise if a tensor the path-replay VJP holds fixed requires a gradient."""
+    groups = [g for g in (scene.quads, scene.spheres) if g is not None]
+    fixed = [f"{type(g).__name__}.{name}" for g in groups for name, t in zip(g._fields, g)
+             if name != "color" and t.requires_grad]
+    fixed += [f"Camera.{name}" for name, t in zip(camera._fields, camera) if t.requires_grad]
+    if fixed:
+        raise NotImplementedError(
+            f"the path-replay gradient reaches only the quad and sphere colors, not {', '.join(fixed)}; "
+            "use the wavefront route (fused=False, or diff.make_render_loss) for geometry and camera gradients")
+
+
+def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
+                      frame_counter, rand_vec2, blue_noise: torch.Tensor, differentiable: bool = False,
+                      reorder: bool = False) -> RadianceResult:
+    """One 1-spp frame of the Cornell family, the same RadianceResult as
+    ``integrator.frame.trace_image`` (same draws; float-level parity).
+
+    The device is ``blue_noise``'s: CPU runs the plain version, CUDA launches
+    the kernel on the current stream without synchronising.
+
+    ``differentiable=True`` carries the path-replay VJP: gradients flow to
+    ``scene.quads.color`` and ``scene.spheres.color`` (the light's emission
+    included).  When neither requires a gradient, or grad mode is off, the
+    call is the plain forward, as JAX's custom_vjp runs its primal.  Any
+    other scene or camera tensor that requires a gradient raises
+    ``NotImplementedError``: this route would leave it without one.
+    ``reorder=True`` (the staged, reorderable path) is not ported yet.
+    """
+    if reorder:
+        raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
+    _check_call(scene, cfg, width, height, blue_noise)
+    sphere_color = None if scene.spheres is None else scene.spheres.color
+    if differentiable and torch.is_grad_enabled():
+        _check_fixed_inputs(scene, camera)
+        if scene.quads.color.requires_grad or (sphere_color is not None and sphere_color.requires_grad):
+            return RadianceResult(*_PathReplay.apply(scene.quads.color, sphere_color, scene, camera, cfg, width,
+                                                     height, frame_counter, rand_vec2, blue_noise))
+    if blue_noise.device.type == "cpu":
+        return trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
+    return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=False)[0]

@@ -15,8 +15,10 @@ import torch
 
 from bpt_tpu_torch.camera import Camera
 from bpt_tpu_torch.core.rng import blue_noise_table
+from bpt_tpu_torch.device import default_device
 from bpt_tpu_torch.integrator.config import IntegratorConfig
-from bpt_tpu_torch.integrator.frame import finish_frame, trace_image
+from bpt_tpu_torch.integrator.frame import finish_frame
+from bpt_tpu_torch.kernels.megakernel import trace_image_fused
 from bpt_tpu_torch.postprocess import screen_output
 from bpt_tpu_torch.scenes.types import Scene
 
@@ -45,14 +47,13 @@ def next_counters(state: RenderState, camera_is_moving: bool) -> tuple[float, fl
 
 
 def step_state(scene: Scene, camera: Camera, cfg: IntegratorConfig, state: RenderState,
-               camera_is_moving: bool, rand_vec2, blue_noise: torch.Tensor,
-               trace=trace_image) -> RenderState:
-    """One progressive frame: ``trace`` is the radiance pass (the plain
-    ``trace_image`` or the fused kernel), then edge detection and
-    accumulation in ``finish_frame``."""
+               camera_is_moving: bool, rand_vec2, blue_noise: torch.Tensor) -> RenderState:
+    """One progressive frame: the radiance pass ``trace_image_fused`` (the
+    CUDA kernel on CUDA tensors, its plain version on CPU ones), then edge
+    detection and accumulation in ``finish_frame``."""
     frame_counter, sample_counter = next_counters(state, camera_is_moving)
     height, width = state.accum.shape[0], state.accum.shape[1]
-    result = trace(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
+    result = trace_image_fused(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
     accum = finish_frame(result, state.accum, frame_counter, camera_is_moving)
     return RenderState(accum=accum, sample_counter=sample_counter, frame_counter=frame_counter)
 
@@ -63,11 +64,16 @@ class ProgressiveRenderer:
 
     Passing a new Camera each frame lets the 16-float world-matrix comparison
     decide resets, as in the reference.
+
+    It runs on the card: ``device=None`` means ``"cuda"`` and raises where
+    there is none.  The radiance pass is ``trace_image_fused``: the CUDA
+    kernel on a CUDA device, its plain version (``trace_image``) on
+    ``device="cpu"``.
     """
 
     def __init__(self, scene: Scene, cfg: IntegratorConfig, height: int, width: int,
                  blue_noise=None, seed: int = 0, device=None):
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = default_device(device)
         self.scene = scene.to(self.device)
         self.cfg = cfg
         self.height = height
@@ -79,7 +85,6 @@ class ProgressiveRenderer:
         self._last_cam = None
         self._last_cam_matrix: Optional[np.ndarray] = None
         self._cam_on_device = (None, None)
-        self._trace = trace_image  # the radiance pass; attach_cuda_path swaps it
 
     def camera_moved(self, camera: Camera) -> bool:
         if camera is self._last_cam:
@@ -96,8 +101,7 @@ class ProgressiveRenderer:
 
     def _step(self, camera: Camera, moving: bool, rand_vec2) -> RenderState:
         self.state = step_state(self.scene, self._device_camera(camera), self.cfg, self.state,
-                                moving, np.asarray(rand_vec2, np.float32), self.blue_noise,
-                                trace=self._trace)
+                                moving, np.asarray(rand_vec2, np.float32), self.blue_noise)
         return self.state
 
     def render_sample(self, camera: Camera, force_reset: bool = False) -> RenderState:

@@ -19,6 +19,7 @@ import torch
 
 from bpt_tpu_torch.core.rng import blue_noise_table
 from bpt_tpu_torch.integrator import IntegratorConfig
+from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.kernels import megakernel
 from bpt_tpu_torch.kernels.integration import attach_cuda_path
 from bpt_tpu_torch.renderer import ProgressiveRenderer
@@ -31,6 +32,7 @@ REPO = Path(__file__).resolve().parents[1]
 RV = np.array([0.3, 0.7], np.float32)
 
 SLICE_MODULES = [
+    "bpt_tpu_torch.diff", "bpt_tpu_torch.diff.gradients", "bpt_tpu_torch.diff.inverse",
     "bpt_tpu_torch", "bpt_tpu_torch.integrator.config", "bpt_tpu_torch.core.vecmath", "bpt_tpu_torch.core.rng",
     "bpt_tpu_torch.core.sampling", "bpt_tpu_torch.core.fresnel", "bpt_tpu_torch.utils.transforms",
     "bpt_tpu_torch.camera", "bpt_tpu_torch.scenes.types", "bpt_tpu_torch.scenes.cornell",
@@ -88,9 +90,41 @@ def test_trace_image_fused_rejects_bad_inputs():
 
 
 def test_attach_cuda_path_needs_a_cuda_renderer():
-    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 8, 8, blue_noise=blue_noise_table())
+    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 8, 8, blue_noise=blue_noise_table(),
+                            device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         attach_cuda_path(r)
+
+
+def test_renderer_and_optimize_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """No device argument means the card; without one they raise rather
+    than run on the CPU.  device="cpu" runs the plain version."""
+    from bpt_tpu_torch.diff.inverse import optimize
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 8, 8, blue_noise=blue_noise_table())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        optimize(lambda p: (cornell_scene(), cornell_camera()), {"x": 1.0}, torch.zeros(8, 8, 3),
+                 IntegratorConfig(bounces=2), 8, steps=1)
+    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 8, 8, blue_noise=blue_noise_table(),
+                            device="cpu")
+    before = megakernel.LAUNCHES
+    r.render(cornell_camera(), spp=1)
+    assert r.device.type == "cpu" and megakernel.LAUNCHES == before
+
+
+def test_lane_counts_report_live_and_hit_lanes():
+    """The measurement hook behind the kernels' bound: per bounce, the live
+    lanes (every lane at bounce 0) and, of those, the lanes that hit."""
+    counts = []
+    trace_image(cornell_scene(), cornell_camera(), IntegratorConfig(bounces=4), 16, 16, 2.0, RV,
+                torch.as_tensor(blue_noise_table()), lane_counts=counts)
+    live = [int(a) for a, _ in counts]
+    hits = [int(b) for _, b in counts]
+    assert len(counts) == 4 and live[0] == 256
+    assert all(h <= n for h, n in zip(hits, live)) and all(b <= a for a, b in zip(live, live[1:]))
+    assert hits[0] > 0 and live[-1] < live[0]
 
 
 @pytest.fixture
@@ -127,3 +161,67 @@ def test_cuda_renderer_goes_through_the_kernel(cuda_device):
     img = r.render(cornell_camera(), spp=3)
     assert megakernel.LAUNCHES == before + 3
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
+
+
+@pytest.mark.cuda
+def test_default_renderer_launches_the_kernel(cuda_device):
+    """A renderer built with no device argument runs on the card, through
+    the kernel, without attach_cuda_path (which is then a no-op)."""
+    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=4), 64, 64)
+    assert r.device.type == "cuda"
+    before = megakernel.LAUNCHES
+    r.render(cornell_camera(), spp=2)
+    assert megakernel.LAUNCHES == before + 2
+    attach_cuda_path(r)
+    r.render(cornell_camera(), spp=1)
+    assert megakernel.LAUNCHES == before + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat,tint", [(METAL, False), (TRANSPARENT, False), (TRANSPARENT, True)])
+def test_cuda_grads_kernel_matches_plain_version(cuda_device, mat, tint):
+    """96x64, 4 bounces, frame 2: the grads-mode kernel's 11 planes and sg
+    planes equal its plain version's, and its 11 planes equal the forward
+    kernel's, bit for bit."""
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    scene, cam = cornell_scene(right_sphere_mat=mat, device=cuda_device), cornell_camera(device=cuda_device)
+    cfg = IntegratorConfig(bounces=4, transparent_tint=tint)
+    before = megakernel.GRAD_LAUNCHES
+    got, sg = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    assert megakernel.GRAD_LAUNCHES == before + 1
+    ref, sg_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    fwd = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    torch.cuda.synchronize()
+    assert sg.shape == (8 if tint else 16, 64, 96)
+    torch.testing.assert_close(sg, sg_ref, rtol=0, atol=0)
+    for a, b, c in zip(got, ref, fwd):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tint", [False, True])
+def test_cuda_path_replay_gradient_matches_plain_route(cuda_device, tint):
+    """The gradient of mean(color * [1, 2, 3]) with respect to the light,
+    wall 2 and the glass sphere through the kernel's path-replay VJP equals
+    autograd through the plain trace_image on the card (rtol 1e-4)."""
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    scene = cornell_scene(right_sphere_mat=TRANSPARENT, device=cuda_device)
+    cam = cornell_camera(device=cuda_device)
+    cfg = IntegratorConfig(bounces=4, transparent_tint=tint)
+    w = torch.tensor([1.0, 2.0, 3.0], device=cuda_device)
+
+    def grads(differentiable, trace):
+        qc = scene.quads.color.clone().requires_grad_(True)
+        sc = scene.spheres.color.clone().requires_grad_(True)
+        s = scene._replace(quads=scene.quads._replace(color=qc), spheres=scene.spheres._replace(color=sc))
+        kw = dict(differentiable=True) if differentiable else {}
+        loss = torch.mean(trace(s, cam, cfg, 96, 64, 2.0, RV, bn, **kw).color * w)
+        g_q, g_s = torch.autograd.grad(loss, [qc, sc])
+        return torch.stack([g_q[5], g_q[2], g_s[1]])
+
+    before = megakernel.GRAD_LAUNCHES
+    got = grads(True, megakernel.trace_image_fused)
+    assert megakernel.GRAD_LAUNCHES == before + 1
+    want = grads(False, megakernel.trace_image_fused_reference)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-9)

@@ -108,7 +108,7 @@ def test_accumulation_fsm_counters():
 
 
 def test_camera_move_resets_renderer():
-    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 16, 16, blue_noise=BN)
+    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 16, 16, blue_noise=BN, device="cpu")
     cam = cornell_camera()
     for _ in range(3):
         r.render_sample(cam)
@@ -120,8 +120,8 @@ def test_camera_move_resets_renderer():
 def test_batched_render_equals_per_sample_stepping():
     """Port of tests/test_aux.py::test_batched_render_equals_per_sample_stepping."""
     scene, cam, cfg = cornell_scene(), cornell_camera(), IntegratorConfig(bounces=2)
-    r1 = ProgressiveRenderer(scene, cfg, 24, 24, blue_noise=BN, seed=7)
-    r2 = ProgressiveRenderer(scene, cfg, 24, 24, blue_noise=BN, seed=7)
+    r1 = ProgressiveRenderer(scene, cfg, 24, 24, blue_noise=BN, seed=7, device="cpu")
+    r2 = ProgressiveRenderer(scene, cfg, 24, 24, blue_noise=BN, seed=7, device="cpu")
     for _ in range(7):
         r1.render_sample(cam)
     img1 = r1.display()
@@ -169,7 +169,7 @@ def test_progressive_render_matches_jax():
     and render(spp=4) against the JAX renderer with the same seed."""
     jr = JRenderer(j_cornell_scene(), JConfig(bounces=4), RES, RES, blue_noise=jnp.asarray(BN), seed=3)
     ref = np.asarray(jr.render(j_cornell_camera(), spp=4))
-    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=4), RES, RES, blue_noise=BN, seed=3)
+    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=4), RES, RES, blue_noise=BN, seed=3, device="cpu")
     got = r.render(cornell_camera(), spp=4)
     assert got.shape == (RES, RES, 3) and r.state.sample_counter == 4.0
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-3)
