@@ -14,26 +14,32 @@ import torch
 
 from bpt_tpu_torch.camera import Camera
 from bpt_tpu_torch.renderer import RenderState
-from bpt_tpu_torch.scenes.types import Quads, Scene, UnitSpheres
+from bpt_tpu_torch.scenes.types import Environment, Quadrics, Quads, Scene, UnitSpheres
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
     return torch.as_tensor(np.array(x), dtype=dtype).to(device)  # copy: jax-backed arrays are read-only
 
 
-def _group(cls, src, device):
+def _group(cls, src, device, fields=None):
     if src is None:
         return None
-    return cls(**{name: _tensor(getattr(src, name), device) for name in cls._fields})
+    return cls(**{name: _tensor(getattr(src, name), device) for name in fields or cls._fields})
 
 
 def scene_from_numpy(scene_np, device=None) -> Scene:
-    """A JAX ``Scene`` of numpy arrays -> the port's ``Scene`` on ``device``."""
-    for family in ("quadrics", "mesh", "env"):
-        if getattr(scene_np, family, None) is not None:
-            raise NotImplementedError(f"scene.{family} is not ported yet")
+    """A JAX ``Scene`` of numpy arrays -> the port's ``Scene`` on ``device``.
+    Meshes and the HDRI fields of the environment are not ported yet and
+    raise."""
+    if getattr(scene_np, "mesh", None) is not None:
+        raise NotImplementedError("scene.mesh is not ported yet")
+    env = getattr(scene_np, "env", None)
+    if env is not None and any(getattr(env, f, None) is not None for f in ("hdr_image", "hdr_exposure", "env_cdf")):
+        raise NotImplementedError("the HDRI environment (hdr_image, hdr_exposure, env_cdf) is not ported yet")
     return Scene(quads=_group(Quads, scene_np.quads, device),
-                 spheres=_group(UnitSpheres, scene_np.spheres, device))
+                 spheres=_group(UnitSpheres, scene_np.spheres, device),
+                 quadrics=_group(Quadrics, getattr(scene_np, "quadrics", None), device),
+                 env=_group(Environment, env, device, ("sun_direction", "sun_power")))
 
 
 def camera_from_numpy(camera_np, device=None) -> Camera:

@@ -1,13 +1,14 @@
 """Direction samplers and the tent reconstruction filter.
 
-Port of the parts of ``bpt_tpu.core.sampling`` the Cornell slice uses.
+Port of the parts of ``bpt_tpu.core.sampling`` the Cornell, quadric and
+sky slices use.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bpt_tpu_torch.core.vecmath import normalize, orthonormal_basis, safe_sqrt
+from bpt_tpu_torch.core.vecmath import mix, normalize, orthonormal_basis, safe_sqrt
 
 TWO_PI = 6.28318530717958648
 
@@ -21,6 +22,31 @@ def cos_hemisphere_from_uniforms(nl: torch.Tensor, r_: torch.Tensor, p_: torch.T
     z = safe_sqrt(1.0 - x * x - y * y)
     u, v = orthonormal_basis(nl)
     return normalize(x[..., None] * u + y[..., None] * v + z[..., None] * nl)
+
+
+def lobe_exponent(roughness) -> torch.Tensor:
+    """1 / (exp(mix(7, 0, sqrt(roughness))) + 1), float32, with the
+    roughness clamped to [0, 1]: the power that maps a uniform to the lobe's
+    cos(theta).  A host number becomes a 0-d tensor on the CPU."""
+    r = torch.clamp(torch.as_tensor(roughness, dtype=torch.float32), 0.0, 1.0)
+    return 1.0 / (torch.exp(mix(7.0, 0.0, torch.sqrt(r))) + 1.0)
+
+
+def specular_lobe_from_uniforms(reflection_dir: torch.Tensor, roughness, c_: torch.Tensor,
+                                p_: torch.Tensor) -> torch.Tensor:
+    """Specular-lobe direction about reflection_dir from two pre-drawn
+    uniforms: cos(theta) = c_ ** lobe_exponent(roughness), and the result
+    normalize(mix(reflection_dir, lobe, roughness))."""
+    dev = reflection_dir.device
+    r = torch.clamp(torch.as_tensor(roughness, dtype=torch.float32), 0.0, 1.0).to(dev)
+    cos_theta = torch.pow(c_, lobe_exponent(roughness).to(dev))
+    sin_theta = safe_sqrt(1.0 - cos_theta * cos_theta)
+    phi = p_ * TWO_PI
+    u, v = orthonormal_basis(reflection_dir)
+    lobe = (u * (torch.cos(phi) * sin_theta)[..., None] + v * (torch.sin(phi) * sin_theta)[..., None]
+            + reflection_dir * cos_theta[..., None])
+    rough = r.expand(lobe.shape[:-1])[..., None]
+    return normalize(mix(reflection_dir, lobe, rough))
 
 
 def tent_filter(x: torch.Tensor) -> torch.Tensor:

@@ -1,53 +1,68 @@
-// Cornell-family path-tracing megakernel for Hopper (sm_90a).
+// Path-tracing megakernel for Hopper (sm_90a): the Cornell, transformed-
+// quadric and physical-sky configurations, forward and grads mode.
 //
 // Replaces: bpt_tpu/kernels/megakernel.py::_make_kernel, launched through
-// _pallas_forward (monolithic mode), in its Cornell configuration: quads +
-// matrix-instanced unit spheres, env "none", quad-light next-event
-// estimation, with param_grads off (entry bpt_cornell_trace) and on
-// (entry bpt_cornell_trace_grads).  It computes what the plain PyTorch
-// integrator (bpt_tpu_torch/integrator/radiance.py, a mirror of the JAX
-// wavefront) computes, draw for draw: ray generation with tent AA and
-// thin-lens DoF (4 hash draws), then up to `bounces` bounces with the fixed
-// per-bounce schedule gate1, gate2 (blue noise) and hem.r, hem.phi, quad.x,
-// quad.y, quad.z (hash).
+// _pallas_forward (monolithic mode), in three configurations:
+//   * Cornell: quads + matrix-instanced unit spheres, env "none", quad-light
+//     next-event estimation;
+//   * quadric: the same plus the 12 transformed unit quadrics of
+//     scenes/quadric_geometry.py (csrc/quadrics.cuh; nqd = 12, shape_k a
+//     runtime argument);
+//   * sky: env "sky" (the Preetham miss shading of csrc/sky.cuh) with sun
+//     NEE through the specular lobe (template argument kSky).
+// Each runs with param_grads off (entry bpt_trace) and on (bpt_trace_grads,
+// template argument kGrads).  It computes what the plain PyTorch integrator
+// (bpt_tpu_torch/integrator/radiance.py, a mirror of the JAX wavefront)
+// computes, draw for draw: ray generation with tent AA and thin-lens DoF (4
+// hash draws), then up to `bounces` bounces with the fixed per-bounce
+// schedule gate1, gate2 (blue noise) and hem.r, hem.phi (hash), then
+// quad.x, quad.y, quad.z with quad NEE or lobe.cos, lobe.phi with sun NEE.
+// With sun NEE there is no light-hit block: a LIGHT-typed surface is an
+// unknown material and ends the path, as in the plain version.
 //
-// The grads mode (template argument kGrads) writes the same 11 planes plus
-// the path-replay planes out_sg, (n_sg, H, W) planes-major, n_obj = ns + nq
-// objects in hit-id order (spheres, then quads): plane j counts the bounces
-// whose throughput factor is linear in object j's color (diffuse, metal, the
+// The grads mode writes the same 11 planes plus the path-replay planes
+// out_sg, (n_sg, H, W) planes-major, n_obj = ns + nqd + nq objects in
+// hit-id order (spheres, quadrics, quads): plane j counts the bounces whose
+// throughput factor is linear in object j's color (diffuse, metal, the
 // clearcoat base, a light hit that contributes, and refraction when
 // transparent_tint is on); with the tint off, plane n_obj + j sums 0.01 * t
 // over the refractions that leave glass object j, in bounce order (the
 // Beer-Lambert exponent).  The gate is the kernel's own absorption test
-// dot(n, rd) >= 0, so plane and absorption agree even at 0.  The backward
-// (kernels/megakernel.py, _PathReplay) turns the planes into gradients.
+// dot(n, rd) >= 0, so plane and absorption agree even at 0.  A sky miss adds
+// nothing.  The backward (kernels/megakernel.py, _PathReplay) turns the
+// planes into gradients.
 //
-// What bounds it on this card: per-thread arithmetic and latency (the
-// intersection of every ray with 6 quads as 12 Moller-Trumbore triangles and
-// 2 instanced spheres, plus sin/cos/exp/log and IEEE divides and square
-// roots), with warp divergence across the four material branches.  It moves
-// almost no memory: a few hundred floats of scene constants, one blue-noise
-// texel and 11 output floats per pixel.  The grads mode adds n_sg * 4 bytes
-// per pixel: 64 B, i.e. 64 MB per 1024^2 frame, for the Cornell box's 8
-// objects with the tint off (16 planes), which by itself is ~20 us of HBM
-// time at 3.35 TB/s.
+// What bounds it on this card: per-thread arithmetic and latency, with warp
+// divergence.  Cornell: the intersection of every ray with 6 quads as 12
+// Moller-Trumbore triangles and 2 instanced spheres, plus sin/cos/exp/log
+// and IEEE divides and square roots, divergent across the four material
+// branches.  Quadric: the 12 unit intersectors per live bounce, and above
+// all the torus's SDF march: a ray inside the torus's bound marches until
+// |d| < 0.01 (tens of steps, up to 500 near grazing), and the 31 other
+// threads of its warp wait for the slowest one.  Sky: the Preetham
+// evaluation on every miss (acos, cos, exp and 4 powf per channel) and
+// the sun lobe's powf per bounce.  It moves almost no memory: a few
+// hundred floats of scene constants, one blue-noise texel and 11 output
+// floats per pixel.  The grads mode adds n_sg * 4 bytes per pixel.
 //
 // What the design does about that: one thread per pixel with its whole path
-// state in registers; the scene constants sit in shared memory, loaded once
-// per block; the blue-noise texel is gathered directly from the 256x256x4
-// table (the TPU kernel needed host-rolled planes because Mosaic has no
-// per-lane gather).  Unlike the TPU's masked lockstep, a thread leaves the
-// bounce loop once its path is dead (a dead lane's records never change
-// again) and evaluates only its own material's branch; every draw of a
-// bounce is still consumed, so the random streams stay aligned with the
-// plain version.  Making it fast (persistent blocks, material sorting) is
-// later work.
+// state in registers; the scene constants and the parameter pack sit in
+// shared memory, loaded once per block; the blue-noise texel is gathered
+// directly from the 256x256x4 table (the TPU kernel needed host-rolled
+// planes because Mosaic has no per-lane gather).  Unlike the TPU's masked
+// lockstep, a thread leaves the bounce loop once its path is dead (a dead
+// lane's records never change again), evaluates only its own material's
+// branch and the sky only on its own miss, leaves the torus march when its
+// lane freezes, and does not march a ray that misses the torus's bound;
+// every draw of a bounce is still consumed, so the random streams stay
+// aligned with the plain version.  The divergence of the march is left as
+// it is: sorting rays or marching in a separate pass is later work.
 //
 // The grads planes: a thread cannot hold n_obj accumulators (the wrapper
-// allows 256 quads + 64 spheres), but a path touches at most `bounces`
-// entries of its own pixel's planes.  So each thread first writes zeros to
-// its pixel's n_sg entries (the planes' only full write, coalesced across the
-// warp: n_sg * 4 B per pixel, no separate memset launch), then
+// allows 256 quads + 64 spheres + 12 quadrics), but a path touches at most
+// `bounces` entries of its own pixel's planes.  So each thread first writes
+// zeros to its pixel's n_sg entries (the planes' only full write, coalesced
+// across the warp: n_sg * 4 B per pixel, no separate memset launch), then
 // read-modify-writes the entry of the object it hit on each bounce that
 // counts: at most `bounces` further 4-byte loads and stores per pixel, which
 // stay in L2.  One thread owns one pixel, so no atomics are needed.
@@ -56,17 +71,31 @@
 // in (x + y) + z order, as the plain version does.  Built with --fmad=false:
 // with nvcc's default FMA contraction, 17 (METAL right sphere) and 31
 // (TRANSPARENT) of the 1024x1024 first-hit normals missed the parity
-// tolerance (rtol 1e-3, atol 1e-4) against the plain version on an H100; without it the kernel's outputs are bit-equal
-// to the plain version's on the card.  Restoring FMA is a later
-// performance change.
+// tolerance (rtol 1e-3, atol 1e-4) against the plain version on an H100;
+// without it the kernel's outputs are bit-equal to the plain version's on
+// the card.  Restoring FMA is a later performance change.
+//
+// Registers (nvcc 12.9 -Xptxas -v for sm_90a, printed by chip_smoke.py's
+// build phase): <false, false> (forward, quad NEE: Cornell and quadric) 76,
+// <false, true> (forward, sky) 80, <true, false> 80, <true, true> 86; no
+// spills; a 48-byte stack frame in each.  By registers alone an SM holds 3
+// blocks of 256 threads (2 for the 86-register one).  The quadric code
+// costs the Cornell configuration about 2-3% of device time (measured with
+// bpt_tpu_torch/tools/ab_time.py against a copy without the quadric loop):
+// the price of one function for the configurations that share the quad-NEE
+// path.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "quadrics.cuh"
+#include "sky.cuh"
+#include "vec.cuh"
+
 namespace {
 
-constexpr float kInf = 1.0e6f;
-constexpr float kTwoPi = 6.28318530717958648f;
+using namespace bpt;
+
 constexpr uint32_t kMagic = 1103515245u;
 
 constexpr int kLight = 0;
@@ -76,38 +105,14 @@ constexpr int kMetal = 3;
 constexpr int kClearcoat = 4;
 
 // Packed scene layouts (bpt_tpu_torch/kernels/megakernel.py pack_scene /
-// pack_camera): cam = pos3 right3 up3 fwd3 ulen vlen aperture focus;
-// quad row (20) = n3 v0 v1 v2 v3 color3 mat pad; sphere row (21) =
-// inverse 4x4 row-major (16) color3 mat pad.
+// pack_camera / pack_params): cam = pos3 right3 up3 fwd3 ulen vlen aperture
+// focus; quad row (20) = n3 v0 v1 v2 v3 color3 mat pad; sphere row (21) =
+// inverse 4x4 row-major (16) color3 mat pad; quadric row (20) = inverse 4x4
+// row-major (16) color3 mat; the parameter pack: sky.cuh.
 constexpr int kCamFloats = 16;
 constexpr int kQuadFloats = 20;
 constexpr int kSphereFloats = 21;
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
-__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-__device__ __forceinline__ V3 mul(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
-}
-__device__ __forceinline__ V3 normalize(V3 v) {
-  return mul(v, 1.0f / sqrtf(fmaxf(dot(v, v), 1e-20f)));
-}
-__device__ __forceinline__ float safe_sqrt(float x) { return sqrtf(x > 1e-20f ? x : 1e-20f); }
-__device__ __forceinline__ float safe_inv(float x) {
-  float ax = fabsf(x);
-  return (x < 0.0f ? -1.0f : 1.0f) / (ax > 1e-12f ? ax : 1e-12f);
-}
-__device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
-__device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
-// GLSL reflect: I - 2*dot(N,I)*N
-__device__ __forceinline__ V3 reflect(V3 i, V3 n) { return sub(i, mul(n, 2.0f * dot(n, i))); }
+constexpr int kQuadricFloats = 20;
 
 // iq's uvec2 hash, one draw: native uint32 wrap-around, mantissa bitcast.
 __device__ __forceinline__ float rng_next(uint32_t& sx, uint32_t& sy) {
@@ -179,9 +184,8 @@ __device__ __forceinline__ V3 cos_hemisphere(V3 nl, float r_, float p_) {
   float x = r * cosf(phi);
   float y = r * sinf(phi);
   float z = safe_sqrt(1.0f - x * x - y * y);
-  V3 helper = fabsf(nl.y) < 0.9f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
-  V3 u = normalize(cross(helper, nl));
-  V3 v = cross(nl, u);
+  V3 u, v;
+  onb(nl, &u, &v);
   return normalize(add(add(mul(u, x), mul(v, y)), mul(nl, z)));
 }
 
@@ -204,31 +208,29 @@ __device__ __forceinline__ V3 quad_light(const float* lq, V3 x, V3 nl, float rx,
   return d;
 }
 
-template <bool kGrads>
-__global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const float* __restrict__ quads_g, int nq,
-                                     const float* __restrict__ spheres_g, int ns,
-                                     const float* __restrict__ blue_noise, int bn_ox, int bn_oy, int width,
-                                     int height, int bounces, float eps, int light_index, int diffuse_indirect_max,
-                                     int camera_is_moving, int transparent_tint, uint32_t frame_u, float frame_f,
-                                     float* __restrict__ out_color, float* __restrict__ out_normal,
-                                     float* __restrict__ out_ocolor, float* __restrict__ out_oid,
-                                     float* __restrict__ out_sharp, float* __restrict__ out_sg) {
+template <bool kGrads, bool kSky>
+__global__ void trace_kernel(const float* __restrict__ cam_g, const float* __restrict__ params_g,
+                             const float* __restrict__ quads_g, int nq, const float* __restrict__ spheres_g, int ns,
+                             const float* __restrict__ quadrics_g, int nqd, const float* __restrict__ blue_noise,
+                             int bn_ox, int bn_oy, int width, int height, int bounces, float eps, int light_index,
+                             int diffuse_indirect_max, int camera_is_moving, int transparent_tint, uint32_t frame_u,
+                             float frame_f, float* __restrict__ out_color, float* __restrict__ out_normal,
+                             float* __restrict__ out_ocolor, float* __restrict__ out_oid,
+                             float* __restrict__ out_sharp, float* __restrict__ out_sg) {
+  // ---- constants into shared memory: cam | params | quads | spheres | quadrics
   extern __shared__ float smem[];
   float* cam = smem;
-  float* quads = cam + kCamFloats;
+  float* P = cam + kCamFloats;
+  float* quads = P + kParamFloats;
   float* spheres = quads + nq * kQuadFloats;
-  const int n_const = kCamFloats + nq * kQuadFloats + ns * kSphereFloats;
+  float* quadrics = spheres + ns * kSphereFloats;
+  const int seg[5] = {kCamFloats, kParamFloats, nq * kQuadFloats, ns * kSphereFloats, nqd * kQuadricFloats};
+  const float* src[5] = {cam_g, params_g, quads_g, spheres_g, quadrics_g};
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < n_const; i += blockDim.x * blockDim.y) {
-    float v;
-    if (i < kCamFloats) {
-      v = cam_g[i];
-    } else if (i < kCamFloats + nq * kQuadFloats) {
-      v = quads_g[i - kCamFloats];
-    } else {
-      v = spheres_g[i - kCamFloats - nq * kQuadFloats];
-    }
-    smem[i] = v;
+  int base = 0;
+  for (int g = 0; g < 5; ++g) {
+    for (int i = tid; i < seg[g]; i += blockDim.x * blockDim.y) smem[base + i] = src[g][i];
+    base += seg[g];
   }
   __syncthreads();
 
@@ -236,10 +238,11 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
   const int py = blockIdx.y * blockDim.y + threadIdx.y;
   if (px >= width || py >= height) return;
   const int pix = py * width + px;
+  const float shape_k = P[kPShapeK];
 
   // ---- grads mode: zero this pixel's path-replay entries -----------------
   const size_t plane = (size_t)width * (size_t)height;
-  const int n_obj = ns + nq;
+  const int n_obj = ns + nqd + nq;
   if constexpr (kGrads) {
     const int n_sg = transparent_tint ? n_obj : 2 * n_obj;
     for (int j = 0; j < n_sg; ++j) out_sg[j * plane + pix] = 0.0f;
@@ -283,10 +286,10 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
   float sharp = 0.0f;
   V3 obj_normal = v3(0.0f, 0.0f, 0.0f), obj_color = v3(0.0f, 0.0f, 0.0f);
   float obj_id = -kInf;
-  const float* lq = quads + light_index * kQuadFloats;
+  const float* lq = quads + (kSky ? 0 : light_index) * kQuadFloats;
 
   for (int bounce = 0; bounce < bounces; ++bounce) {
-    // ---- closest hit: spheres first, then quads; strict < keeps ties -----
+    // ---- closest hit: spheres, quadrics, quads; strict < keeps ties ------
     float t_best = kInf;
     V3 nrm = v3(0.0f, 0.0f, 0.0f), hc = v3(0.0f, 0.0f, 0.0f);
     int mat = -100;
@@ -294,37 +297,26 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
     int hobj = -1;
     for (int s = 0; s < ns; ++s) {
       const float* m = spheres + s * kSphereFloats;
-      V3 o = xform_point(m, ro), d = xform_dir(m, rd);
-      float a = dot(d, d), b = 2.0f * dot(d, o), c = dot(o, o) - 1.0f;
-      float inv_a = safe_inv(a);
-      b = b * inv_a;
-      c = c * inv_a;
-      float nhb = -b * 0.5f;
-      float u2 = nhb * nhb - c;
-      bool real = u2 >= 0.0f;
-      float u = safe_sqrt(u2);
-      nhb = real ? nhb : 0.0f;
-      u = real ? u : 0.0f;
-      float t0 = nhb - u, t1 = nhb + u;
-      float t;
-      V3 n_obj;
-      if (t0 > 0.0f) {
-        t = t0;
-        n_obj = mul(add(o, mul(d, t0)), 2.0f);
-      } else if (t1 > 0.0f) {
-        t = t1;
-        n_obj = mul(add(o, mul(d, t1)), 2.0f);
-      } else {
-        t = kInf;
-        n_obj = v3(0.0f, 1.0f, 0.0f);
-      }
-      if (t < t_best) {
-        t_best = t;
-        nrm = normalize(xform_normal(m, normalize(n_obj)));
+      QHit h = q_sphere(xform_point(m, ro), xform_dir(m, rd));
+      if (h.t < t_best) {
+        t_best = h.t;
+        nrm = normalize(xform_normal(m, normalize(h.n)));
         hc = load3(m + 16);
         mat = (int)m[19];
         hid = (float)s;
         hobj = s;
+      }
+    }
+    for (int i = 0; i < nqd; ++i) {
+      const float* m = quadrics + i * kQuadricFloats;
+      QHit h = quadric_intersect(i, xform_point(m, ro), xform_dir(m, rd), shape_k);
+      if (h.t < t_best) {
+        t_best = h.t;
+        nrm = normalize(xform_normal(m, normalize(h.n)));
+        hc = load3(m + 16);
+        mat = (int)m[19];
+        hid = (float)(ns + i);
+        hobj = ns + i;
       }
     }
     for (int q = 0; q < nq; ++q) {
@@ -336,11 +328,34 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
         nrm = load3(Q + 0);
         hc = load3(Q + 15);
         mat = (int)Q[18];
-        hid = (float)(ns + q);
-        hobj = ns + q;
+        hid = (float)(ns + nqd + q);
+        hobj = ns + nqd + q;
       }
     }
-    if (t_best >= kInf) break;  // env "none": a miss is black and ends the path
+    if (t_best >= kInf) {  // a miss ends the path; env "none" leaves it black
+      if constexpr (kSky) {
+        V3 env = sky_color(rd, P);
+        if (bounce == 0) {  // a primary ray sees the sky
+          acc = env;
+          sharp = 1.01f;
+        } else {  // first-match case chain c2 > c3 > c4 > c5
+          bool c2 = d_count == 0 && spec;
+          bool c3 = sample_light;
+          bool c4 = d_count == 1 && prev_mat == kTransparent && spec;
+          bool c5 = d_count > 0;
+          V3 lit = mul3(mask, env);
+          if (c2 || c3 || c4) {
+            acc = lit;
+          } else if (c5) {
+            acc = mul(lit, dot(rd, load3(P + kPSun)) < 0.99f ? 1.0f : 0.0f);  // clip the sun disc
+          } else {
+            acc = v3(0.0f, 0.0f, 0.0f);
+          }
+          if (c2) sharp = 1.01f;
+        }
+      }
+      break;
+    }
 
     V3 n = normalize(nrm);
     V3 nl = dot(n, rd) < 0.0f ? n : neg(n);
@@ -356,14 +371,16 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
       obj_id = hid;
     }
 
-    // ---- a light hit ends the path -----------------------------------------
-    if (mat == kLight) {
-      if (d_count == 0) sharp = 1.01f;
-      if (spec || sample_light) {
-        acc = v3(mask.x * hc.x, mask.y * hc.y, mask.z * hc.z);
-        add_sg(hobj, 1.0f);
+    // ---- a light hit ends the path (quad-light NEE only) -----------------
+    if constexpr (!kSky) {
+      if (mat == kLight) {
+        if (d_count == 0) sharp = 1.01f;
+        if (spec || sample_light) {
+          acc = mul3(mask, hc);
+          add_sg(hobj, 1.0f);
+        }
+        break;
       }
-      break;
     }
     // ---- so does a failed shadow ray -------------------------------------
     if (sample_light) break;
@@ -373,20 +390,27 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
     const float gate2 = bn[(2 * bounce + 1) & 3];
     const float hem_r = rng_next(sx, sy);
     const float hem_p = rng_next(sx, sy);
-    const float qx = rng_next(sx, sy);
-    const float qy = rng_next(sx, sy);
-    const float qz = rng_next(sx, sy);
+    float d0 = rng_next(sx, sy);  // quad.x | lobe.cos
+    float d1 = rng_next(sx, sy);  // quad.y | lobe.phi
+    float d2 = kSky ? 0.0f : rng_next(sx, sy);  // quad.z
+    auto nee = [&](float* w) {
+      if constexpr (kSky) {
+        return sun_nee(P, nl, d0, d1, w);
+      } else {
+        return quad_light(lq, x, nl, d0, d1, d2, w);
+      }
+    };
 
     if (mat == kDiffuse) {
       int dc = d_count + 1;
       bool go_indirect = (dc <= diffuse_indirect_max) && (gate1 < 0.5f);
-      V3 md = v3(mask.x * hc.x, mask.y * hc.y, mask.z * hc.z);
+      V3 md = mul3(mask, hc);
       if (go_indirect) {
         rd = cos_hemisphere(nl, hem_r, hem_p);
         mask = md;
       } else {
         float w;
-        rd = quad_light(lq, x, nl, qx, qy, qz, &w);
+        rd = nee(&w);
         mask = mul(md, w);
       }
       ro = add(x, mul(nl, eps));
@@ -395,7 +419,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
       d_count = dc;
       add_sg(hobj, 1.0f);
     } else if (mat == kMetal) {
-      mask = v3(mask.x * hc.x, mask.y * hc.y, mask.z * hc.z);
+      mask = mul3(mask, hc);
       add_sg(hobj, 1.0f);
       rd = reflect(rd, nl);
       ro = add(x, mul(nl, eps));
@@ -452,7 +476,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
           mask = mb;
         } else {
           float w;
-          rd = quad_light(lq, x, nl, qx, qy, qz, &w);
+          rd = nee(&w);
           mask = mul(mb, w);
         }
         // `bounce < 3` guards against noisy coat-after-glass pixels
@@ -465,7 +489,7 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
       ro = add(x, mul(nl, eps));
       coat_hit = true;
     } else {
-      break;  // unknown material ids end the path
+      break;  // unknown material ids (and LIGHT under sun NEE) end the path
     }
     prev_mat = mat;
   }
@@ -483,44 +507,51 @@ __global__ void cornell_trace_kernel(const float* __restrict__ cam_g, const floa
   out_sharp[pix] = sharp;
 }
 
-template <bool kGrads>
-int launch(const float* cam, const float* quads, int nq, const float* spheres, int ns, const float* blue_noise,
-           int bn_ox, int bn_oy, int width, int height, int bounces, float eps, int light_index,
-           int diffuse_indirect_max, int camera_is_moving, int transparent_tint, unsigned int frame_u, float frame_f,
-           float* out_color, float* out_normal, float* out_ocolor, float* out_oid, float* out_sharp, float* out_sg,
-           void* stream) {
+template <bool kGrads, bool kSky>
+int launch_cfg(const float* cam, const float* params, const float* quads, int nq, const float* spheres, int ns,
+               const float* quadrics, int nqd, const float* blue_noise, int bn_ox, int bn_oy, int width, int height,
+               int bounces, float eps, int light_index, int diffuse_indirect_max, int camera_is_moving,
+               int transparent_tint, unsigned int frame_u, float frame_f, float* out_color, float* out_normal,
+               float* out_ocolor, float* out_oid, float* out_sharp, float* out_sg, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  const size_t smem = sizeof(float) * (kCamFloats + nq * kQuadFloats + ns * kSphereFloats);
-  cornell_trace_kernel<kGrads><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam, quads, nq, spheres, ns, blue_noise, bn_ox, bn_oy, width, height, bounces, eps, light_index,
-      diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color, out_normal, out_ocolor,
-      out_oid, out_sharp, out_sg);
+  const size_t smem = sizeof(float) * (kCamFloats + kParamFloats + nq * kQuadFloats + ns * kSphereFloats +
+                                       nqd * kQuadricFloats);
+  trace_kernel<kGrads, kSky><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
+      cam, params, quads, nq, spheres, ns, quadrics, nqd, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
+      light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color, out_normal,
+      out_ocolor, out_oid, out_sharp, out_sg);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int bpt_cornell_trace(const float* cam, const float* quads, int nq, const float* spheres, int ns,
-                                 const float* blue_noise, int bn_ox, int bn_oy, int width, int height,
-                                 int bounces, float eps, int light_index, int diffuse_indirect_max,
-                                 int camera_is_moving, int transparent_tint, unsigned int frame_u, float frame_f,
-                                 float* out_color, float* out_normal, float* out_ocolor, float* out_oid,
-                                 float* out_sharp, void* stream) {
-  return launch<false>(cam, quads, nq, spheres, ns, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
-                       light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f,
-                       out_color, out_normal, out_ocolor, out_oid, out_sharp, nullptr, stream);
+// One frame of the configuration the arguments select: sky != 0 is env "sky"
+// with sun NEE (light_index unused), else env "none" with quad NEE; nqd is 0
+// or 12 (the transformed-quadric set, shape parameter params[0]).
+extern "C" int bpt_trace(const float* cam, const float* params, const float* quads, int nq, const float* spheres,
+                         int ns, const float* quadrics, int nqd, int sky, const float* blue_noise, int bn_ox,
+                         int bn_oy, int width, int height, int bounces, float eps, int light_index,
+                         int diffuse_indirect_max, int camera_is_moving, int transparent_tint, unsigned int frame_u,
+                         float frame_f, float* out_color, float* out_normal, float* out_ocolor, float* out_oid,
+                         float* out_sharp, void* stream) {
+  auto fn = sky ? launch_cfg<false, true> : launch_cfg<false, false>;
+  return fn(cam, params, quads, nq, spheres, ns, quadrics, nqd, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
+            light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color,
+            out_normal, out_ocolor, out_oid, out_sharp, nullptr, stream);
 }
 
-// As bpt_cornell_trace, plus the (n_sg, H, W) path-replay planes out_sg,
-// n_sg = ns + nq with transparent_tint and 2 * (ns + nq) without.
-extern "C" int bpt_cornell_trace_grads(const float* cam, const float* quads, int nq, const float* spheres, int ns,
-                                       const float* blue_noise, int bn_ox, int bn_oy, int width, int height,
-                                       int bounces, float eps, int light_index, int diffuse_indirect_max,
-                                       int camera_is_moving, int transparent_tint, unsigned int frame_u,
-                                       float frame_f, float* out_color, float* out_normal, float* out_ocolor,
-                                       float* out_oid, float* out_sharp, float* out_sg, void* stream) {
-  return launch<true>(cam, quads, nq, spheres, ns, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
-                      light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f,
-                      out_color, out_normal, out_ocolor, out_oid, out_sharp, out_sg, stream);
+// As bpt_trace, plus the (n_sg, H, W) path-replay planes out_sg,
+// n_sg = ns + nqd + nq with transparent_tint and twice that without.
+extern "C" int bpt_trace_grads(const float* cam, const float* params, const float* quads, int nq,
+                               const float* spheres, int ns, const float* quadrics, int nqd, int sky,
+                               const float* blue_noise, int bn_ox, int bn_oy, int width, int height, int bounces,
+                               float eps, int light_index, int diffuse_indirect_max, int camera_is_moving,
+                               int transparent_tint, unsigned int frame_u, float frame_f, float* out_color,
+                               float* out_normal, float* out_ocolor, float* out_oid, float* out_sharp, float* out_sg,
+                               void* stream) {
+  auto fn = sky ? launch_cfg<true, true> : launch_cfg<true, false>;
+  return fn(cam, params, quads, nq, spheres, ns, quadrics, nqd, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
+            light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color,
+            out_normal, out_ocolor, out_oid, out_sharp, out_sg, stream);
 }

@@ -1,0 +1,49 @@
+// Float3 helpers shared by the megakernel and its headers.  Every helper
+// mirrors bpt_tpu_torch/core/vecmath.py operation for operation: dot
+// products sum in (x + y) + z order, normalize multiplies by 1 / sqrt.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace bpt {
+
+constexpr float kInf = 1.0e6f;
+constexpr float kTwoPi = 6.28318530717958648f;
+
+struct V3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ V3 v3(float x, float y, float z) { return V3{x, y, z}; }
+__device__ __forceinline__ V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+__device__ __forceinline__ V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+__device__ __forceinline__ V3 mul(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
+__device__ __forceinline__ V3 mul3(V3 a, V3 b) { return v3(a.x * b.x, a.y * b.y, a.z * b.z); }
+__device__ __forceinline__ V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
+__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+__device__ __forceinline__ V3 cross(V3 a, V3 b) {
+  return v3(a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x);
+}
+__device__ __forceinline__ V3 normalize(V3 v) {
+  return mul(v, 1.0f / sqrtf(fmaxf(dot(v, v), 1e-20f)));
+}
+__device__ __forceinline__ float safe_sqrt(float x) { return sqrtf(x > 1e-20f ? x : 1e-20f); }
+__device__ __forceinline__ float safe_inv(float x) {
+  float ax = fabsf(x);
+  return (x < 0.0f ? -1.0f : 1.0f) / (ax > 1e-12f ? ax : 1e-12f);
+}
+__device__ __forceinline__ float clampf(float x, float lo, float hi) { return fminf(fmaxf(x, lo), hi); }
+__device__ __forceinline__ V3 load3(const float* p) { return v3(p[0], p[1], p[2]); }
+// ro + rd * t
+__device__ __forceinline__ V3 at(V3 ro, V3 rd, float t) { return add(ro, mul(rd, t)); }
+// GLSL reflect: I - 2*dot(N,I)*N
+__device__ __forceinline__ V3 reflect(V3 i, V3 n) { return sub(i, mul(n, 2.0f * dot(n, i))); }
+// The reference's cross-trick ONB about w.
+__device__ __forceinline__ void onb(V3 w, V3* u, V3* v) {
+  V3 helper = fabsf(w.y) < 0.9f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
+  *u = normalize(cross(helper, w));
+  *v = cross(w, *u);
+}
+
+}  // namespace bpt

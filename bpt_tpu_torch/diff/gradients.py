@@ -34,7 +34,7 @@ def make_render_loss(
     scene and camera are built from).
 
     ``build_scene_and_camera(params) -> (scene, camera)``; the loss runs on
-    the scene's device.  With ``target`` (H, W, 3) the loss is the MSE to
+    the camera's device.  With ``target`` (H, W, 3) the loss is the MSE to
     it, without it the mean radiance.
     """
     bn = torch.as_tensor(blue_noise if blue_noise is not None else blue_noise_table(), dtype=torch.float32)
@@ -43,7 +43,7 @@ def make_render_loss(
 
     def loss(params):
         scene, camera = build_scene_and_camera(params)
-        device = scene.quads.v0.device
+        device = camera.position.device
         bn_d = bn.to(device)
         acc = 0.0
         for f in frames:

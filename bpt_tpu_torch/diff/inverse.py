@@ -31,7 +31,7 @@ class OptimizeResult(NamedTuple):
 
 def render_avg(scene, camera, cfg: IntegratorConfig, size: int, frames: Sequence[float], rand_vec2, blue_noise,
                fused: bool = True, reorder: bool = False) -> torch.Tensor:
-    """Average of several 1-spp frames, (size, size, 3), on the scene's device:
+    """Average of several 1-spp frames, (size, size, 3), on the camera's device:
     the render on both sides of the inverse-rendering loss.
 
     ``fused=True`` runs ``trace_image_fused(differentiable=True)``: the CUDA
@@ -44,7 +44,7 @@ def render_avg(scene, camera, cfg: IntegratorConfig, size: int, frames: Sequence
     """
     if reorder:
         raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
-    bn = torch.as_tensor(blue_noise, dtype=torch.float32).to(scene.quads.v0.device)
+    bn = torch.as_tensor(blue_noise, dtype=torch.float32).to(camera.position.device)
     acc = 0.0
     for f in frames:
         if fused:

@@ -1,9 +1,9 @@
 """Closest hit over the whole scene (port of ``bpt_tpu.integrator.intersect``
-for the Cornell family: unit spheres, then quads).
+for unit spheres, the transformed-quadric set and quads).
 
 Object ids follow the reference's order: spheres first (0, 1, ...), then the
-quads.  Every group is merged with a strict ``<``, so on a tie the earlier
-object keeps the hit.
+quadrics, then the quads.  Every group is merged with a strict ``<``, so on
+a tie the earlier object keeps the hit.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import NamedTuple
 import torch
 
 from bpt_tpu_torch.core.vecmath import INFINITY, normal_to_world, normalize, transform_dir, transform_point
-from bpt_tpu_torch.geometry.quadrics import unit_sphere_intersect
+from bpt_tpu_torch.geometry.quadrics import UNIT_INTERSECTORS, unit_sphere_intersect, unit_torus_intersect
 from bpt_tpu_torch.geometry.triangles import quad_intersect
 from bpt_tpu_torch.scenes.types import Scene
 
@@ -60,6 +60,22 @@ def _intersect_unit_spheres(spheres, ro, rd, best: Hit, id_base: int) -> Hit:
     return best
 
 
+def _intersect_quadrics(quadrics, ro, rd, best: Hit, id_base: int, torus_steps: list | None = None) -> Hit:
+    """The 12-shape set, entry i of ``quadrics`` being UNIT_INTERSECTORS[i]."""
+    for i, (name, fn) in enumerate(UNIT_INTERSECTORS):
+        inv = quadrics.inv_matrix[i]
+        ro_o, rd_o = transform_point(inv, ro), transform_dir(inv, rd)
+        if name == "torus" and torus_steps is not None:
+            t, n_obj = unit_torus_intersect(ro_o, rd_o, quadrics.shape_k, steps_out=torus_steps)
+        else:
+            t, n_obj = fn(ro_o, rd_o, quadrics.shape_k)
+        best = _merge(
+            best, t, normal_to_world(inv, normalize(n_obj)), quadrics.color[i].expand_as(ro),
+            quadrics.mat_type[i].expand_as(t), torch.full_like(t, float(id_base + i)),
+        )
+    return best
+
+
 def _intersect_quads(quads, ro, rd, best: Hit, id_base: int) -> Hit:
     """All quads at once: rays (..., 1, 3) against quads (Nq, 3); the first
     minimum wins, as ``argmin`` does in the reference."""
@@ -71,15 +87,20 @@ def _intersect_quads(quads, ro, rd, best: Hit, id_base: int) -> Hit:
                   first.to(torch.float32) + float(id_base))
 
 
-def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor) -> Hit:
-    """Nearest hit over spheres and quads for (..., 3) rays of any batch shape."""
-    if scene.quadrics is not None or scene.mesh is not None:
-        raise NotImplementedError("bpt_tpu_torch supports quads and unit spheres only so far")
+def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_steps: list | None = None) -> Hit:
+    """Nearest hit over spheres, quadrics and quads for (..., 3) rays of any
+    batch shape.  ``torus_steps``, for measurement, receives the torus
+    march's per-lane step counts (``unit_torus_intersect``'s ``steps_out``)."""
+    if scene.mesh is not None:
+        raise NotImplementedError("meshes are not ported yet")
     best = _empty_hit(ro.shape[:-1], ro.device, ro.dtype)
     id_base = 0
     if scene.spheres is not None:
         best = _intersect_unit_spheres(scene.spheres, ro, rd, best, id_base)
         id_base += scene.spheres.inv_matrix.shape[0]
+    if scene.quadrics is not None:
+        best = _intersect_quadrics(scene.quadrics, ro, rd, best, id_base, torus_steps)
+        id_base += scene.quadrics.inv_matrix.shape[0]
     if scene.quads is not None:
         best = _intersect_quads(scene.quads, ro, rd, best, id_base)
     return best

@@ -2,14 +2,17 @@
 
 Every bounce intersects all live rays, evaluates every material branch over
 the whole pixel array and selects by material id with per-lane masks — the
-plain PyTorch version of the fused kernel.  This slice covers env "none"
-with quad-light NEE and the DIFFUSE, METAL, TRANSPARENT and CLEARCOAT
-branches; other configurations raise ``NotImplementedError``.
+plain PyTorch version of the fused kernel.  Two configurations are ported:
+env "none" with quad-light NEE (the Cornell and quadric demos) and env
+"sky" with sun NEE (the Preetham demo), with the DIFFUSE, METAL,
+TRANSPARENT and CLEARCOAT branches; other configurations raise
+``NotImplementedError``.
 
 Draw order per bounce (the RNG seam shared with the kernel and the
-reference): blue noise gate1, gate2; hash hem.r, hem.phi, quad.x, quad.y,
-quad.z.  Discrete decisions are detached from autograd (``.detach()`` where
-the reference has ``stop_gradient``).
+reference): blue noise gate1, gate2; hash hem.r, hem.phi, then quad.x,
+quad.y, quad.z (nee "quad") or lobe.cos, lobe.phi (nee "sun").  Discrete
+decisions are detached from autograd (``.detach()`` where the reference has
+``stop_gradient``).
 
 With ``param_grads=True`` the pass also returns the path-replay planes of
 the TPU kernel's ``param_grads`` output (``bpt_tpu/kernels/megakernel.py``,
@@ -19,7 +22,8 @@ factor is linear in object j's color (diffuse, metal, the clearcoat base,
 a contributing light hit, and tinted refraction when
 ``cfg.transparent_tint``); with the tint off, planes n_obj..2*n_obj-1 sum
 0.01*t over the refractions that leave glass object j (Beer-Lambert).
-Object ids are the ``Hit.object_id`` order: spheres, then quads.
+Object ids are the ``Hit.object_id`` order: spheres, quadrics, quads.  A
+sky miss adds no plane: the sky radiance does not depend on any color.
 """
 
 from __future__ import annotations
@@ -30,12 +34,16 @@ import torch
 
 from bpt_tpu_torch.core.fresnel import calc_fresnel_reflectance
 from bpt_tpu_torch.core.rng import BlueNoise, RngState, bn_next, rng_next
-from bpt_tpu_torch.core.sampling import cos_hemisphere_from_uniforms
+from bpt_tpu_torch.core.sampling import cos_hemisphere_from_uniforms, specular_lobe_from_uniforms
 from bpt_tpu_torch.core.vecmath import INFINITY, dot, face_forward, normalize, reflect, refract
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.intersect import scene_intersect
 from bpt_tpu_torch.lights import quad_light_from_uniforms
 from bpt_tpu_torch.scenes.types import CLEARCOAT_DIFFUSE, DIFFUSE, LIGHT, METAL, TRANSPARENT, Scene
+from bpt_tpu_torch.sky import get_sky_color
+
+#: The (env, nee) pairs the port runs.
+SUPPORTED = (("none", "quad"), ("sky", "sun"))
 
 
 class RadianceResult(NamedTuple):
@@ -48,16 +56,36 @@ class RadianceResult(NamedTuple):
     pixel_sharpness: torch.Tensor  # (...,) denoiser flag (0 / -1 / 1.01)
 
 
+class LaneCounts(NamedTuple):
+    """One bounce's lane counts (0-d tensors), for measurement: the lanes
+    still alive (those for which the kernel runs the bounce's intersection),
+    of those the lanes that hit something and the lanes that missed, and
+    the torus march's SDF evaluations on live lanes."""
+
+    live: torch.Tensor
+    hits: torch.Tensor
+    misses: torch.Tensor
+    torus_steps: torch.Tensor
+
+
 def check_supported(scene: Scene, cfg: IntegratorConfig) -> None:
-    """Raise NotImplementedError for anything outside the Cornell slice."""
-    if cfg.env != "none" or cfg.nee != "quad":
-        raise NotImplementedError(f"env={cfg.env!r}, nee={cfg.nee!r}: only env 'none' + nee 'quad' is ported")
+    """Raise NotImplementedError for a configuration the port does not run
+    (ValueError for a scene that lacks what its configuration needs)."""
+    if (cfg.env, cfg.nee) not in SUPPORTED:
+        raise NotImplementedError(
+            f"env={cfg.env!r}, nee={cfg.nee!r}: the port runs env 'none' + nee 'quad' and env 'sky' + nee 'sun'")
+    if cfg.sun_weight_mode not in ("sky", "hdri"):
+        raise ValueError(f"sun_weight_mode {cfg.sun_weight_mode!r} is not 'sky' or 'hdri'")
     if cfg.metal_roughness_lobe:
         raise NotImplementedError("metal_roughness_lobe is not ported yet")
-    if scene.quadrics is not None or scene.mesh is not None or scene.env is not None:
-        raise NotImplementedError("quadrics, meshes and environments are not ported yet")
-    if scene.quads is None:
-        raise NotImplementedError("quad-light NEE needs scene.quads")
+    if scene.mesh is not None:
+        raise NotImplementedError("meshes are not ported yet")
+    if scene.env is not None and (scene.env.hdr_image is not None or scene.env.env_cdf is not None):
+        raise NotImplementedError("the HDRI environment is not ported yet")
+    if cfg.nee == "quad" and scene.quads is None:
+        raise ValueError("quad-light NEE needs scene.quads")
+    if cfg.env == "sky" and scene.env is None:
+        raise ValueError("env 'sky' needs scene.env (its sun direction)")
 
 
 def _where3(c, a, b):
@@ -81,9 +109,8 @@ def calculate_radiance(
     ``(result, rng, bn, sg)``: sg is (n_sg,) + lanes float32, detached,
     n_sg = n_obj with ``cfg.transparent_tint`` and 2 * n_obj without.
 
-    ``lane_counts``, for measurement, receives one pair of 0-d tensors per
-    bounce: the lanes still alive (those for which the kernel runs this
-    bounce's intersection) and, of those, the lanes that hit something.
+    ``lane_counts``, for measurement, receives one ``LaneCounts`` per
+    bounce.
     """
     check_supported(scene, cfg)
     shape = ray_origin.shape[:-1]
@@ -110,21 +137,27 @@ def calculate_radiance(
     obj_id = full(-INFINITY)
     one, zero = full(1.0), full(0.0)
 
-    quads = scene.quads
-    li = cfg.light_index if cfg.light_index >= 0 else quads.v0.shape[0] - 1
-    lv0, lv1, lv2, lv3 = quads.v0[li], quads.v1[li], quads.v2[li], quads.v3[li]
-    l_normal = normalize(quads.normal[li])
+    has_quad_light = cfg.nee == "quad"
+    if has_quad_light:
+        quads = scene.quads
+        li = cfg.light_index if cfg.light_index >= 0 else quads.v0.shape[0] - 1
+        lv0, lv1, lv2, lv3 = quads.v0[li], quads.v1[li], quads.v2[li], quads.v3[li]
+        l_normal = normalize(quads.normal[li])
+    sun_dir = None if scene.env is None else scene.env.sun_direction
+    lit = full(False, torch.bool)
     if param_grads:
-        n_obj = quads.v0.shape[0] + (0 if scene.spheres is None else scene.spheres.color.shape[0])
+        n_obj = sum(0 if g is None else g.color.shape[0] for g in (scene.spheres, scene.quadrics, scene.quads))
         obj_ids = torch.arange(n_obj, dtype=f32, device=dev).reshape((n_obj,) + (1,) * len(shape))
         sg_lin = torch.zeros((n_obj,) + shape, dtype=f32, device=dev)
         sg_beer = None if cfg.transparent_tint else torch.zeros_like(sg_lin)
 
     for bounce in range(cfg.bounces):
-        hit = scene_intersect(scene, ro, rd)
+        torus_steps = [] if lane_counts is not None and scene.quadrics is not None else None
+        hit = scene_intersect(scene, ro, rd, torus_steps=torus_steps)
         miss = hit.t >= INFINITY
         if lane_counts is not None:
-            lane_counts.append((alive.sum(), (alive & ~miss).sum()))
+            steps = torus_steps[0][alive].sum() if torus_steps else torch.zeros((), dtype=torch.int64, device=dev)
+            lane_counts.append(LaneCounts(alive.sum(), (alive & ~miss).sum(), (alive & miss).sum(), steps))
 
         n = normalize(hit.normal)
         nl = face_forward(n, rd)
@@ -132,7 +165,26 @@ def calculate_radiance(
         hit_color = hit.color
         mat = hit.mat_type
 
-        # env "none": a miss is black and the lane ends
+        if cfg.env == "sky":
+            m = alive & miss
+            env_color = get_sky_color(rd, sun_dir)
+            if bounce == 0:  # a primary ray sees the sky
+                accum = _where3(m, env_color, accum)
+                sharp = torch.where(m, full(1.01), sharp)
+            else:
+                # first-match case chain c2 > c3 > c4 > c5; c2 and c3 share a value
+                sun_cos = dot(rd, sun_dir.expand(rd.shape))
+                c2 = (d_count == 0) & spec
+                c3 = sample_light
+                c4 = (d_count == 1) & (prev_mat == TRANSPARENT) & spec
+                c5 = d_count > 0
+                sun_clip = torch.where(sun_cos < 0.99, one, zero)
+                lit_env = mask * env_color
+                chosen = _where3(c2 | c3 | c4, lit_env,
+                                 _where3(c5, lit_env * sun_clip[..., None], torch.zeros_like(lit_env)))
+                accum = _where3(m, chosen, accum)
+                sharp = torch.where(m & c2, full(1.01), sharp)
+        # a miss ends the lane (env "none": black)
         alive = alive & ~miss
         lane = alive
 
@@ -146,13 +198,14 @@ def calculate_radiance(
             obj_normal = _where3(after_metal, nl, obj_normal)
             obj_id = torch.where(after_metal, hit.object_id, obj_id)
 
-        # ---- light hit terminates ------------------------------------------
-        is_light = lane & (mat == LIGHT)
-        sharp = torch.where(is_light & (d_count == 0), full(1.01), sharp)
-        lit = is_light & (spec | sample_light)
-        accum = _where3(lit, mask * hit_color, accum)
-        alive = alive & ~is_light
-        lane = alive
+        # ---- light hit terminates (quad-light NEE only) --------------------
+        if has_quad_light:
+            is_light = lane & (mat == LIGHT)
+            sharp = torch.where(is_light & (d_count == 0), full(1.01), sharp)
+            lit = is_light & (spec | sample_light)
+            accum = _where3(lit, mask * hit_color, accum)
+            alive = alive & ~is_light
+            lane = alive
 
         # ---- failed shadow ray terminates ----------------------------------
         alive = alive & ~(lane & sample_light)
@@ -164,10 +217,21 @@ def calculate_radiance(
         hem_r, rng = rng_next(rng)
         hem_p, rng = rng_next(rng)
         hem_dir = cos_hemisphere_from_uniforms(nl, hem_r, hem_p)
-        qx, rng = rng_next(rng)
-        qy, rng = rng_next(rng)
-        qz, rng = rng_next(rng)
-        nee_dir, nee_w = quad_light_from_uniforms(x, nl, lv0, lv1, lv2, lv3, l_normal, qx, qy, qz)
+        if has_quad_light:
+            qx, rng = rng_next(rng)
+            qy, rng = rng_next(rng)
+            qz, rng = rng_next(rng)
+            nee_dir, nee_w = quad_light_from_uniforms(x, nl, lv0, lv1, lv2, lv3, l_normal, qx, qy, qz)
+        else:  # sun NEE through the specular lobe about the sun direction
+            lc, rng = rng_next(rng)
+            lp, rng = rng_next(rng)
+            nee_dir = specular_lobe_from_uniforms(sun_dir.expand(rd.shape), cfg.sun_lobe_roughness, lc, lp)
+            sun_cos_w = torch.clamp(dot(nee_dir, nl), min=0.0)
+            if cfg.sun_weight_mode == "hdri":
+                sp = scene.env.sun_power
+                nee_w = sun_cos_w * (sp * sp * 1.0e-7)
+            else:
+                nee_w = sun_cos_w * 0.05
         gate1, gate2 = gate1.detach(), gate2.detach()
 
         b_diff = lane & (mat == DIFFUSE)

@@ -2,8 +2,10 @@
 
 Each kernel file exports a plain C interface and is compiled by hand into a
 shared library (no PyTorch headers, so a build takes seconds), placed in
-``bpt_tpu_torch/_build/`` under a name that carries a hash of the source and
-the flags, and loaded with ``ctypes``.  Nothing is built or loaded until a
+``bpt_tpu_torch/_build/`` under a name that carries a hash of the source,
+of every ``csrc/`` header it includes and of the flags, and loaded with
+``ctypes``.  nvcc's report (``-Xptxas -v``: registers, spills) is kept
+beside the library as ``<library>.log``.  Nothing is built or loaded until a
 wrapper first launches on a CUDA tensor.  A failed build raises.
 """
 
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -22,9 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 #: sm_90a (Hopper with its architecture-specific features), no fast math.
 #: No FMA contraction either: with it the Cornell kernel misses the
 #: first-hit-normal tolerance against its plain version (see the note in
-#: csrc/cornell_megakernel.cu); without it the two are bit-equal.
+#: csrc/megakernel.cu); without it the two are bit-equal.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}
 
@@ -36,11 +40,35 @@ def nvcc_path() -> str:
     return found
 
 
+def sources(name: str, csrc: Path = CSRC) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes with quotes,
+    directly or through another header, in a fixed order."""
+    seen: dict[Path, None] = {}
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen[path] = None
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            todo.append(path.parent / inc.decode())
+    return list(seen)
+
+
+def source_digest(name: str, csrc: Path = CSRC, flags=NVCC_FLAGS) -> str:
+    """The build's cache key: a hash of the kernel source, the headers it
+    includes (names and bytes) and the flags."""
+    h = hashlib.sha256()
+    for path in sources(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -49,6 +77,7 @@ def build(name: str) -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) for {src.name}:\n{proc.stdout}\n{proc.stderr}")
+    Path(f"{out}.log").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)  # atomic: a concurrent process never loads a partial file
     return out
 

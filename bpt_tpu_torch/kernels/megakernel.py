@@ -1,30 +1,35 @@
-"""The fused Cornell-family radiance pass: CUDA kernel wrappers + plain versions.
+"""The fused radiance pass: CUDA kernel wrappers + plain versions.
 
 ``trace_image_fused`` is the port of ``bpt_tpu.kernels.megakernel``'s
-``trace_image_pallas`` for the Cornell configuration (quads + unit spheres,
-env "none", quad-light NEE).  On CUDA tensors it launches the hand-written
-kernel in ``csrc/cornell_megakernel.cu``; on CPU tensors it runs the plain
-PyTorch version, ``trace_image_fused_reference`` (the port's wavefront
-``trace_image``).  There is no fallback: a failed build or launch raises.
+``trace_image_pallas`` for three configurations of its kernel: Cornell
+(quads + unit spheres, env "none", quad-light NEE), quadric (the same plus
+the 12 transformed quadrics) and sky (env "sky", sun NEE).  On CUDA tensors
+it launches the hand-written kernel in ``csrc/megakernel.cu``; on CPU
+tensors it runs the plain PyTorch version, ``trace_image_fused_reference``
+(the port's wavefront ``trace_image``).  There is no fallback: a failed
+build or launch raises.
 
 ``differentiable=True`` is the port of the path-replay VJP (``_prb_fn``):
 a ``torch.autograd.Function`` whose forward runs the kernel's grads mode
 (``trace_image_fused_grads``: the 11 planes plus the per-object
 ∂log-throughput planes) and whose backward turns those planes into
-gradients of the quad and sphere colors in plain torch, as the JAX package
-leaves that part to XLA.  Geometry and the camera get no gradient through
-this route (as in JAX); ``diff.gradients.make_render_loss`` (wavefront
-autograd) is the route for them.
+gradients of the sphere, quadric and quad colors in plain torch, as the JAX
+package leaves that part to XLA.  Geometry, the sun and the camera get no
+gradient through this route (as in JAX); ``diff.gradients.make_render_loss``
+(wavefront autograd) is the route for them.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from bpt_tpu_torch.camera import Camera, film_extents
+from bpt_tpu_torch import sky
 from bpt_tpu_torch.core.rng import blue_noise_offsets, frame_to_u32
+from bpt_tpu_torch.core.sampling import lobe_exponent
 from bpt_tpu_torch.core.vecmath import normalize
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
@@ -32,11 +37,28 @@ from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported
 from bpt_tpu_torch.kernels import build
 from bpt_tpu_torch.scenes.types import Scene
 
-KERNEL = "cornell_megakernel"
-#: Launches of the forward kernel (entry bpt_cornell_trace); reset freely.
-LAUNCHES = 0
-#: Launches of the grads-mode kernel (entry bpt_cornell_trace_grads).
-GRAD_LAUNCHES = 0
+KERNEL = "megakernel"
+#: The kernel's configurations, as ``configuration`` names them.
+CONFIGURATIONS = ("cornell", "quadric", "sky")
+#: Launches of the forward kernel (entry bpt_trace) per configuration.
+LAUNCHES = dict.fromkeys(CONFIGURATIONS, 0)
+#: Launches of the grads-mode kernel (entry bpt_trace_grads) per configuration.
+GRAD_LAUNCHES = dict.fromkeys(CONFIGURATIONS, 0)
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for counts in (LAUNCHES, GRAD_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def configuration(scene: Scene, cfg: IntegratorConfig) -> str:
+    """The kernel configuration a call runs: "sky" (env sky, sun NEE),
+    "quadric" (env none, quad NEE, the quadric set) or "cornell"."""
+    if cfg.env == "sky":
+        return "sky"
+    return "quadric" if scene.quadrics is not None else "cornell"
 
 #: The plain PyTorch version of the forward kernel.
 trace_image_fused_reference = trace_image
@@ -48,19 +70,25 @@ def trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_c
 
 _MAX_QUADS = 256
 _MAX_SPHERES = 64
+_N_QUADRICS = 12
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_ARGTYPES = [_P, _P, _I, _P, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, ctypes.c_uint, _F,
+# cam, params, quads, nq, spheres, ns, quadrics, nqd, sky, blue_noise, bn_ox, bn_oy, width, height, bounces,
+# eps, light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, 5 outputs,
+# [sg,] stream
+_ARGTYPES = [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, ctypes.c_uint, _F,
              _P, _P, _P, _P, _P, _P]
 _ARGTYPES_GRADS = _ARGTYPES[:-1] + [_P, _P]
 
 
-def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None]:
-    """Scene -> (quads (Nq, 20), spheres (Ns, 21) or None), float32.
+def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
+    """Scene -> (quads (Nq, 20), spheres (Ns, 21) or None, quadrics (12, 20)
+    or None), float32.
 
     Quad row: normalized n3, v0..v3, color3, mat, pad.  Sphere row: inverse
-    4x4 row-major (16), color3, mat, pad.  The layout of the TPU kernel's
+    4x4 row-major (16), color3, mat, pad.  Quadric row: inverse 4x4
+    row-major (16), color3, mat.  The layout of the TPU kernel's
     ``pack_scene``.
     """
     q = scene.quads
@@ -72,7 +100,57 @@ def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None]:
         s = scene.spheres
         zs = torch.zeros((s.color.shape[0], 1), dtype=torch.float32, device=s.color.device)
         sph = torch.cat([s.inv_matrix.reshape(-1, 16), s.color, s.mat_type.to(torch.float32)[:, None], zs], dim=1)
-    return quads.contiguous(), None if sph is None else sph.contiguous()
+    qdr = None
+    if scene.quadrics is not None:
+        d = scene.quadrics
+        qdr = torch.cat([d.inv_matrix.reshape(-1, 16), d.color, d.mat_type.to(torch.float32)[:, None]], dim=1)
+    return quads.contiguous(), *(None if t is None else t.contiguous() for t in (sph, qdr))
+
+
+_PARAMS: dict = {}
+
+
+def _param_constants(cfg: IntegratorConfig, device) -> torch.Tensor:
+    """The parameter pack of a call without quadrics or sun, on ``device``;
+    its entries 7.. (the sun lobe, the sun-NEE weight 0.05, the sky
+    constants) serve every call.  Made once per device and lobe roughness:
+    a host-to-device copy of pageable memory waits for the stream, so it
+    must not happen on every launch."""
+    key = (str(device), cfg.sun_lobe_roughness)
+    if key not in _PARAMS:
+        rough = torch.clamp(torch.as_tensor(cfg.sun_lobe_roughness, dtype=torch.float32), 0.0, 1.0)
+        head = torch.tensor([0.5, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0])
+        lobe = torch.stack([lobe_exponent(cfg.sun_lobe_roughness), rough, torch.tensor(0.05)])
+        consts = torch.as_tensor(np.concatenate([sky.RAYLEIGH_AT_X, sky.MIE_AT_X, sky.EXTINCTION_SUM]))
+        _PARAMS[key] = torch.cat([head, lobe, consts]).to(dtype=torch.float32, device=device).contiguous()
+    return _PARAMS[key]
+
+
+def pack_params(scene: Scene, cfg: IntegratorConfig, device) -> torch.Tensor:
+    """(19,) float32 on ``device``, the layout of csrc/sky.cuh: shape_k, the
+    sun direction, the sun-only sky terms (sun_e, gamma, blend), the sun
+    lobe's exponent and roughness, the sun-NEE weight scale, and the sky's
+    per-channel Rayleigh, Mie and extinction constants.  Every entry is
+    computed by the function the plain version calls, so the kernel sees the
+    same floats.  Only device work: no copy from the host."""
+    params = _param_constants(cfg, device)
+    if scene.quadrics is None and cfg.env != "sky":
+        return params
+    f32 = dict(dtype=torch.float32, device=device)
+    parts = [params[:1] if scene.quadrics is None else torch.as_tensor(scene.quadrics.shape_k).to(**f32).reshape(1)]
+    if cfg.env == "sky":
+        sun = scene.env.sun_direction.to(**f32).reshape(3)
+        parts += [sun, torch.stack(sky.sky_sun_terms(sun))]
+    else:
+        parts.append(params[1:7])
+    parts.append(params[7:9])
+    if cfg.env == "sky" and cfg.sun_weight_mode == "hdri":
+        sp = scene.env.sun_power.to(**f32)
+        parts.append((sp * sp * 1.0e-7).reshape(1))
+    else:
+        parts.append(params[9:10])
+    parts.append(params[10:])
+    return torch.cat(parts).detach().contiguous()
 
 
 def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
@@ -85,7 +163,7 @@ def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
-    for fn, argtypes in ((lib.bpt_cornell_trace, _ARGTYPES), (lib.bpt_cornell_trace_grads, _ARGTYPES_GRADS)):
+    for fn, argtypes in ((lib.bpt_trace, _ARGTYPES), (lib.bpt_trace_grads, _ARGTYPES_GRADS)):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
@@ -114,20 +192,30 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
             rand_vec2, blue_noise: torch.Tensor, grads: bool):
     """Pack, check and launch one kernel entry on the current stream:
     (RadianceResult, sg or None).  CUDA tensors only."""
-    global LAUNCHES, GRAD_LAUNCHES
     device = blue_noise.device
-    quads, sph = pack_scene(scene)
+    if scene.quads is None:
+        raise ValueError("the kernel needs at least one quad; a scene without quads runs on the wavefront "
+                         "(trace_image)")
+    quads, sph, qdr = pack_scene(scene)
     cam = pack_camera(camera, width, height)
+    params = pack_params(scene, cfg, device)
     nq = quads.shape[0]
     ns = 0 if sph is None else sph.shape[0]
-    if not 0 < nq <= _MAX_QUADS or ns > _MAX_SPHERES:
-        raise ValueError(f"{nq} quads / {ns} spheres: the kernel takes 1..{_MAX_QUADS} / 0..{_MAX_SPHERES}")
-    light = cfg.light_index if cfg.light_index >= 0 else nq - 1
-    if not 0 <= light < nq:
-        raise ValueError(f"light_index {cfg.light_index} out of range for {nq} quads")
-    for name, t in (("blue_noise", blue_noise), ("quads", quads), ("camera", cam)) + (
-            (("spheres", sph),) if sph is not None else ()):
-        _check_tensor(name, t, device)
+    nqd = 0 if qdr is None else qdr.shape[0]
+    if not 0 < nq <= _MAX_QUADS or ns > _MAX_SPHERES or nqd not in (0, _N_QUADRICS):
+        raise ValueError(f"{nq} quads / {ns} spheres / {nqd} quadrics: the kernel takes 1..{_MAX_QUADS} / "
+                         f"0..{_MAX_SPHERES} / 0 or {_N_QUADRICS}")
+    sky_env = cfg.env == "sky"
+    light = 0
+    if not sky_env:
+        light = cfg.light_index if cfg.light_index >= 0 else nq - 1
+        if not 0 <= light < nq:
+            raise ValueError(f"light_index {cfg.light_index} out of range for {nq} quads")
+    tensors = {"blue_noise": blue_noise, "quads": quads, "camera": cam, "params": params, "spheres": sph,
+               "quadrics": qdr}
+    for name, t in tensors.items():
+        if t is not None:
+            _check_tensor(name, t, device)
     ox, oy = blue_noise_offsets(rand_vec2)
 
     def empty(*shape):
@@ -135,10 +223,11 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
 
     color, normal, ocolor = empty(height, width, 3), empty(height, width, 3), empty(height, width, 3)
     oid, sharp = empty(height, width), empty(height, width)
-    n_obj = nq + ns
+    n_obj = nq + ns + nqd
     sg = empty(n_obj if cfg.transparent_tint else 2 * n_obj, height, width) if grads else None
     lib = _library()
-    args = (cam.data_ptr(), quads.data_ptr(), nq, 0 if sph is None else sph.data_ptr(), ns,
+    args = (cam.data_ptr(), params.data_ptr(), quads.data_ptr(), nq, 0 if sph is None else sph.data_ptr(), ns,
+            0 if qdr is None else qdr.data_ptr(), nqd, int(sky_env),
             blue_noise.data_ptr(), ox, oy, width, height, cfg.bounces, cfg.eps_intersect, light,
             cfg.diffuse_indirect_max, int(cfg.camera_is_moving), int(cfg.transparent_tint),
             frame_to_u32(frame_counter), float(frame_counter),
@@ -146,15 +235,13 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         if grads:
-            err = lib.bpt_cornell_trace_grads(*args, sg.data_ptr(), stream)
+            err = lib.bpt_trace_grads(*args, sg.data_ptr(), stream)
         else:
-            err = lib.bpt_cornell_trace(*args, stream)
+            err = lib.bpt_trace(*args, stream)
+    name = configuration(scene, cfg)
     if err != 0:
-        raise RuntimeError(f"cornell_trace_kernel{'<grads>' if grads else ''} launch failed: CUDA error {err}")
-    if grads:
-        GRAD_LAUNCHES += 1
-    else:
-        LAUNCHES += 1
+        raise RuntimeError(f"trace_kernel ({name}{', grads' if grads else ''}) launch failed: CUDA error {err}")
+    (GRAD_LAUNCHES if grads else LAUNCHES)[name] += 1
     return RadianceResult(color=color, object_normal=normal, object_color=ocolor, object_id=oid,
                           pixel_sharpness=sharp), sg
 
@@ -182,7 +269,8 @@ def _pixel_sum(planes: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
 
 
 class _PathReplay(torch.autograd.Function):
-    """Port of ``_prb_fn``: differentiable in the quad and sphere colors.
+    """Port of ``_prb_fn``: differentiable in the sphere, quadric and quad
+    colors.
 
     The forward runs the grads mode (kernel or plain version, by device) and
     saves the clamped color, the first-hit ids, the sg planes and the colors
@@ -193,14 +281,16 @@ class _PathReplay(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, quad_color, sphere_color, scene, camera, cfg, width, height, frame_counter, rand_vec2,
-                blue_noise):
+    def forward(ctx, quad_color, sphere_color, quadric_color, scene, camera, cfg, width, height, frame_counter,
+                rand_vec2, blue_noise):
         spheres = None if scene.spheres is None else scene.spheres._replace(color=sphere_color)
-        scene = scene._replace(quads=scene.quads._replace(color=quad_color), spheres=spheres)
+        quadrics = None if scene.quadrics is None else scene.quadrics._replace(color=quadric_color)
+        scene = scene._replace(quads=scene.quads._replace(color=quad_color), spheres=spheres, quadrics=quadrics)
         result, sg = trace_image_fused_grads(scene, camera, cfg, width, height, frame_counter, rand_vec2,
                                              blue_noise)
-        colors = quad_color if sphere_color is None else torch.cat([sphere_color, quad_color])
-        ctx.n_spheres = 0 if sphere_color is None else sphere_color.shape[0]
+        groups = [c for c in (sphere_color, quadric_color, quad_color) if c is not None]
+        colors = torch.cat(groups)
+        ctx.sizes = [0 if c is None else c.shape[0] for c in (sphere_color, quadric_color, quad_color)]
         ctx.save_for_backward(result.color, result.object_id, sg, colors)
         ctx.mark_non_differentiable(result.object_normal, result.object_id, result.pixel_sharpness)
         ctx.set_materialize_grads(False)
@@ -222,34 +312,37 @@ class _PathReplay(torch.autograd.Function):
             ids = torch.arange(n_obj, dtype=oid.dtype, device=oid.device)
             onehot = (oid[None] == ids[:, None, None]).to(colors.dtype)
             gcol = gcol + _pixel_sum(onehot, g_ocolor)
-        ns = ctx.n_spheres
-        return (gcol[ns:], gcol[:ns] if ns else None) + (None,) * 8
+        ns, nqd, _ = ctx.sizes
+        g_sph = gcol[:ns] if ns else None
+        g_qdr = gcol[ns:ns + nqd] if nqd else None
+        return (gcol[ns + nqd:], g_sph, g_qdr) + (None,) * 8
 
 
 def _check_fixed_inputs(scene: Scene, camera: Camera) -> None:
-    """Raise if a tensor the path-replay VJP holds fixed requires a gradient."""
-    groups = [g for g in (scene.quads, scene.spheres) if g is not None]
+    """Raise if a tensor the path-replay VJP holds fixed requires a gradient:
+    every tensor of every group but the sphere, quadric and quad colors."""
+    groups = [g for g in (scene.quads, scene.spheres, scene.quadrics, scene.env, camera) if g is not None]
     fixed = [f"{type(g).__name__}.{name}" for g in groups for name, t in zip(g._fields, g)
-             if name != "color" and t.requires_grad]
-    fixed += [f"Camera.{name}" for name, t in zip(camera._fields, camera) if t.requires_grad]
+             if name != "color" and isinstance(t, torch.Tensor) and t.requires_grad]
     if fixed:
         raise NotImplementedError(
-            f"the path-replay gradient reaches only the quad and sphere colors, not {', '.join(fixed)}; "
-            "use the wavefront route (fused=False, or diff.make_render_loss) for geometry and camera gradients")
+            f"the path-replay gradient reaches only the sphere, quadric and quad colors, not {', '.join(fixed)}; "
+            "use the wavefront route (fused=False, or diff.make_render_loss) for geometry, sun and camera "
+            "gradients")
 
 
 def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
                       frame_counter, rand_vec2, blue_noise: torch.Tensor, differentiable: bool = False,
                       reorder: bool = False) -> RadianceResult:
-    """One 1-spp frame of the Cornell family, the same RadianceResult as
+    """One 1-spp frame, the same RadianceResult as
     ``integrator.frame.trace_image`` (same draws; float-level parity).
 
     The device is ``blue_noise``'s: CPU runs the plain version, CUDA launches
     the kernel on the current stream without synchronising.
 
     ``differentiable=True`` carries the path-replay VJP: gradients flow to
-    ``scene.quads.color`` and ``scene.spheres.color`` (the light's emission
-    included).  When neither requires a gradient, or grad mode is off, the
+    ``scene.quads.color``, ``scene.spheres.color`` and
+    ``scene.quadrics.color`` (the light's emission included).  When neither requires a gradient, or grad mode is off, the
     call is the plain forward, as JAX's custom_vjp runs its primal.  Any
     other scene or camera tensor that requires a gradient raises
     ``NotImplementedError``: this route would leave it without one.
@@ -258,12 +351,12 @@ def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width
     if reorder:
         raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
     _check_call(scene, cfg, width, height, blue_noise)
-    sphere_color = None if scene.spheres is None else scene.spheres.color
     if differentiable and torch.is_grad_enabled():
         _check_fixed_inputs(scene, camera)
-        if scene.quads.color.requires_grad or (sphere_color is not None and sphere_color.requires_grad):
-            return RadianceResult(*_PathReplay.apply(scene.quads.color, sphere_color, scene, camera, cfg, width,
-                                                     height, frame_counter, rand_vec2, blue_noise))
+        colors = [None if g is None else g.color for g in (scene.quads, scene.spheres, scene.quadrics)]
+        if any(c is not None and c.requires_grad for c in colors):
+            return RadianceResult(*_PathReplay.apply(*colors, scene, camera, cfg, width, height, frame_counter,
+                                                     rand_vec2, blue_noise))
     if blue_noise.device.type == "cpu":
         return trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
     return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=False)[0]

@@ -1,0 +1,106 @@
+"""Time the Cornell configuration of the CUDA kernel in several checkouts of
+this repository, in turns, on one card:
+
+    python -m bpt_tpu_torch.tools.ab_time PARENT . . PARENT
+
+Each checkout runs in a process of its own (its own kernel build, from its
+own sources) at 1024², 4 bounces, frame 2: the forward and grads kernels'
+device time per launch (torch.profiler, 50 launches), their time through the
+wrapper (CUDA events, 50 launches), the progressive frame (CUDA events, 30
+frames), and the registers and stack nvcc reported for its build.  Device
+times compare only within one call; put each version more than once, in
+turns.
+"""
+
+from __future__ import annotations
+
+import glob
+import subprocess
+import sys
+from pathlib import Path
+
+
+def measure(checkout: str) -> None:
+    """One checkout, in this process: print one line of numbers."""
+    sys.path.insert(0, checkout)
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from bpt_tpu_torch.core.rng import blue_noise_table
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.renderer import ProgressiveRenderer
+    from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+
+    if not megakernel.__file__.startswith(str(Path(checkout).resolve())):
+        raise RuntimeError(f"imported {megakernel.__file__}, not the checkout {checkout}")
+    dev, size, rv = torch.device("cuda"), 1024, np.array([0.3, 0.7], np.float32)
+    bn = torch.as_tensor(blue_noise_table()).to(dev)
+    scene, cam, cfg = cornell_scene(device=dev), cornell_camera(device=dev), IntegratorConfig(bounces=4)
+
+    def fwd():
+        return megakernel.trace_image_fused(scene, cam, cfg, size, size, 2.0, rv, bn)
+
+    def grads():
+        return megakernel.trace_image_fused_grads(scene, cam, cfg, size, size, 2.0, rv, bn)
+
+    def device_ms(fn, iters=50):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [(getattr(ev, "self_device_time_total", 0.0), ev.count) for ev in prof.key_averages()
+                if ev.device_type == DeviceType.CUDA and "trace_kernel" in ev.key]
+        return sum(us for us, _ in rows) / 1e3 / max(sum(n for _, n in rows), 1)
+
+    def event_ms(fn, iters):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    renderer = ProgressiveRenderer(cornell_scene(), cfg, size, size, device=dev)
+    camera = cornell_camera()
+    renderer.render(camera, spp=2)
+    numbers = dict(fwd_device_ms=device_ms(fwd), grads_device_ms=device_ms(grads), fwd_wrapper_ms=event_ms(fwd, 50),
+                   grads_wrapper_ms=event_ms(grads, 50), frame_ms=event_ms(lambda: renderer.render_sample(camera), 30))
+    build = []
+    for log in glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log")):
+        build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]
+    print(f"{checkout}: " + " ".join(f"{k} {v:.4f}" for k, v in numbers.items())
+          + (f" | build: {'; '.join(build)}" if build else ""), flush=True)
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--one"]:
+        measure(argv[1])
+        return 0
+    if not argv:
+        print(__doc__)
+        return 2
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(card, flush=True)
+    for checkout in argv:
+        proc = subprocess.run([sys.executable, __file__, "--one", str(Path(checkout).resolve())],
+                              capture_output=True, text=True)
+        print(proc.stdout.strip(), flush=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -29,10 +29,37 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   forward-only step, each kernel's device time
                   (torch.profiler), the backward's torch part, and the
                   plain route at 256².
+10. parity-quadric / parity-sky — the quadric configuration (the demo
+                  scene, and shape_k 0.35 all TRANSPARENT) and the sky
+                  configuration (METAL and TRANSPARENT right sphere) of the
+                  forward kernel against their plain versions at 1024², 4
+                  bounces, frame 2, bit for bit; the grads mode on the first
+                  scene of each: planes equal to the plain version's and its
+                  11 planes to the forward kernel's.
+11. main-quadric / main-sky — the serving path of each family:
+                  ProgressiveRenderer (on the card by default) renders 8 spp
+                  at 1024²: 8 launches of that configuration, a finite
+                  display in [0, 1]; the motion reset; all 12 quadric ids
+                  among the first hits of a frame from a raised camera (the
+                  demo camera's view hides the rectangle); sky pixels
+                  flagged 1.01.
+12. train-quadric / train-sky — the training path of each family:
+                  diff.inverse.optimize (the grads kernel's path-replay VJP)
+                  fits the shapes' grey level / the left sphere's color at
+                  1024², 4 bounces, 10 Adam steps; the loss must fall.
+13. timing-quadric / timing-sky — per configuration and mode: CUDA-event
+                  time per frame through the wrapper, device time
+                  (torch.profiler), the plain version's time, the bound;
+                  the progressive frame time and Mrays/s.
+14. grad-quadric — at 256², the path-replay gradient of mean(color·[1,2,3])
+                  for quadric 11's color and the light against autograd
+                  through the plain trace_image (rtol 1e-4) and central
+                  differences of the kernel's forward (rtol 2e-2).
 
-It ends with a JSON line of per-kernel results (each with its bound, the
-least time the card could take for the same work), the card's name and
-power limit, and a last JSON line {"ok": true, "device": {...}}.
+It ends with a JSON line of per-kernel results (one entry per mode and
+configuration, each with its bound, the least time the card could take for
+the same work), the card's name and power limit, and a last JSON line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -58,13 +85,20 @@ BENCH_FRAMES = 8
 # float32 outside the tensor cores, and HBM3.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
-# FP32 operations per thread, counted from csrc/cornell_megakernel.cu:
-# +, -, *, /, sqrt and each transcendental count one; compares, selects,
-# min/max/abs and the integer RNG hash are not counted.
+# FP32 operations per thread, counted from csrc/megakernel.cu and its
+# headers: +, -, *, /, sqrt and each transcendental count one; compares,
+# selects, min/max/abs and the integer RNG hash are not counted.
 RAYGEN_FLOP = 80  # tent AA, film mapping, thin lens, two normalizations
 SPHERE_FLOP = 68  # per sphere per live bounce: transform, quadratic, roots, normal
 QUAD_FLOP = 104  # per quad per live bounce: two Moller-Trumbore triangles of 52
 HIT_FLOP = 24  # per hit: normal, facing test, hit point (21) + the cheapest branch (3)
+# Per live bounce, the 12 shapes of csrc/quadrics.cuh, each with its 33-FLOP
+# transform and its cheapest exit: sphere 68, cylinder 67, cone 96,
+# paraboloid 72, hyperboloid 94, capsule 127, ring 79, box 48, pyramid 131,
+# disk 44, rectangle 41, torus bound 81 (the hit's normal is not counted).
+QUADRIC_SET_FLOP = 948
+TORUS_STEP_FLOP = 18  # one SDF march step: the point, map_torus, t += d
+SKY_FLOP = 132  # one Preetham evaluation on a miss (csrc/sky.cuh sky_color)
 
 
 def phase(name: str, msg: str) -> None:
@@ -119,17 +153,23 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int) -> tuple[float, float]:
+def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadrics: int = 0,
+                sky: bool = False) -> tuple[float, float]:
     """(FP32 operations, bytes) the forward kernel needs for one frame whose
-    plain run reported ``lane_counts`` (live and hit lanes per bounce).  Each
-    input byte is read once (the blue-noise table, the packed scene), each
-    of the 11 output planes written once.  Sphere normals of closer hits
-    and all but the cheapest shading branch are left out, so the operation
-    count is a lower bound."""
-    live = sum(int(a) for a, _ in lane_counts)
-    hits = sum(int(b) for _, b in lane_counts)
-    flop = pixels * RAYGEN_FLOP + live * (n_spheres * SPHERE_FLOP + n_quads * QUAD_FLOP) + hits * HIT_FLOP
-    nbytes = 256 * 256 * 4 * 4 + 4 * (16 + 20 * n_quads + 21 * n_spheres) + 11 * 4 * pixels
+    plain run reported ``lane_counts`` (per bounce: live, hit and missed
+    lanes and the torus march's steps on live lanes).  Each input byte is
+    read once (the blue-noise table, the packed scene, the parameter pack),
+    each of the 11 output planes written once.  Sphere normals of closer
+    hits, quadric normals and all but the cheapest shading branch are left
+    out, so the operation count is a lower bound."""
+    live = sum(int(c.live) for c in lane_counts)
+    hits = sum(int(c.hits) for c in lane_counts)
+    flop = (pixels * RAYGEN_FLOP + live * (n_spheres * SPHERE_FLOP + n_quads * QUAD_FLOP) + hits * HIT_FLOP
+            + (live * QUADRIC_SET_FLOP if n_quadrics else 0)
+            + sum(int(c.torus_steps) for c in lane_counts) * TORUS_STEP_FLOP
+            + (sum(int(c.misses) for c in lane_counts) * SKY_FLOP if sky else 0))
+    nbytes = (256 * 256 * 4 * 4 + 4 * (16 + 19 + 20 * n_quads + 21 * n_spheres + 20 * n_quadrics)
+              + 11 * 4 * pixels)
     return flop, nbytes
 
 
@@ -160,8 +200,10 @@ def profiled_step(fn, iters: int) -> tuple[float, float, list]:
 
 def kernel_device_ms(fn, iters: int, name: str) -> float | None:
     """Mean device time per launch of the CUDA kernels whose name contains
-    ``name`` while ``fn`` runs; None when the profiler reports none."""
-    rows = [(ms, n) for key, ms, n in profiled_step(fn, iters)[2] if name in key]
+    ``name`` (spaces ignored) while ``fn`` runs; None when the profiler
+    reports none."""
+    name = name.replace(" ", "")
+    rows = [(ms, n) for key, ms, n in profiled_step(fn, iters)[2] if name in key.replace(" ", "")]
     return sum(ms for ms, _ in rows) / sum(n for _, n in rows) if rows else None
 
 
@@ -170,6 +212,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from bpt_tpu_torch.camera import Camera
     from bpt_tpu_torch.core.rng import blue_noise_table
     from bpt_tpu_torch.diff.inverse import optimize, render_avg
     from bpt_tpu_torch.integrator import IntegratorConfig
@@ -177,6 +220,8 @@ def main() -> int:
     from bpt_tpu_torch.kernels import build, megakernel
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+    from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
+    from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
     from bpt_tpu_torch.scenes.types import METAL, TRANSPARENT
 
     dev = torch.device("cuda")
@@ -190,6 +235,10 @@ def main() -> int:
     megakernel._library()
     phase("build", f"{megakernel.KERNEL} ready in {time.perf_counter() - t0:.2f} s "
                    f"(flags {' '.join(build.NVCC_FLAGS)})")
+    log = build.build(megakernel.KERNEL).with_suffix(".so.log")
+    for line in (log.read_text().splitlines() if log.exists() else []):
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            phase("build", line.strip())
 
     # ---- 3. kernel against its plain version -------------------------------
     cfg = IntegratorConfig(bounces=BOUNCES)
@@ -212,10 +261,11 @@ def main() -> int:
     if renderer.device.type != "cuda":
         raise AssertionError(f"a renderer with no device argument runs on {renderer.device}")
     camera = cornell_camera()
-    megakernel.LAUNCHES = megakernel.GRAD_LAUNCHES = 0
+    megakernel.reset_launches()
     img = renderer.render(camera, spp=SPP)
     torch.cuda.synchronize()
-    launches, grad_launches = megakernel.LAUNCHES, megakernel.GRAD_LAUNCHES
+    launches = megakernel.LAUNCHES["cornell"]
+    grad_launches = sum(megakernel.GRAD_LAUNCHES.values()) + sum(megakernel.LAUNCHES.values()) - launches
     if launches != SPP or grad_launches != 0:
         raise AssertionError(f"{launches} forward / {grad_launches} grads launches for {SPP} frames")
     if tuple(img.shape) != (SIZE, SIZE, 3) or not bool(torch.isfinite(img).all()):
@@ -249,7 +299,7 @@ def main() -> int:
     nq, ns = scene.quads.v0.shape[0], scene.spheres.color.shape[0]
     flop, nbytes = kernel_work(lanes, nq, ns, SIZE * SIZE)
     bound_ms, bound_by = bound(flop, nbytes)
-    live = [int(a) for a, _ in lanes]
+    live = [int(c.live) for c in lanes]
     phase("timing", f"{card}: kernel {ms_kernel:.3f} ms/frame ({rays / ms_kernel / 1e3:.1f} Mrays/s), "
                     f"plain {ms_plain:.3f} ms/frame ({rays / ms_plain / 1e3:.1f} Mrays/s), "
                     f"progressive frame through the kernel {ms_frame:.3f} ms "
@@ -323,7 +373,7 @@ def main() -> int:
         color = torch.cat([tbase.quads.color[:5], (params["emission"] * torch.ones(3, device=dev))[None]])
         return tbase._replace(quads=tbase.quads._replace(color=color)), cam
 
-    megakernel.LAUNCHES = megakernel.GRAD_LAUNCHES = 0
+    megakernel.reset_launches()
     t0 = time.perf_counter()
     target = render_avg(build_scene({"emission": torch.tensor(10.0, device=dev)})[0], cam, tcfg, SIZE,
                         TRAIN_FRAMES, RAND_VEC2, bn)
@@ -332,7 +382,7 @@ def main() -> int:
     losses = result.losses.cpu().numpy()
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
-    train_launches, train_grad_launches = megakernel.LAUNCHES, megakernel.GRAD_LAUNCHES
+    train_launches, train_grad_launches = megakernel.LAUNCHES["cornell"], megakernel.GRAD_LAUNCHES["cornell"]
     emission = float(result.params["emission"])
     phase("train", f"{SIZE}x{SIZE}, {BOUNCES} bounces, {TRAIN_STEPS} steps in {train_s:.3f} s: loss "
                    f"{losses[0]:.6g} -> {losses[-1]:.6g}, emission 4.0 -> {emission:.5f} (truth 10.0); "
@@ -378,10 +428,10 @@ def main() -> int:
     ms_grad_plain = cuda_ms(lambda: megakernel.trace_image_fused_grads_reference(bscene, cam, cfg, SIZE, SIZE, 2.0,
                                                                                  RAND_VEC2, bn), iters=3, warmup=1)
     dev_fwd = kernel_device_ms(lambda: megakernel.trace_image_fused(bscene, cam, cfg, SIZE, SIZE, 2.0,
-                                                                      RAND_VEC2, bn), 20, "cornell_trace_kernel<false>")
+                                                                      RAND_VEC2, bn), 20, "trace_kernel<false, false>")
     dev_grad = kernel_device_ms(lambda: megakernel.trace_image_fused_grads(bscene, cam, cfg, SIZE, SIZE, 2.0,
                                                                              RAND_VEC2, bn), 20,
-                                  "cornell_trace_kernel<true>")
+                                  "trace_kernel<true, false>")
     qc = bscene.quads.color.clone().requires_grad_(True)
     one = megakernel.trace_image_fused(bscene._replace(quads=bscene.quads._replace(color=qc)), cam, cfg, SIZE, SIZE,
                                        2.0, RAND_VEC2, bn, differentiable=True)
@@ -421,10 +471,10 @@ def main() -> int:
                          f"({plain_rays / ms_plain_step / 1e3:.1f} Mrays/s); grads bound: {gflop / 1e9:.4f} GFLOP + "
                          f"{gbytes / 1e6:.3f} MB -> {grad_bound_ms:.4f} ms ({grad_bound_by})")
 
-    print(json.dumps({"kernels": [{
-        "name": "cornell_megakernel",
+    kernels = [{
+        "name": "megakernel_cornell",
         "route": "cuda",
-        "source": "bpt_tpu_torch/csrc/cornell_megakernel.cu",
+        "source": "bpt_tpu_torch/csrc/megakernel.cu",
         "replaces": "bpt_tpu/kernels/megakernel.py:1183",
         "launches": launches,
         "launches_train": train_launches,
@@ -436,9 +486,9 @@ def main() -> int:
         "bound_by": bound_by,
         "library_ms": None,
     }, {
-        "name": "cornell_megakernel_grads",
+        "name": "megakernel_cornell_grads",
         "route": "cuda",
-        "source": "bpt_tpu_torch/csrc/cornell_megakernel.cu",
+        "source": "bpt_tpu_torch/csrc/megakernel.cu",
         "replaces": "bpt_tpu/kernels/megakernel.py:2180",
         "launches": train_grad_launches,
         "max_abs_err": grad_err,
@@ -448,7 +498,223 @@ def main() -> int:
         "bound_ms": grad_bound_ms,
         "bound_by": grad_bound_by,
         "library_ms": None,
-    }]}))
+    }]
+
+    # ---- 10-14. the quadric and sky configurations --------------------------
+    quadric_cfg = IntegratorConfig(bounces=BOUNCES, transparent_tint=True)
+    sky_cfg = IntegratorConfig(bounces=BOUNCES, env="sky", nee="sun")
+    families = {
+        "quadric": dict(cfg=quadric_cfg, camera=quadric_camera, main=quadric_geometry_scene,
+                        parity=[("demo (shape_k 0.5, CLEARCOAT)", quadric_geometry_scene(device=dev)),
+                                ("shape_k 0.35, TRANSPARENT",
+                                 quadric_geometry_scene(shape_k=0.35, all_shapes_mat=TRANSPARENT, device=dev))]),
+        "sky": dict(cfg=sky_cfg, camera=sky_camera, main=physical_sky_scene,
+                    parity=[("right sphere METAL", physical_sky_scene(device=dev)),
+                            ("right sphere TRANSPARENT", physical_sky_scene(right_sphere_mat=TRANSPARENT,
+                                                                            device=dev))]),
+    }
+    for fam, spec in families.items():
+        fcfg, fcam = spec["cfg"], spec["camera"](device=dev)
+
+        # ---- 10. parity: forward on both scenes, grads on the first -------
+        fwd_err = grads_err = 0.0
+        for label, pscene in spec["parity"]:
+            got = megakernel.trace_image_fused(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+            ref = megakernel.trace_image_fused_reference(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+            torch.cuda.synchronize()
+            stats = compare(got, ref)
+            phase(f"parity-{fam}", f"{label}: " + json.dumps(stats))
+            if not stats["ok"]:
+                raise AssertionError(f"{fam} kernel disagrees with its plain version ({label})")
+            fwd_err = max(fwd_err, stats["max_abs_err"])
+        pscene = spec["parity"][0][1]
+        got, sg = megakernel.trace_image_fused_grads(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        ref, sg_ref = megakernel.trace_image_fused_grads_reference(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        fwd = megakernel.trace_image_fused(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        torch.cuda.synchronize()
+        stats = compare(got, ref)
+        sg_err = (sg - sg_ref).abs().max().item()
+        vs_fwd = max((g - f).abs().max().item() for g, f in zip(got, fwd))
+        phase(f"parity-{fam}", f"grads mode, {spec['parity'][0][0]}: sg {tuple(sg.shape)} max_abs_err {sg_err}, "
+                               f"{int(sg.sum().item())} counted hits, 11 planes vs plain " + json.dumps(stats)
+                               + f", vs the forward kernel max_abs_err {vs_fwd}")
+        if not (stats["ok"] and sg_err == 0.0 and vs_fwd == 0.0 and sg.shape == sg_ref.shape):
+            raise AssertionError(f"{fam} grads kernel disagrees")
+        grads_err = max(stats["max_abs_err"], sg_err)
+
+        # ---- 11. the serving path --------------------------------------------
+        frenderer = ProgressiveRenderer(spec["main"](), fcfg, SIZE, SIZE)
+        if frenderer.device.type != "cuda":
+            raise AssertionError(f"a renderer with no device argument runs on {frenderer.device}")
+        mcam = spec["camera"]()
+        megakernel.reset_launches()
+        fimg = frenderer.render(mcam, spp=SPP)
+        torch.cuda.synchronize()
+        f_launches = megakernel.LAUNCHES[fam]
+        others = sum(megakernel.LAUNCHES.values()) + sum(megakernel.GRAD_LAUNCHES.values()) - f_launches
+        if f_launches != SPP or others != 0:
+            raise AssertionError(f"{fam}: {f_launches} launches of its configuration, {others} others, for {SPP} "
+                                 "frames")
+        if not bool(torch.isfinite(fimg).all()) or fimg.min().item() < 0.0 or fimg.max().item() > 1.0:
+            raise AssertionError(f"{fam}: display is not finite in [0, 1]")
+        if fam == "quadric":
+            # the demo camera sees 11 shapes (the pyramid hides the rectangle); a raised one sees all 12
+            raised = Camera.look(position=(0.0, 20.0, -110.0), pitch=0.45, fov=0.8, focus_distance=113.0)
+            frenderer.render_sample(raised)
+            if frenderer.state.sample_counter != 1.0:
+                raise AssertionError("moving the camera did not reset sample_counter to 1")
+            one = megakernel.trace_image_fused(frenderer.scene, raised.to(dev), fcfg, SIZE, SIZE, 3.0, RAND_VEC2,
+                                               frenderer.blue_noise)
+            seen = set(torch.unique(one.object_id).tolist())
+            if not set(range(12)) <= seen:
+                raise AssertionError(f"quadric ids seen in one frame: {sorted(seen)}")
+            detail = ("all 12 quadric ids (0-11) among the first hits of one frame from a raised camera, motion "
+                      "resets sample_counter to 1")
+        else:
+            one = megakernel.trace_image_fused(frenderer.scene, mcam.to(dev), fcfg, SIZE, SIZE, 3.0, RAND_VEC2,
+                                               frenderer.blue_noise)
+            n_sky = int((one.pixel_sharpness == 1.01).sum().item())
+            if n_sky == 0:
+                raise AssertionError("no pixel sees the sky")
+            frenderer.render_sample(mcam._replace(position=mcam.position + torch.tensor([1.0, 0.0, 0.0])))
+            if frenderer.state.sample_counter != 1.0:
+                raise AssertionError("moving the camera did not reset sample_counter to 1")
+            detail = f"{n_sky} pixels see the sky (flag 1.01), motion resets sample_counter to 1"
+        phase(f"main-{fam}", f"{SIZE}x{SIZE}, {SPP} spp: {f_launches} launches, display in "
+                             f"[{fimg.min().item():.4f}, {fimg.max().item():.4f}], {detail}")
+
+        # ---- 12. the training path --------------------------------------------
+        tscene = spec["main"](device=dev)
+        if fam == "quadric":
+            def build_f(params, base=tscene):
+                q = base.quadrics
+                return base._replace(quadrics=q._replace(color=params["c"] * torch.ones(12, 3, device=dev))), fcam
+            truth, start = torch.tensor(0.8, device=dev), 0.3
+        else:
+            def build_f(params, base=tscene):
+                color = torch.cat([params["c"] * torch.ones(1, 3, device=dev), base.spheres.color[1:]])
+                return base._replace(spheres=base.spheres._replace(color=color)), fcam
+            truth, start = torch.tensor(0.6, device=dev), 0.2
+        ftarget = render_avg(build_f({"c": truth})[0], fcam, fcfg, SIZE, TRAIN_FRAMES, RAND_VEC2, bn)
+        megakernel.reset_launches()
+        t0 = time.perf_counter()
+        fres = optimize(build_f, {"c": start}, ftarget, fcfg, SIZE, steps=10, lr=0.05, frames=TRAIN_FRAMES)
+        flosses = fres.losses.cpu().numpy()
+        torch.cuda.synchronize()
+        f_train_s = time.perf_counter() - t0
+        f_grad_launches = megakernel.GRAD_LAUNCHES[fam]
+        phase(f"train-{fam}", f"{SIZE}x{SIZE}, {BOUNCES} bounces, 10 steps in {f_train_s:.3f} s: loss "
+                              f"{flosses[0]:.6g} -> {flosses[-1]:.6g}, parameter {start} -> "
+                              f"{float(fres.params['c']):.5f} (truth {truth.item()}); grads launches "
+                              f"{f_grad_launches}")
+        if f_grad_launches != 10 * len(TRAIN_FRAMES) or not (np.isfinite(flosses).all() and flosses[-1] < flosses[0]):
+            raise AssertionError(f"{fam} training did not run through the grads kernel or did not lower the loss")
+
+        # ---- 13. timing -----------------------------------------------------
+        tscene = spec["parity"][0][1]
+
+        def fwd_call():
+            return megakernel.trace_image_fused(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+
+        def grads_call():
+            return megakernel.trace_image_fused_grads(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+
+        f_ms = cuda_ms(fwd_call, iters=20, warmup=3)
+        g_ms = cuda_ms(grads_call, iters=20, warmup=3)
+        f_plain = cuda_ms(lambda: megakernel.trace_image_fused_reference(tscene, fcam, fcfg, SIZE, SIZE, 2.0,
+                                                                         RAND_VEC2, bn), iters=2, warmup=1)
+        g_plain = cuda_ms(lambda: megakernel.trace_image_fused_grads_reference(tscene, fcam, fcfg, SIZE, SIZE, 2.0,
+                                                                               RAND_VEC2, bn), iters=2, warmup=1)
+        instance = "true" if fam == "sky" else "false"
+        f_dev = kernel_device_ms(fwd_call, 10, f"trace_kernel<false, {instance}>")
+        g_dev = kernel_device_ms(grads_call, 10, f"trace_kernel<true, {instance}>")
+        f_frame = cuda_ms(lambda: frenderer.render_sample(mcam), iters=10, warmup=2)
+        flanes = []
+        _, fsg = trace_image(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True,
+                             lane_counts=flanes)
+        n_q = tscene.quads.v0.shape[0]
+        n_s = 0 if tscene.spheres is None else tscene.spheres.color.shape[0]
+        n_qd = 0 if tscene.quadrics is None else tscene.quadrics.color.shape[0]
+        fflop, fbytes = kernel_work(flanes, n_q, n_s, SIZE * SIZE, n_qd, sky=fam == "sky")
+        f_bound, f_by = bound(fflop, fbytes)
+        n_obj = n_q + n_s + n_qd
+        gflop_f = fflop + fsg[:n_obj].sum().item() + 2 * (fsg[n_obj:] > 0).sum().item()
+        gbytes_f = fbytes + fsg.shape[0] * 4 * SIZE * SIZE
+        g_bound, g_by = bound(gflop_f, gbytes_f)
+        steps = [int(c.torus_steps) for c in flanes]
+        misses = [int(c.misses) for c in flanes]
+        phase(f"timing-{fam}", f"{card}: {SIZE}x{SIZE}, {BOUNCES} bounces: forward kernel {f_ms:.3f} ms/frame "
+                               f"through its wrapper ({rays / f_ms / 1e3:.1f} Mrays/s), device {f_dev} ms; grads "
+                               f"kernel {g_ms:.3f} ms, device {g_dev} ms; plain forward {f_plain:.3f} ms "
+                               f"({rays / f_plain / 1e3:.1f} Mrays/s), plain grads {g_plain:.3f} ms; progressive "
+                               f"frame {f_frame:.3f} ms ({rays / f_frame / 1e3:.1f} Mrays/s); live lanes per bounce "
+                               f"{[int(c.live) for c in flanes]}, misses {misses}, torus steps {steps}; forward "
+                               f"{fflop / 1e9:.4f} GFLOP + {fbytes / 1e6:.3f} MB -> bound {f_bound:.4f} ms ({f_by}); "
+                               f"grads {gflop_f / 1e9:.4f} GFLOP + {gbytes_f / 1e6:.3f} MB -> bound {g_bound:.4f} ms "
+                               f"({g_by})")
+        kernels += [{
+            "name": f"megakernel_{fam}",
+            "route": "cuda",
+            "source": "bpt_tpu_torch/csrc/megakernel.cu",
+            "replaces": "bpt_tpu/kernels/megakernel.py:1183",
+            "launches": f_launches,
+            "max_abs_err": fwd_err,
+            "ms": f_ms,
+            "device_ms": f_dev,
+            "plain_ms": f_plain,
+            "bound_ms": f_bound,
+            "bound_by": f_by,
+            "library_ms": None,
+        }, {
+            "name": f"megakernel_{fam}_grads",
+            "route": "cuda",
+            "source": "bpt_tpu_torch/csrc/megakernel.cu",
+            "replaces": "bpt_tpu/kernels/megakernel.py:2180",
+            "launches": f_grad_launches,
+            "max_abs_err": grads_err,
+            "ms": g_ms,
+            "device_ms": g_dev,
+            "plain_ms": g_plain,
+            "bound_ms": g_bound,
+            "bound_by": g_by,
+            "library_ms": None,
+        }]
+
+    # ---- 14. the path-replay gradient of a quadric color ---------------------
+    qscene, qcam = quadric_geometry_scene(device=dev), quadric_camera(device=dev)
+    qc0, qlc0 = torch.tensor([0.8, 0.6, 0.4], device=dev), torch.tensor([10.0, 10.0, 10.0], device=dev)
+
+    def quadric_loss(qc, lc, trace, **kw):
+        colors = torch.cat([qscene.quadrics.color[:11], qc[None]])
+        s = qscene._replace(quadrics=qscene.quadrics._replace(color=colors),
+                            quads=qscene.quads._replace(color=torch.cat([qscene.quads.color[:5], lc[None]])))
+        return (trace(s, qcam, quadric_cfg, GRAD_SIZE, GRAD_SIZE, 2.0, RAND_VEC2, bn, **kw).color.double()
+                * wvec).mean()
+
+    qgrads = {}
+    for route, trace, kw in (("kernel", megakernel.trace_image_fused, dict(differentiable=True)),
+                             ("plain", megakernel.trace_image_fused_reference, {})):
+        leaves = [v.clone().requires_grad_(True) for v in (qc0, qlc0)]
+        qgrads[route] = torch.autograd.grad(quadric_loss(*leaves, trace, **kw), leaves)
+    rows = []
+    with torch.no_grad():
+        for arg, (name, ch) in enumerate((("quadric 11", 1), ("light", 0))):
+            e = torch.zeros(3, device=dev)
+            e[ch] = h
+            hi = [v + e if i == arg else v for i, v in enumerate((qc0, qlc0))]
+            lo = [v - e if i == arg else v for i, v in enumerate((qc0, qlc0))]
+            f = ((quadric_loss(*hi, megakernel.trace_image_fused) - quadric_loss(*lo, megakernel.trace_image_fused))
+                 / (2 * h)).item()
+            g, pl = qgrads["kernel"][arg].double().cpu(), qgrads["plain"][arg].double().cpu()
+            rel_plain = ((g - pl).abs() / pl.abs().clamp_min(1e-12)).max().item()
+            rel_fd = abs(g[ch].item() - f) / max(abs(f), 1e-12)
+            rows.append(f"{name} {g.numpy().round(8).tolist()} vs plain rel {rel_plain:.2e}, vs FD[{ch}] {f:.8f} "
+                        f"rel {rel_fd:.2e}")
+            if not (rel_plain <= 1e-4 and rel_fd <= 2e-2 and g.abs().min().item() > 0):
+                raise AssertionError(f"path-replay gradient of {name} disagrees: " + rows[-1])
+    phase("grad-quadric", f"{GRAD_SIZE}x{GRAD_SIZE}, tint on: " + "; ".join(rows))
+
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -8,7 +8,8 @@ frame counter on both sides.  The criterion is the JAX package's own
 kernel-vs-wavefront bar (tests/test_kernels.py): >= 99.5% of pixels with
 color within rtol 1e-4 / atol 1e-5, first-hit normals within rtol 1e-3 /
 atol 1e-4, object ids equal, >= 99% of sharpness flags equal.  Eager torch
-and eager JAX agree on 100% of pixels at these sizes.
+and eager JAX agree on 100% of pixels at these sizes.  The quadric and sky
+families are held to the bars stated in their tests.
 """
 
 import jax
@@ -22,11 +23,13 @@ from bpt_tpu.integrator import IntegratorConfig as JConfig
 from bpt_tpu.integrator.frame import trace_image as j_trace_image
 from bpt_tpu.kernels.megakernel import trace_image_pallas
 from bpt_tpu.scenes.cornell import cornell_camera, cornell_scene
+from bpt_tpu.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
+from bpt_tpu.scenes.sky_scene import physical_sky_scene, sky_camera
 from bpt_tpu_torch import convert
 from bpt_tpu_torch.integrator import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.kernels.megakernel import trace_image_fused
-from bpt_tpu_torch.scenes.types import METAL, TRANSPARENT
+from bpt_tpu_torch.scenes.types import CLEARCOAT_DIFFUSE, DIFFUSE, METAL, TRANSPARENT
 
 torch.set_num_threads(2)
 
@@ -34,8 +37,9 @@ BN = blue_noise_table()
 RV = np.array([0.3, 0.7], np.float32)
 
 
-def _inputs(mat):
-    jscene, jcam = cornell_scene(right_sphere_mat=mat), cornell_camera()
+def _inputs(mat, jscene=None, jcam=None):
+    if jscene is None:
+        jscene, jcam = cornell_scene(right_sphere_mat=mat), cornell_camera()
     tscene = convert.scene_from_numpy(jax.tree.map(np.asarray, jscene))
     tcam = convert.camera_from_numpy(jax.tree.map(np.asarray, jcam))
     return (jscene, jcam), (tscene, tcam)
@@ -72,3 +76,75 @@ def test_trace_image_fused_cpu_matches_pallas_interpret():
                              tile_rows=32, interpret=True)
     got = trace_image_fused(tscene, tcam, IntegratorConfig(bounces=4), 32, 32, 2.0, RV, torch.as_tensor(BN))
     assert_radiance_parity(got, ref)
+
+
+QUADRIC_CFG = dict(bounces=3, transparent_tint=True)
+SKY_CFG = dict(bounces=4, env="sky", nee="sun")
+
+
+def assert_quadric_parity(got, ref):
+    """The bar of tests/test_kernels.py::test_megakernel_quadric_parity: the
+    share of pixels whose color differs by more than 1e-3 below 0.02, the
+    95th percentile of that difference below 1e-3, first-hit id mismatches
+    below 0.02; and the tighter Cornell color bar, which holds (>= 99.5% of
+    pixels within rtol 1e-4 / atol 1e-5; measured 99.56-100%).  The Cornell
+    normal bar does not hold on every pixel: 1 pixel of 2048 sees the torus,
+    whose normal is a float32 finite difference of its SDF."""
+    a, b = got.color.numpy(), np.asarray(ref.color)
+    d = np.abs(a - b).max(-1)
+    assert (d > 1e-3).mean() < 0.02 and np.quantile(d, 0.95) < 1e-3
+    assert (got.object_id.numpy() != np.asarray(ref.object_id)).mean() < 0.02
+    close = np.isclose(a, b, rtol=1e-4, atol=1e-5).all(axis=-1)
+    assert close.mean() > 0.995, f"color parity {close.mean():.4f}"
+
+
+@pytest.mark.parametrize("mat", [CLEARCOAT_DIFFUSE, TRANSPARENT, DIFFUSE])
+def test_quadric_trace_image_matches_jax(mat):
+    """The quadric demo (shape_k 0.35, tint on), 3 bounces, 64x32, frame 2."""
+    (jscene, jcam), (tscene, tcam) = _inputs(
+        None, quadric_geometry_scene(shape_k=0.35, all_shapes_mat=mat), quadric_camera())
+    ref = j_trace_image(jscene, jcam, JConfig(**QUADRIC_CFG), 64, 32, 2.0, jnp.asarray(RV), jnp.asarray(BN))
+    got = trace_image(tscene, tcam, IntegratorConfig(**QUADRIC_CFG), 64, 32, 2.0, RV, torch.as_tensor(BN))
+    assert_quadric_parity(got, ref)
+    assert len(np.unique(got.object_id.numpy())) > 8  # the camera sees many of the shapes
+
+
+def test_quadric_trace_image_fused_cpu_matches_jax_wavefront():
+    """The kernel module on CPU tensors (its plain version) for the quadric
+    configuration, against JAX's wavefront at 64x32.  Not against
+    trace_image_pallas(interpret=True): that costs ~100 s at 32x32 on this
+    CPU; JAX's own test_megakernel_quadric_parity holds the Pallas kernel to
+    the same wavefront."""
+    (jscene, jcam), (tscene, tcam) = _inputs(None, quadric_geometry_scene(), quadric_camera())
+    ref = j_trace_image(jscene, jcam, JConfig(**QUADRIC_CFG), 64, 32, 2.0, jnp.asarray(RV), jnp.asarray(BN))
+    got = trace_image_fused(tscene, tcam, IntegratorConfig(**QUADRIC_CFG), 64, 32, 2.0, RV, torch.as_tensor(BN))
+    assert_quadric_parity(got, ref)
+
+
+@pytest.mark.parametrize("mat", [METAL, TRANSPARENT])
+def test_sky_trace_image_matches_jax(mat):
+    """The physical-sky demo, env "sky" + sun NEE, 4 bounces, 64x64, frame
+    2, held to the Cornell bar above (measured: colors 99.8%, the rest
+    exact)."""
+    (jscene, jcam), (tscene, tcam) = _inputs(None, physical_sky_scene(right_sphere_mat=mat), sky_camera())
+    ref = j_trace_image(jscene, jcam, JConfig(**SKY_CFG), 64, 64, 2.0, jnp.asarray(RV), jnp.asarray(BN))
+    got = trace_image(tscene, tcam, IntegratorConfig(**SKY_CFG), 64, 64, 2.0, RV, torch.as_tensor(BN))
+    assert_radiance_parity(got, ref)
+    assert (got.pixel_sharpness.numpy() == np.float32(1.01)).any()  # the sky seen directly
+
+
+def test_sky_trace_image_fused_cpu_matches_pallas_interpret():
+    """The kernel module on CPU tensors against the Pallas megakernel in
+    interpret mode for the sky configuration (TRANSPARENT right sphere),
+    32x32, 4 bounces, by the JAX package's own sky bar
+    (tests/test_kernels.py::test_megakernel_sky_parity): >= 99.5% of pixels
+    within rtol 1e-3 / atol 1e-4, ids equal, >= 99% of sharpness flags
+    equal."""
+    (jscene, jcam), (tscene, tcam) = _inputs(None, physical_sky_scene(right_sphere_mat=TRANSPARENT), sky_camera())
+    ref = trace_image_pallas(jscene, jcam, JConfig(**SKY_CFG), 32, 32, 2.0, jnp.asarray(RV), jnp.asarray(BN),
+                             tile_rows=32, interpret=True)
+    got = trace_image_fused(tscene, tcam, IntegratorConfig(**SKY_CFG), 32, 32, 2.0, RV, torch.as_tensor(BN))
+    close = np.isclose(got.color.numpy(), np.asarray(ref.color), rtol=1e-3, atol=1e-4).all(axis=-1)
+    assert close.mean() > 0.995, f"sky color parity {close.mean():.4f}"
+    np.testing.assert_array_equal(got.object_id.numpy(), np.asarray(ref.object_id))
+    assert (got.pixel_sharpness.numpy() == np.asarray(ref.pixel_sharpness)).mean() > 0.99

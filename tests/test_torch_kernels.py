@@ -24,6 +24,8 @@ from bpt_tpu_torch.kernels import megakernel
 from bpt_tpu_torch.kernels.integration import attach_cuda_path
 from bpt_tpu_torch.renderer import ProgressiveRenderer
 from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
+from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
 from bpt_tpu_torch.scenes.types import METAL, TRANSPARENT
 
 torch.set_num_threads(2)
@@ -40,6 +42,9 @@ SLICE_MODULES = [
     "bpt_tpu_torch.integrator.intersect", "bpt_tpu_torch.integrator.radiance", "bpt_tpu_torch.integrator.frame",
     "bpt_tpu_torch.postprocess", "bpt_tpu_torch.renderer", "bpt_tpu_torch.kernels.build",
     "bpt_tpu_torch.kernels.megakernel", "bpt_tpu_torch.kernels.integration", "bpt_tpu_torch.convert",
+    "bpt_tpu_torch.device", "bpt_tpu_torch.sky", "bpt_tpu_torch.scenes.quadric_geometry",
+    "bpt_tpu_torch.scenes.sky_scene", "bpt_tpu_torch.apps.common", "bpt_tpu_torch.apps.cornell_box",
+    "bpt_tpu_torch.apps.quadric_geometry", "bpt_tpu_torch.apps.physical_sky", "bpt_tpu_torch.tools.ab_time",
 ]
 
 
@@ -64,7 +69,7 @@ def test_import_loads_no_jax_and_no_cuda():
 
 
 @pytest.mark.parametrize("change", [
-    dict(env="sky", nee="sun"),
+    dict(env="sky", nee="quad"),
     dict(env="hdri", nee="env"),
     dict(nee="sun"),
     dict(metal_roughness_lobe=True),
@@ -80,7 +85,7 @@ def test_trace_image_fused_rejects_bad_inputs():
     scene, cam, cfg = cornell_scene(), cornell_camera(), IntegratorConfig(bounces=2)
     bn = torch.as_tensor(blue_noise_table())
     with pytest.raises(NotImplementedError):
-        megakernel.trace_image_fused(scene._replace(quadrics=object()), cam, cfg, 8, 8, 1.0, RV, bn)
+        megakernel.trace_image_fused(scene._replace(mesh=object()), cam, cfg, 8, 8, 1.0, RV, bn)
     with pytest.raises(ValueError, match="256, 256, 4"):
         megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn[:128])
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -109,22 +114,57 @@ def test_renderer_and_optimize_need_a_card_unless_asked_for_the_cpu(monkeypatch)
                  IntegratorConfig(bounces=2), 8, steps=1)
     r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 8, 8, blue_noise=blue_noise_table(),
                             device="cpu")
-    before = megakernel.LAUNCHES
+    before = dict(megakernel.LAUNCHES)
     r.render(cornell_camera(), spp=1)
     assert r.device.type == "cpu" and megakernel.LAUNCHES == before
 
 
 def test_lane_counts_report_live_and_hit_lanes():
     """The measurement hook behind the kernels' bound: per bounce, the live
-    lanes (every lane at bounce 0) and, of those, the lanes that hit."""
+    lanes (every lane at bounce 0) and, of those, the lanes that hit and
+    the lanes that missed; the Cornell box has no torus to march."""
     counts = []
     trace_image(cornell_scene(), cornell_camera(), IntegratorConfig(bounces=4), 16, 16, 2.0, RV,
                 torch.as_tensor(blue_noise_table()), lane_counts=counts)
-    live = [int(a) for a, _ in counts]
-    hits = [int(b) for _, b in counts]
+    live = [int(c.live) for c in counts]
+    hits = [int(c.hits) for c in counts]
     assert len(counts) == 4 and live[0] == 256
     assert all(h <= n for h, n in zip(hits, live)) and all(b <= a for a, b in zip(live, live[1:]))
     assert hits[0] > 0 and live[-1] < live[0]
+    assert all(int(c.hits) + int(c.misses) == int(c.live) for c in counts)
+    assert all(int(c.torus_steps) == 0 for c in counts)
+
+
+def test_lane_counts_report_torus_steps_and_sky_misses():
+    """The quadric scene reports the torus march's SDF evaluations on live
+    lanes; the sky scene reports the misses its kernel shades."""
+    bn = torch.as_tensor(blue_noise_table())
+    counts = []
+    trace_image(quadric_geometry_scene(), quadric_camera(), IntegratorConfig(bounces=2, transparent_tint=True),
+                32, 32, 2.0, RV, bn, lane_counts=counts)
+    assert int(counts[0].torus_steps) > 0 and int(counts[0].hits) > int(counts[0].misses)
+    counts = []
+    trace_image(physical_sky_scene(), sky_camera(), IntegratorConfig(bounces=2, env="sky", nee="sun"), 32, 32, 2.0,
+                RV, bn, lane_counts=counts)
+    assert int(counts[0].misses) > 0 and all(int(c.torus_steps) == 0 for c in counts)
+
+
+def test_configuration_names_and_checks():
+    """configuration() names the kernel configuration a call runs; a sky
+    config without an environment, or quad NEE without quads, is refused."""
+    sky_cfg = IntegratorConfig(bounces=2, env="sky", nee="sun")
+    assert megakernel.configuration(cornell_scene(), IntegratorConfig()) == "cornell"
+    assert megakernel.configuration(quadric_geometry_scene(), IntegratorConfig()) == "quadric"
+    assert megakernel.configuration(physical_sky_scene(), sky_cfg) == "sky"
+    bn = torch.as_tensor(blue_noise_table())
+    with pytest.raises(ValueError, match="scene.env"):
+        megakernel.trace_image_fused(cornell_scene(), cornell_camera(), sky_cfg, 8, 8, 1.0, RV, bn)
+    with pytest.raises(ValueError, match="scene.quads"):
+        megakernel.trace_image_fused(physical_sky_scene()._replace(quads=None), sky_camera(), IntegratorConfig(),
+                                     8, 8, 1.0, RV, bn)
+    sky_only = physical_sky_scene()._replace(quads=None, spheres=None)  # a wavefront case: runs on the CPU
+    r = megakernel.trace_image_fused(sky_only, sky_camera(), sky_cfg, 8, 8, 1.0, RV, bn)
+    assert bool((r.pixel_sharpness == 1.01).all()) and bool((r.color > 0).all())
 
 
 @pytest.fixture
@@ -144,9 +184,9 @@ def test_cuda_kernel_matches_plain_version(cuda_device, mat):
     scene, cam = cornell_scene(right_sphere_mat=mat, device=cuda_device), cornell_camera(device=cuda_device)
     cfg = IntegratorConfig(bounces=4)
     for width, height in ((64, 64), (96, 64)):
-        before = megakernel.LAUNCHES
+        before = megakernel.LAUNCHES["cornell"]
         got = megakernel.trace_image_fused(scene, cam, cfg, width, height, 2.0, RV, bn)
-        assert megakernel.LAUNCHES == before + 1
+        assert megakernel.LAUNCHES["cornell"] == before + 1
         ref = megakernel.trace_image_fused_reference(scene, cam, cfg, width, height, 2.0, RV, bn)
         torch.cuda.synchronize()
         for a, b in zip(got, ref):
@@ -157,9 +197,9 @@ def test_cuda_kernel_matches_plain_version(cuda_device, mat):
 def test_cuda_renderer_goes_through_the_kernel(cuda_device):
     r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=4), 64, 64, device=cuda_device)
     attach_cuda_path(r)
-    before = megakernel.LAUNCHES
+    before = megakernel.LAUNCHES["cornell"]
     img = r.render(cornell_camera(), spp=3)
-    assert megakernel.LAUNCHES == before + 3
+    assert megakernel.LAUNCHES["cornell"] == before + 3
     assert img.device.type == "cuda" and bool(torch.isfinite(img).all())
 
 
@@ -169,12 +209,12 @@ def test_default_renderer_launches_the_kernel(cuda_device):
     the kernel, without attach_cuda_path (which is then a no-op)."""
     r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=4), 64, 64)
     assert r.device.type == "cuda"
-    before = megakernel.LAUNCHES
+    before = megakernel.LAUNCHES["cornell"]
     r.render(cornell_camera(), spp=2)
-    assert megakernel.LAUNCHES == before + 2
+    assert megakernel.LAUNCHES["cornell"] == before + 2
     attach_cuda_path(r)
     r.render(cornell_camera(), spp=1)
-    assert megakernel.LAUNCHES == before + 3
+    assert megakernel.LAUNCHES["cornell"] == before + 3
 
 
 @pytest.mark.cuda
@@ -186,9 +226,9 @@ def test_cuda_grads_kernel_matches_plain_version(cuda_device, mat, tint):
     bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
     scene, cam = cornell_scene(right_sphere_mat=mat, device=cuda_device), cornell_camera(device=cuda_device)
     cfg = IntegratorConfig(bounces=4, transparent_tint=tint)
-    before = megakernel.GRAD_LAUNCHES
+    before = megakernel.GRAD_LAUNCHES["cornell"]
     got, sg = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
-    assert megakernel.GRAD_LAUNCHES == before + 1
+    assert megakernel.GRAD_LAUNCHES["cornell"] == before + 1
     ref, sg_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
     fwd = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
     torch.cuda.synchronize()
@@ -220,8 +260,73 @@ def test_cuda_path_replay_gradient_matches_plain_route(cuda_device, tint):
         g_q, g_s = torch.autograd.grad(loss, [qc, sc])
         return torch.stack([g_q[5], g_q[2], g_s[1]])
 
-    before = megakernel.GRAD_LAUNCHES
+    before = megakernel.GRAD_LAUNCHES["cornell"]
     got = grads(True, megakernel.trace_image_fused)
-    assert megakernel.GRAD_LAUNCHES == before + 1
+    assert megakernel.GRAD_LAUNCHES["cornell"] == before + 1
     want = grads(False, megakernel.trace_image_fused_reference)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-9)
+
+
+def _quadric_and_sky_cases(device):
+    return {
+        "quadric": (quadric_geometry_scene(device=device), quadric_camera(device=device),
+                    IntegratorConfig(bounces=4, transparent_tint=True)),
+        "quadric-glass": (quadric_geometry_scene(shape_k=0.35, all_shapes_mat=TRANSPARENT, device=device),
+                          quadric_camera(device=device), IntegratorConfig(bounces=4, transparent_tint=True)),
+        "sky": (physical_sky_scene(device=device), sky_camera(device=device),
+                IntegratorConfig(bounces=4, env="sky", nee="sun")),
+        "sky-glass": (physical_sky_scene(right_sphere_mat=TRANSPARENT, device=device), sky_camera(device=device),
+                      IntegratorConfig(bounces=4, env="sky", nee="sun")),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["quadric", "quadric-glass", "sky", "sky-glass"])
+def test_cuda_quadric_and_sky_kernels_match_plain_version(cuda_device, case):
+    """96x64, 4 bounces, frame 2: the quadric and sky configurations of the
+    forward kernel equal their plain versions bit for bit, and launch under
+    their own configuration's count."""
+    scene, cam, cfg = _quadric_and_sky_cases(cuda_device)[case]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    name = megakernel.configuration(scene, cfg)
+    before = megakernel.LAUNCHES[name]
+    got = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    assert megakernel.LAUNCHES[name] == before + 1
+    ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["quadric", "sky"])
+def test_cuda_quadric_and_sky_grads_kernels_match_plain_version(cuda_device, case):
+    """The grads mode of both configurations: sg planes (n_obj = 12 quadrics
+    + 6 quads, or 2 spheres + 4 quads) and 11 planes equal to the plain
+    version's, the 11 planes also to the forward kernel's."""
+    scene, cam, cfg = _quadric_and_sky_cases(cuda_device)[case]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    got, sg = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    ref, sg_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    fwd = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    torch.cuda.synchronize()
+    assert sg.shape == ((18, 64, 96) if case == "quadric" else (12, 64, 96))
+    torch.testing.assert_close(sg, sg_ref, rtol=0, atol=0)
+    for a, b, c in zip(got, ref, fwd):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_wrapper_limits(cuda_device):
+    """No quads, or a quadric count other than 0 or 12, raises in the
+    wrapper; nothing falls back to the plain version."""
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    scene, cam, cfg = _quadric_and_sky_cases(cuda_device)["sky"]
+    with pytest.raises(ValueError, match="at least one quad"):
+        megakernel.trace_image_fused(scene._replace(quads=None), cam, cfg, 8, 8, 1.0, RV, bn)
+    q, qcam, qcfg = _quadric_and_sky_cases(cuda_device)["quadric"]
+    few = q.quadrics._replace(inv_matrix=q.quadrics.inv_matrix[:5], color=q.quadrics.color[:5],
+                              mat_type=q.quadrics.mat_type[:5])
+    with pytest.raises(ValueError, match="0 or 12"):
+        megakernel.trace_image_fused(q._replace(quadrics=few), qcam, qcfg, 8, 8, 1.0, RV, bn)

@@ -1,5 +1,6 @@
-"""Scene, camera and state conversion, the Cornell scene constructor, ray generation
-and closest-hit parity between bpt_tpu_torch and bpt_tpu."""
+"""Scene, camera and state conversion, the Cornell, quadric and sky scene
+constructors, ray generation and closest-hit parity between bpt_tpu_torch
+and bpt_tpu; and the scene-level guards of the kernel module."""
 
 import jax
 import jax.numpy as jnp
@@ -14,6 +15,8 @@ from bpt_tpu.integrator.intersect import scene_intersect as j_scene_intersect
 from bpt_tpu.kernels import megakernel as jmega
 from bpt_tpu.renderer import RenderState as JRenderState
 from bpt_tpu.scenes import cornell as jcornell
+from bpt_tpu.scenes import quadric_geometry as jquadric
+from bpt_tpu.scenes import sky_scene as jsky_scene
 from bpt_tpu.scenes.types import Quads as JQuads
 from bpt_tpu.scenes.types import Scene as JScene
 from bpt_tpu.scenes.types import UnitSpheres as JUnitSpheres
@@ -23,8 +26,10 @@ from bpt_tpu_torch.core.rng import rng_seed
 from bpt_tpu_torch.integrator.frame import pixel_grid
 from bpt_tpu_torch.integrator.intersect import scene_intersect
 from bpt_tpu_torch.kernels import megakernel
-from bpt_tpu_torch.scenes import cornell
-from bpt_tpu_torch.scenes.types import METAL, TRANSPARENT
+from bpt_tpu_torch.integrator import IntegratorConfig
+from bpt_tpu_torch.kernels import build
+from bpt_tpu_torch.scenes import cornell, quadric_geometry, sky_scene
+from bpt_tpu_torch.scenes.types import CLEARCOAT_DIFFUSE, DIFFUSE, METAL, TRANSPARENT, Environment, Quadrics, Scene
 
 torch.set_num_threads(2)
 
@@ -122,14 +127,189 @@ def test_scene_intersect_parity(mat):
     np.testing.assert_array_equal(got.color.numpy(), np.asarray(ref.color))
 
 
-@pytest.mark.parametrize("mat", [METAL, TRANSPARENT])
+@pytest.mark.parametrize("mat", [METAL, TRANSPARENT, "quadric"])
 def test_packs_match_the_tpu_kernel_layout(mat):
-    """The kernel's scene and camera packs are the TPU kernel's, float for float."""
-    jscene, jcam = jcornell.cornell_scene(right_sphere_mat=mat), jcornell.cornell_camera()
-    jq, js, _ = jmega.pack_scene(jscene)
+    """The kernel's scene and camera packs are the TPU kernel's, float for
+    float (the quadric pack for the quadric scene)."""
+    if mat == "quadric":
+        jscene, jcam = jquadric.quadric_geometry_scene(shape_k=0.35), jquadric.quadric_camera()
+    else:
+        jscene, jcam = jcornell.cornell_scene(right_sphere_mat=mat), jcornell.cornell_camera()
+    jq, js, jd = jmega.pack_scene(jscene)
     scene = convert.scene_from_numpy(jax.tree.map(np.asarray, jscene))
-    q, s = megakernel.pack_scene(scene)
+    q, s, d = megakernel.pack_scene(scene)
     np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=1e-7, atol=0)
-    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    for got, want in ((s, js), (d, jd)):
+        assert (got is None) == (want is None)
+        if got is not None:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     cam = megakernel.pack_camera(convert.camera_from_numpy(jax.tree.map(np.asarray, jcam)), 96, 64)
     np.testing.assert_allclose(cam.numpy(), np.asarray(jmega.pack_camera(jcam, 96, 64)), rtol=1e-7)
+
+
+def _assert_scene_equal(got: Scene, ref: Scene, atol=1e-6):
+    for group in Scene._fields:
+        a_group, b_group = getattr(got, group), getattr(ref, group)
+        assert (a_group is None) == (b_group is None), group
+        if a_group is None:
+            continue
+        for name, a, b in zip(a_group._fields, a_group, b_group):
+            assert (a is None) == (b is None), (group, name)
+            if a is None:
+                continue
+            assert a.dtype == b.dtype and a.shape == b.shape, (group, name)
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=atol, err_msg=f"{group}.{name}")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(shape_k=0.35, all_shapes_mat=TRANSPARENT),
+    dict(shape_k=0.9, all_shapes_mat=DIFFUSE, quad_light_plane=1, quad_light_radius=30.0,
+         extra_rotation=(0.2, -0.4, 0.1), extra_translation=(1.0, -2.0, 3.0), extra_scale=(1.0, 1.5, 0.8)),
+])
+def test_quadric_scene_matches_jax_scene(kw):
+    """quadric_geometry_scene equals the converted JAX scene field by field
+    (the inverse matrices within atol 1e-6: both invert in float32)."""
+    ref = convert.scene_from_numpy(_np(jquadric.quadric_geometry_scene(**kw)))
+    _assert_scene_equal(quadric_geometry.quadric_geometry_scene(**kw), ref)
+    assert ref.quadrics.shape_k.shape == () and ref.quadrics.inv_matrix.shape == (12, 4, 4)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(sun_rot_x_deg=330.0, sun_rot_y_deg=45.0, right_sphere_mat=TRANSPARENT)])
+def test_sky_scene_matches_jax_scene(kw):
+    """physical_sky_scene equals the converted JAX scene field by field; the
+    environment carries the sun direction and power, no HDRI field."""
+    ref = convert.scene_from_numpy(_np(jsky_scene.physical_sky_scene(**kw)))
+    _assert_scene_equal(sky_scene.physical_sky_scene(**kw), ref)
+    assert ref.env.hdr_image is None and ref.env.sun_power.shape == ()
+
+
+def test_quadric_and_sky_scenes_round_trip():
+    """JAX -> port -> numpy -> JAX, exact."""
+    from bpt_tpu.scenes.types import Environment as JEnvironment
+    from bpt_tpu.scenes.types import Quadrics as JQuadrics
+
+    for src in (_np(jquadric.quadric_geometry_scene(shape_k=0.35)), _np(jsky_scene.physical_sky_scene())):
+        back = convert.to_numpy(convert.scene_from_numpy(src))
+        rebuilt = JScene(quads=JQuads(**back.quads._asdict()),
+                         spheres=None if back.spheres is None else JUnitSpheres(**back.spheres._asdict()),
+                         quadrics=None if back.quadrics is None else JQuadrics(**back.quadrics._asdict()),
+                         env=None if back.env is None else JEnvironment(**back.env._asdict()))
+        for a, b in zip(jax.tree.leaves(rebuilt), jax.tree.leaves(src)):
+            np.testing.assert_array_equal(np.asarray(a), b)
+
+
+def test_convert_refuses_meshes_and_hdri():
+    src = _np(jsky_scene.physical_sky_scene())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        convert.scene_from_numpy(src._replace(mesh=object()))
+    hdri = src._replace(env=src.env._replace(hdr_image=np.zeros((4, 8, 3), np.float32)))
+    with pytest.raises(NotImplementedError, match="HDRI"):
+        convert.scene_from_numpy(hdri)
+
+
+def test_quadric_scene_intersect_parity():
+    """Primary rays of the quadric demo plus random rays from inside the box:
+    ids (quadrics 0-11, quads 12-17) exactly equal, t and normals within
+    rtol 1e-5 except where the hit is the torus, whose normal is a float32
+    SDF difference (within 1e-3 after normalization)."""
+    jscene = jquadric.quadric_geometry_scene(shape_k=0.35)
+    tscene = convert.scene_from_numpy(_np(jscene))
+    (ro, rd), _ = _rays_both(jquadric.quadric_camera(), RES, RES)
+    gen = np.random.default_rng(5)
+    o2 = gen.uniform(-45.0, 45.0, (RES, RES, 3)).astype(np.float32)
+    d2 = gen.normal(size=(RES, RES, 3)).astype(np.float32)
+    d2 /= np.linalg.norm(d2, axis=-1, keepdims=True)
+    ro = np.concatenate([ro.numpy(), o2]).astype(np.float32)
+    rd = np.concatenate([rd.numpy(), d2]).astype(np.float32)
+    got = scene_intersect(tscene, torch.as_tensor(ro), torch.as_tensor(rd))
+    ref = j_scene_intersect(jscene, jnp.asarray(ro), jnp.asarray(rd))
+    ids = got.object_id.numpy()
+    np.testing.assert_array_equal(ids, np.asarray(ref.object_id))
+    assert set(range(12)) <= set(np.unique(ids).tolist())  # every shape is hit by some ray
+    np.testing.assert_allclose(got.t.numpy(), np.asarray(ref.t), rtol=1e-5)
+    torus = ids == 11
+    np.testing.assert_allclose(got.normal.numpy()[~torus], np.asarray(ref.normal)[~torus], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got.normal.numpy()[torus], np.asarray(ref.normal)[torus], rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(got.mat_type.numpy(), np.asarray(ref.mat_type))
+
+
+# ---- repairs: moving scenes, fixed inputs of the path-replay route, the build key
+
+def _full_scene():
+    """A scene with all four ported families; shape_k and sun_power as host
+    numbers."""
+    q = quadric_geometry.quadric_geometry_scene()
+    s = sky_scene.physical_sky_scene()
+    quadrics = Quadrics(q.quadrics.inv_matrix, 0.35, q.quadrics.color, q.quadrics.mat_type)
+    env = Environment(sun_direction=s.env.sun_direction, sun_power=2.0)
+    return Scene(quads=q.quads, spheres=s.spheres, quadrics=quadrics, env=env)
+
+
+def test_scene_to_moves_every_family():
+    """Scene.to keeps every family that is set (it used to drop all but quads
+    and spheres), and makes 0-d float32 tensors of shape_k and sun_power."""
+    scene = _full_scene()
+    moved = scene.to("meta")
+    for group in ("quads", "spheres", "quadrics", "env"):
+        src, dst = getattr(scene, group), getattr(moved, group)
+        assert dst is not None, group
+        for name, a, b in zip(src._fields, src, dst):
+            if a is None:
+                assert b is None, (group, name)
+                continue
+            assert b.device.type == "meta", (group, name)
+            assert b.shape == torch.as_tensor(a).shape, (group, name)
+    assert moved.quadrics.shape_k.dtype == torch.float32 and moved.quadrics.shape_k.shape == ()
+    assert moved.env.sun_power.dtype == torch.float32 and moved.env.sun_power.shape == ()
+    back = scene.to("cpu")
+    assert back.quadrics.shape_k.item() == pytest.approx(0.35) and back.env.sun_power.item() == 2.0
+    torch.testing.assert_close(back.env.sun_direction, scene.env.sun_direction, rtol=0, atol=0)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        scene._replace(mesh=object()).to("cpu")
+
+
+def _fused_call(scene, camera, cfg):
+    bn = torch.as_tensor(np.zeros((256, 256, 4), np.float32))
+    return megakernel.trace_image_fused(scene, camera, cfg, 8, 8, 1.0, np.array([0.3, 0.7], np.float32), bn,
+                                        differentiable=True)
+
+
+@pytest.mark.parametrize("where", ["sun_direction", "sun_power", "inv_matrix", "shape_k"])
+def test_fused_route_refuses_sun_and_quadric_geometry_gradients(where):
+    """The path-replay route differentiates colors only; a sun or quadric
+    geometry tensor that requires a gradient raises, naming the field and
+    the wavefront route, instead of getting no gradient."""
+    if where.startswith("sun"):
+        scene, cam, cfg = (sky_scene.physical_sky_scene(), sky_scene.sky_camera(),
+                           IntegratorConfig(bounces=1, env="sky", nee="sun"))
+        env = scene.env._replace(**{where: getattr(scene.env, where).clone().requires_grad_(True)})
+        scene = scene._replace(env=env)
+        field = f"Environment.{where}"
+    else:
+        scene, cam, cfg = (quadric_geometry.quadric_geometry_scene(), quadric_geometry.quadric_camera(),
+                           IntegratorConfig(bounces=1, transparent_tint=True))
+        quadrics = scene.quadrics._replace(**{where: getattr(scene.quadrics, where).clone().requires_grad_(True)})
+        scene = scene._replace(quadrics=quadrics)
+        field = f"Quadrics.{where}"
+    with pytest.raises(NotImplementedError, match=field) as err:
+        _fused_call(scene, cam, cfg)
+    assert "fused=False" in str(err.value)
+    with torch.no_grad():  # without grad mode it is the plain forward
+        _fused_call(scene, cam, cfg)
+
+
+def test_build_key_covers_included_headers(tmp_path):
+    """The build's cache key hashes the kernel, every csrc header it includes
+    (through other headers too) and the flags: changing one byte of a header
+    changes it."""
+    for path in build.CSRC.iterdir():
+        (tmp_path / path.name).write_bytes(path.read_bytes())
+    names = {p.name for p in build.sources("megakernel", tmp_path)}
+    assert {"megakernel.cu", "vec.cuh", "quadrics.cuh", "sky.cuh"} <= names
+    before = build.source_digest("megakernel", tmp_path)
+    assert before == build.source_digest("megakernel", tmp_path)
+    header = tmp_path / "vec.cuh"  # included only through the other headers and the kernel
+    header.write_bytes(header.read_bytes() + b"\n// changed\n")
+    assert build.source_digest("megakernel", tmp_path) != before
+    assert build.source_digest("megakernel", tmp_path, flags=("-O2",)) != build.source_digest("megakernel", tmp_path)
