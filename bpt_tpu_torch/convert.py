@@ -14,7 +14,9 @@ import torch
 
 from bpt_tpu_torch.camera import Camera
 from bpt_tpu_torch.renderer import RenderState
-from bpt_tpu_torch.scenes.types import Environment, Quadrics, Quads, Scene, UnitSpheres
+from bpt_tpu_torch.env import EnvCDF
+from bpt_tpu_torch.scenes.types import (TEXTURE_FIELDS, Environment, Quadrics, Quads, Scene, TriangleMesh, UnitSpheres,
+                                       check_untextured)
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -27,19 +29,38 @@ def _group(cls, src, device, fields=None):
     return cls(**{name: _tensor(getattr(src, name), device) for name in fields or cls._fields})
 
 
+#: The TriangleMesh fields carried across: the soup, the binary BVH, the
+#: transform and the material.  The JAX mesh's TPU packs (``pk_*``, ``fz_*``,
+#: ``*_q``) are left behind, and the CUDA tables are the port's own; a
+#: texture map raises.
+MESH_FIELDS = tuple(f for f in TriangleMesh._fields if f not in TEXTURE_FIELDS + ("kernel_tables",))
+
+
+def _env(env, device):
+    if env is None:
+        return None
+    fields = {name: _tensor(getattr(env, name), device) for name in ("sun_direction", "sun_power")}
+    for name in ("hdr_image", "hdr_exposure"):
+        if getattr(env, name, None) is not None:
+            fields[name] = _tensor(getattr(env, name), device)
+    if getattr(env, "env_cdf", None) is not None:
+        fields["env_cdf"] = EnvCDF(*(_tensor(t, device) for t in env.env_cdf))
+    return Environment(**fields)
+
+
 def scene_from_numpy(scene_np, device=None) -> Scene:
-    """A JAX ``Scene`` of numpy arrays -> the port's ``Scene`` on ``device``.
-    Meshes and the HDRI fields of the environment are not ported yet and
-    raise."""
-    if getattr(scene_np, "mesh", None) is not None:
-        raise NotImplementedError("scene.mesh is not ported yet")
-    env = getattr(scene_np, "env", None)
-    if env is not None and any(getattr(env, f, None) is not None for f in ("hdr_image", "hdr_exposure", "env_cdf")):
-        raise NotImplementedError("the HDRI environment (hdr_image, hdr_exposure, env_cdf) is not ported yet")
+    """A JAX ``Scene`` of numpy arrays -> the port's ``Scene`` on ``device``:
+    quads, spheres, quadrics, the mesh (``MESH_FIELDS``; a textured mesh
+    raises NotImplementedError) and the environment with its HDRI fields
+    and CDF tables."""
+    mesh = getattr(scene_np, "mesh", None)
+    if mesh is not None:
+        check_untextured(mesh)
     return Scene(quads=_group(Quads, scene_np.quads, device),
                  spheres=_group(UnitSpheres, scene_np.spheres, device),
                  quadrics=_group(Quadrics, getattr(scene_np, "quadrics", None), device),
-                 env=_group(Environment, env, device, ("sun_direction", "sun_power")))
+                 mesh=_group(TriangleMesh, mesh, device, MESH_FIELDS),
+                 env=_env(getattr(scene_np, "env", None), device))
 
 
 def camera_from_numpy(camera_np, device=None) -> Camera:

@@ -1,24 +1,31 @@
 // Path-tracing megakernel for Hopper (sm_90a): the Cornell, transformed-
-// quadric and physical-sky configurations, forward and grads mode.
+// quadric, physical-sky, glTF-mesh and HDRI configurations; forward mode for
+// all, grads mode for the first three.
 //
 // Replaces: bpt_tpu/kernels/megakernel.py::_make_kernel, launched through
-// _pallas_forward (monolithic mode), in three configurations:
+// _pallas_forward (monolithic mode), in these configurations:
 //   * Cornell: quads + matrix-instanced unit spheres, env "none", quad-light
 //     next-event estimation;
 //   * quadric: the same plus the 12 transformed unit quadrics of
 //     scenes/quadric_geometry.py (csrc/quadrics.cuh; nqd = 12, shape_k a
 //     runtime argument);
 //   * sky: env "sky" (the Preetham miss shading of csrc/sky.cuh) with sun
-//     NEE through the specular lobe (template argument kSky).
-// Each runs with param_grads off (entry bpt_trace) and on (bpt_trace_grads,
-// template argument kGrads).  It computes what the plain PyTorch integrator
+//     NEE through the specular lobe;
+//   * mesh: an untextured triangle mesh walked in the bounce loop through
+//     its binary BVH (csrc/bvh.cuh), after the quads (the glTF demo);
+//   * hdri: env "hdri" (the equirect miss of csrc/hdri.cuh) with sun NEE or
+//     luminance-CDF environment NEE, with the mesh (the HDRI demo).
+// Template arguments select each at compile time: kEnv (none, sky, hdri),
+// kNee (quad, sun, env), kMesh, and kGrads for param_grads (entry
+// bpt_trace, argument grads; grads mode for env none and sky without a
+// mesh).  It computes what the plain PyTorch integrator
 // (bpt_tpu_torch/integrator/radiance.py, a mirror of the JAX wavefront)
 // computes, draw for draw: ray generation with tent AA and thin-lens DoF (4
 // hash draws), then up to `bounces` bounces with the fixed per-bounce
 // schedule gate1, gate2 (blue noise) and hem.r, hem.phi (hash), then
-// quad.x, quad.y, quad.z with quad NEE or lobe.cos, lobe.phi with sun NEE.
-// With sun NEE there is no light-hit block: a LIGHT-typed surface is an
-// unknown material and ends the path, as in the plain version.
+// quad.x, quad.y, quad.z with quad NEE or lobe.cos, lobe.phi with sun and
+// env NEE.  Without quad NEE there is no light-hit block: a LIGHT-typed
+// surface is an unknown material and ends the path, as in the plain version.
 //
 // The grads mode writes the same 11 planes plus the path-replay planes
 // out_sg, (n_sg, H, W) planes-major, n_obj = ns + nqd + nq objects in
@@ -41,9 +48,12 @@
 // |d| < 0.01 (tens of steps, up to 500 near grazing), and the 31 other
 // threads of its warp wait for the slowest one.  Sky: the Preetham
 // evaluation on every miss (acos, cos, exp and 4 powf per channel) and
-// the sun lobe's powf per bounce.  It moves almost no memory: a few
-// hundred floats of scene constants, one blue-noise texel and 11 output
-// floats per pixel.  The grads mode adds n_sg * 4 bytes per pixel.
+// the sun lobe's powf per bounce.  Mesh: the BVH walk's dependent gathers
+// and the warp divergence of the walks (csrc/bvh.cuh); HDRI: the equirect
+// gathers and the CDF searches (csrc/hdri.cuh).  Without a mesh it moves
+// almost no memory: a few hundred floats of scene constants, one
+// blue-noise texel and 11 output floats per pixel.  The grads mode adds
+// n_sg * 4 bytes per pixel.
 //
 // What the design does about that: one thread per pixel with its whole path
 // state in registers; the scene constants and the parameter pack sit in
@@ -52,11 +62,15 @@
 // planes because Mosaic has no per-lane gather).  Unlike the TPU's masked
 // lockstep, a thread leaves the bounce loop once its path is dead (a dead
 // lane's records never change again), evaluates only its own material's
-// branch and the sky only on its own miss, leaves the torus march when its
-// lane freezes, and does not march a ray that misses the torus's bound;
-// every draw of a bounce is still consumed, so the random streams stay
-// aligned with the plain version.  The divergence of the march is left as
-// it is: sorting rays or marching in a separate pass is later work.
+// branch and the environment only on its own miss, leaves the torus march
+// when its lane freezes, and does not march a ray that misses the torus's
+// bound; every draw of a bounce is still consumed, so the random streams
+// stay aligned with the plain version.  The mesh walk and the HDRI code
+// are compiled only into the instantiations that use them (a configuration
+// pays registers and scheduling for code it carries even when it never
+// runs it: the quadric loop costs the Cornell configuration 2-3%).  The
+// divergence of the march and of the walk is left as it is: sorting rays or
+// marching in a separate pass is later work.
 //
 // The grads planes: a thread cannot hold n_obj accumulators (the wrapper
 // allows 256 quads + 64 spheres + 12 quadrics), but a path touches at most
@@ -75,11 +89,8 @@
 // without it the kernel's outputs are bit-equal to the plain version's on
 // the card.  Restoring FMA is a later performance change.
 //
-// Registers (nvcc 12.9 -Xptxas -v for sm_90a, printed by chip_smoke.py's
-// build phase): <false, false> (forward, quad NEE: Cornell and quadric) 76,
-// <false, true> (forward, sky) 80, <true, false> 80, <true, true> 86; no
-// spills; a 48-byte stack frame in each.  By registers alone an SM holds 3
-// blocks of 256 threads (2 for the 86-register one).  The quadric code
+// Registers: nvcc's -Xptxas -v report for every instantiation is printed by
+// chip_smoke.py's build phase (PERF.md keeps the numbers).  The quadric code
 // costs the Cornell configuration about 2-3% of device time (measured with
 // bpt_tpu_torch/tools/ab_time.py against a copy without the quadric loop):
 // the price of one function for the configurations that share the quad-NEE
@@ -88,9 +99,49 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bvh.cuh"
+#include "hdri.cuh"
 #include "quadrics.cuh"
 #include "sky.cuh"
 #include "vec.cuh"
+
+namespace bpt {
+
+// Everything one launch reads and writes.  Its layout is mirrored by
+// kernels/megakernel.py _TraceArgs (ctypes): pointers first, then 32-bit
+// fields; bpt_trace_args_size lets the wrapper check the match.  It lives in
+// a named namespace: with the struct in the unnamed one, the C entry that
+// takes it was not exported from nvcc's shared library.
+struct TraceArgs {
+  const float* cam;
+  const float* params;
+  const float* quads;
+  const float* spheres;
+  const float* quadrics;
+  const float* mesh;  // kMeshFloats constants
+  const float4* mesh_nodes;
+  const float4* mesh_tris;
+  const float4* mesh_normals;
+  const float* hdr;  // (H, W, 3) equirect map
+  const float* row_cdf;  // (H,)
+  const float* col_cdf;  // (H, W)
+  const float* env_pdf;  // (H, W)
+  const float* blue_noise;
+  float* out_color;
+  float* out_normal;
+  float* out_ocolor;
+  float* out_oid;
+  float* out_sharp;
+  float* out_sg;
+  int nq, ns, nqd;
+  int bn_ox, bn_oy, width, height, bounces;
+  float eps;
+  int light_index, diffuse_indirect_max, camera_is_moving, transparent_tint;
+  uint32_t frame_u;
+  float frame_f;
+};
+
+}  // namespace bpt
 
 namespace {
 
@@ -104,15 +155,22 @@ constexpr int kTransparent = 2;
 constexpr int kMetal = 3;
 constexpr int kClearcoat = 4;
 
+constexpr int kEnvNone = 0, kEnvSky = 1, kEnvHdri = 2;
+constexpr int kNeeQuad = 0, kNeeSun = 1, kNeeEnv = 2;
+
 // Packed scene layouts (bpt_tpu_torch/kernels/megakernel.py pack_scene /
-// pack_camera / pack_params): cam = pos3 right3 up3 fwd3 ulen vlen aperture
-// focus; quad row (20) = n3 v0 v1 v2 v3 color3 mat pad; sphere row (21) =
-// inverse 4x4 row-major (16) color3 mat pad; quadric row (20) = inverse 4x4
-// row-major (16) color3 mat; the parameter pack: sky.cuh.
+// pack_camera / pack_params / pack_mesh): cam = pos3 right3 up3 fwd3 ulen
+// vlen aperture focus; quad row (20) = n3 v0 v1 v2 v3 color3 mat pad; sphere
+// row (21) = inverse 4x4 row-major (16) color3 mat pad; quadric row (20) =
+// inverse 4x4 row-major (16) color3 mat; mesh constants (17) = inverse 4x4
+// row-major (16) mat, and its nodes, triangles and normals (csrc/bvh.cuh);
+// the parameter pack: vec.cuh.
 constexpr int kCamFloats = 16;
 constexpr int kQuadFloats = 20;
 constexpr int kSphereFloats = 21;
 constexpr int kQuadricFloats = 20;
+constexpr int kMeshFloats = 17;
+
 
 // iq's uvec2 hash, one draw: native uint32 wrap-around, mantissa bitcast.
 __device__ __forceinline__ float rng_next(uint32_t& sx, uint32_t& sy) {
@@ -208,27 +266,28 @@ __device__ __forceinline__ V3 quad_light(const float* lq, V3 x, V3 nl, float rx,
   return d;
 }
 
-template <bool kGrads, bool kSky>
-__global__ void trace_kernel(const float* __restrict__ cam_g, const float* __restrict__ params_g,
-                             const float* __restrict__ quads_g, int nq, const float* __restrict__ spheres_g, int ns,
-                             const float* __restrict__ quadrics_g, int nqd, const float* __restrict__ blue_noise,
-                             int bn_ox, int bn_oy, int width, int height, int bounces, float eps, int light_index,
-                             int diffuse_indirect_max, int camera_is_moving, int transparent_tint, uint32_t frame_u,
-                             float frame_f, float* __restrict__ out_color, float* __restrict__ out_normal,
-                             float* __restrict__ out_ocolor, float* __restrict__ out_oid,
-                             float* __restrict__ out_sharp, float* __restrict__ out_sg) {
-  // ---- constants into shared memory: cam | params | quads | spheres | quadrics
+template <bool kGrads, int kEnv, int kNee, bool kMesh>
+__global__ void trace_kernel(const TraceArgs a) {
+  constexpr bool kSky = kEnv == kEnvSky;
+  const int nq = a.nq, ns = a.ns, nqd = a.nqd, width = a.width, height = a.height, bounces = a.bounces;
+  const int diffuse_indirect_max = a.diffuse_indirect_max, transparent_tint = a.transparent_tint;
+  const float eps = a.eps, frame_f = a.frame_f;
+  float* __restrict__ out_sg = a.out_sg;
+
+  // ---- constants into shared memory: cam | params | quads | spheres | quadrics | mesh
   extern __shared__ float smem[];
   float* cam = smem;
   float* P = cam + kCamFloats;
   float* quads = P + kParamFloats;
   float* spheres = quads + nq * kQuadFloats;
   float* quadrics = spheres + ns * kSphereFloats;
-  const int seg[5] = {kCamFloats, kParamFloats, nq * kQuadFloats, ns * kSphereFloats, nqd * kQuadricFloats};
-  const float* src[5] = {cam_g, params_g, quads_g, spheres_g, quadrics_g};
+  float* mesh_inv = quadrics + nqd * kQuadricFloats;
+  const int seg[6] = {kCamFloats, kParamFloats, nq * kQuadFloats, ns * kSphereFloats, nqd * kQuadricFloats,
+                      kMesh ? kMeshFloats : 0};
+  const float* src[6] = {a.cam, a.params, a.quads, a.spheres, a.quadrics, a.mesh};
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   int base = 0;
-  for (int g = 0; g < 5; ++g) {
+  for (int g = 0; g < 6; ++g) {
     for (int i = tid; i < seg[g]; i += blockDim.x * blockDim.y) smem[base + i] = src[g][i];
     base += seg[g];
   }
@@ -239,6 +298,8 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
   if (px >= width || py >= height) return;
   const int pix = py * width + px;
   const float shape_k = P[kPShapeK];
+  const int mesh_mat = kMesh ? (int)mesh_inv[16] : 0;
+  const bool mesh_cull = mesh_mat != kTransparent;  // double-sided only when TRANSPARENT
 
   // ---- grads mode: zero this pixel's path-replay entries -----------------
   const size_t plane = (size_t)width * (size_t)height;
@@ -252,11 +313,11 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
   };
 
   // ---- RNG seeds from absolute pixel coordinates -------------------------
-  uint32_t sx = frame_u * (uint32_t)px;
-  uint32_t sy = (frame_u + 1u) * (uint32_t)py;
+  uint32_t sx = a.frame_u * (uint32_t)px;
+  uint32_t sy = (a.frame_u + 1u) * (uint32_t)py;
 
   // ---- blue-noise decision texel: ((p + offset) mod 256), channels mod 1 --
-  const float* texel = blue_noise + (((py + bn_oy) & 255) * 256 + ((px + bn_ox) & 255)) * 4;
+  const float* texel = a.blue_noise + (((py + a.bn_oy) & 255) * 256 + ((px + a.bn_ox) & 255)) * 4;
   float bn[4];
   for (int c = 0; c < 4; ++c) bn[c] = texel[c] - floorf(texel[c]);
 
@@ -286,7 +347,7 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
   float sharp = 0.0f;
   V3 obj_normal = v3(0.0f, 0.0f, 0.0f), obj_color = v3(0.0f, 0.0f, 0.0f);
   float obj_id = -kInf;
-  const float* lq = quads + (kSky ? 0 : light_index) * kQuadFloats;
+  const float* lq = quads + (kNee == kNeeQuad ? a.light_index : 0) * kQuadFloats;
 
   for (int bounce = 0; bounce < bounces; ++bounce) {
     // ---- closest hit: spheres, quadrics, quads; strict < keeps ties ------
@@ -332,26 +393,46 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
         hobj = ns + nqd + q;
       }
     }
+    if constexpr (kMesh) {  // the model: object space, the BVH walk, the winner's normal
+      const V3 ro_o = xform_point(mesh_inv, ro), rd_o = xform_dir(mesh_inv, rd);  // rd_o unnormalized
+      const MeshHit mh = bvh_closest(a.mesh_nodes, a.mesh_tris, ro_o, rd_o, mesh_cull);
+      if (mh.t < t_best) {
+        t_best = mh.t;
+        nrm = normalize(xform_normal(mesh_inv, mesh_normal(a.mesh_normals, mh)));
+        hc = v3(1.0f, 1.0f, 1.0f);
+        mat = mesh_mat;
+        hid = (float)(ns + nqd + nq);
+        hobj = ns + nqd + nq;
+      }
+    }
     if (t_best >= kInf) {  // a miss ends the path; env "none" leaves it black
-      if constexpr (kSky) {
-        V3 env = sky_color(rd, P);
-        if (bounce == 0) {  // a primary ray sees the sky
+      if constexpr (kEnv != kEnvNone) {
+        V3 env;
+        if constexpr (kSky) {
+          env = sky_color(rd, P);
+        } else {
+          env = hdr_color(a.hdr, (int)P[kPHdrH], (int)P[kPHdrW], rd, P[kPExposure]);
+        }
+        if (bounce == 0) {  // a primary ray sees the environment
           acc = env;
           sharp = 1.01f;
         } else {  // first-match case chain c2 > c3 > c4 > c5
+          const float sun_cos = dot(rd, load3(P + kPSun));
           bool c2 = d_count == 0 && spec;
           bool c3 = sample_light;
-          bool c4 = d_count == 1 && prev_mat == kTransparent && spec;
+          bool c4 = d_count == 1 && prev_mat == kTransparent && spec && (kSky || bounce < 3);
           bool c5 = d_count > 0;
           V3 lit = mul3(mask, env);
           if (c2 || c3 || c4) {
             acc = lit;
           } else if (c5) {
-            acc = mul(lit, dot(rd, load3(P + kPSun)) < 0.99f ? 1.0f : 0.0f);  // clip the sun disc
+            // clip the sun disc; env NEE already covers the whole map at a diffuse vertex
+            acc = mul(lit, kNee == kNeeEnv ? 0.0f : (sun_cos < 0.99f ? 1.0f : 0.0f));
           } else {
             acc = v3(0.0f, 0.0f, 0.0f);
           }
           if (c2) sharp = 1.01f;
+          if (!kSky && !c2 && !c3 && c4 && sun_cos > 0.99f) sharp = 1.01f;
         }
       }
       break;
@@ -372,7 +453,7 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
     }
 
     // ---- a light hit ends the path (quad-light NEE only) -----------------
-    if constexpr (!kSky) {
+    if constexpr (kNee == kNeeQuad) {
       if (mat == kLight) {
         if (d_count == 0) sharp = 1.01f;
         if (spec || sample_light) {
@@ -392,10 +473,12 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
     const float hem_p = rng_next(sx, sy);
     float d0 = rng_next(sx, sy);  // quad.x | lobe.cos
     float d1 = rng_next(sx, sy);  // quad.y | lobe.phi
-    float d2 = kSky ? 0.0f : rng_next(sx, sy);  // quad.z
+    float d2 = kNee == kNeeQuad ? rng_next(sx, sy) : 0.0f;  // quad.z
     auto nee = [&](float* w) {
-      if constexpr (kSky) {
+      if constexpr (kNee == kNeeSun) {
         return sun_nee(P, nl, d0, d1, w);
+      } else if constexpr (kNee == kNeeEnv) {
+        return env_nee(a.row_cdf, a.col_cdf, a.env_pdf, (int)P[kPHdrH], (int)P[kPHdrW], nl, d0, d1, w);
       } else {
         return quad_light(lq, x, nl, d0, d1, d2, w);
       }
@@ -455,7 +538,7 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
         spec = spec || (d_count == 1);
       }
       sample_light = false;
-      sharp = (d_count == 0 && !coat_hit && !camera_is_moving) ? 1.01f : (d_count > 0 ? 0.0f : -1.0f);
+      sharp = (d_count == 0 && !coat_hit && !a.camera_is_moving) ? 1.01f : (d_count > 0 ? 0.0f : -1.0f);
     } else if (mat == kClearcoat) {
       float unused_ratio;
       float re = fresnel(rd, nl, 1.0f, 1.4f, &unused_ratio);
@@ -489,69 +572,60 @@ __global__ void trace_kernel(const float* __restrict__ cam_g, const float* __res
       ro = add(x, mul(nl, eps));
       coat_hit = true;
     } else {
-      break;  // unknown material ids (and LIGHT under sun NEE) end the path
+      break;  // unknown material ids (and LIGHT without quad NEE) end the path
     }
     prev_mat = mat;
   }
 
-  out_color[3 * pix + 0] = fmaxf(acc.x, 0.0f);
-  out_color[3 * pix + 1] = fmaxf(acc.y, 0.0f);
-  out_color[3 * pix + 2] = fmaxf(acc.z, 0.0f);
-  out_normal[3 * pix + 0] = obj_normal.x;
-  out_normal[3 * pix + 1] = obj_normal.y;
-  out_normal[3 * pix + 2] = obj_normal.z;
-  out_ocolor[3 * pix + 0] = obj_color.x;
-  out_ocolor[3 * pix + 1] = obj_color.y;
-  out_ocolor[3 * pix + 2] = obj_color.z;
-  out_oid[pix] = obj_id;
-  out_sharp[pix] = sharp;
+  a.out_color[3 * pix + 0] = fmaxf(acc.x, 0.0f);
+  a.out_color[3 * pix + 1] = fmaxf(acc.y, 0.0f);
+  a.out_color[3 * pix + 2] = fmaxf(acc.z, 0.0f);
+  a.out_normal[3 * pix + 0] = obj_normal.x;
+  a.out_normal[3 * pix + 1] = obj_normal.y;
+  a.out_normal[3 * pix + 2] = obj_normal.z;
+  a.out_ocolor[3 * pix + 0] = obj_color.x;
+  a.out_ocolor[3 * pix + 1] = obj_color.y;
+  a.out_ocolor[3 * pix + 2] = obj_color.z;
+  a.out_oid[pix] = obj_id;
+  a.out_sharp[pix] = sharp;
 }
 
-template <bool kGrads, bool kSky>
-int launch_cfg(const float* cam, const float* params, const float* quads, int nq, const float* spheres, int ns,
-               const float* quadrics, int nqd, const float* blue_noise, int bn_ox, int bn_oy, int width, int height,
-               int bounces, float eps, int light_index, int diffuse_indirect_max, int camera_is_moving,
-               int transparent_tint, unsigned int frame_u, float frame_f, float* out_color, float* out_normal,
-               float* out_ocolor, float* out_oid, float* out_sharp, float* out_sg, void* stream) {
+template <bool kGrads, int kEnv, int kNee, bool kMesh>
+int launch_cfg(const TraceArgs& a, void* stream) {
   const dim3 block(16, 16);
-  const dim3 grid((width + block.x - 1) / block.x, (height + block.y - 1) / block.y);
-  const size_t smem = sizeof(float) * (kCamFloats + kParamFloats + nq * kQuadFloats + ns * kSphereFloats +
-                                       nqd * kQuadricFloats);
-  trace_kernel<kGrads, kSky><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(
-      cam, params, quads, nq, spheres, ns, quadrics, nqd, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
-      light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color, out_normal,
-      out_ocolor, out_oid, out_sharp, out_sg);
+  const dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
+  const size_t smem = sizeof(float) * (kCamFloats + kParamFloats + a.nq * kQuadFloats + a.ns * kSphereFloats +
+                                       a.nqd * kQuadricFloats + (kMesh ? kMeshFloats : 0));
+  trace_kernel<kGrads, kEnv, kNee, kMesh><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kEnv, int kNee>
+int launch_forward(const TraceArgs& a, int mesh, void* stream) {
+  return mesh ? launch_cfg<false, kEnv, kNee, true>(a, stream) : launch_cfg<false, kEnv, kNee, false>(a, stream);
 }
 
 }  // namespace
 
-// One frame of the configuration the arguments select: sky != 0 is env "sky"
-// with sun NEE (light_index unused), else env "none" with quad NEE; nqd is 0
-// or 12 (the transformed-quadric set, shape parameter params[0]).
-extern "C" int bpt_trace(const float* cam, const float* params, const float* quads, int nq, const float* spheres,
-                         int ns, const float* quadrics, int nqd, int sky, const float* blue_noise, int bn_ox,
-                         int bn_oy, int width, int height, int bounces, float eps, int light_index,
-                         int diffuse_indirect_max, int camera_is_moving, int transparent_tint, unsigned int frame_u,
-                         float frame_f, float* out_color, float* out_normal, float* out_ocolor, float* out_oid,
-                         float* out_sharp, void* stream) {
-  auto fn = sky ? launch_cfg<false, true> : launch_cfg<false, false>;
-  return fn(cam, params, quads, nq, spheres, ns, quadrics, nqd, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
-            light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color,
-            out_normal, out_ocolor, out_oid, out_sharp, nullptr, stream);
-}
+extern "C" int bpt_trace_args_size() { return static_cast<int>(sizeof(bpt::TraceArgs)); }
 
-// As bpt_trace, plus the (n_sg, H, W) path-replay planes out_sg,
-// n_sg = ns + nqd + nq with transparent_tint and twice that without.
-extern "C" int bpt_trace_grads(const float* cam, const float* params, const float* quads, int nq,
-                               const float* spheres, int ns, const float* quadrics, int nqd, int sky,
-                               const float* blue_noise, int bn_ox, int bn_oy, int width, int height, int bounces,
-                               float eps, int light_index, int diffuse_indirect_max, int camera_is_moving,
-                               int transparent_tint, unsigned int frame_u, float frame_f, float* out_color,
-                               float* out_normal, float* out_ocolor, float* out_oid, float* out_sharp, float* out_sg,
-                               void* stream) {
-  auto fn = sky ? launch_cfg<true, true> : launch_cfg<true, false>;
-  return fn(cam, params, quads, nq, spheres, ns, quadrics, nqd, blue_noise, bn_ox, bn_oy, width, height, bounces, eps,
-            light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, out_color,
-            out_normal, out_ocolor, out_oid, out_sharp, out_sg, stream);
+// One frame of the configuration the arguments select: env 0 none, 1 sky,
+// 2 hdri; nee 0 quad, 1 sun, 2 env (the pairs none + quad, sky + sun,
+// hdri + sun and hdri + env); mesh 0 or 1.  grads != 0 adds the (n_sg, H, W)
+// path-replay planes out_sg (n_sg = ns + nqd + nq with transparent_tint,
+// twice that without), for env none and sky without a mesh.  Returns the
+// CUDA error of the launch, or -1 for a combination that is not built.
+extern "C" int bpt_trace(const bpt::TraceArgs* args, int grads, int env, int nee, int mesh, void* stream) {
+  const bpt::TraceArgs& a = *args;
+  if (grads) {
+    if (mesh) return -1;
+    if (env == kEnvNone && nee == kNeeQuad) return launch_cfg<true, kEnvNone, kNeeQuad, false>(a, stream);
+    if (env == kEnvSky && nee == kNeeSun) return launch_cfg<true, kEnvSky, kNeeSun, false>(a, stream);
+    return -1;
+  }
+  if (env == kEnvNone && nee == kNeeQuad) return launch_forward<kEnvNone, kNeeQuad>(a, mesh, stream);
+  if (env == kEnvSky && nee == kNeeSun) return launch_forward<kEnvSky, kNeeSun>(a, mesh, stream);
+  if (env == kEnvHdri && nee == kNeeSun) return launch_forward<kEnvHdri, kNeeSun>(a, mesh, stream);
+  if (env == kEnvHdri && nee == kNeeEnv) return launch_forward<kEnvHdri, kNeeEnv>(a, mesh, stream);
+  return -1;
 }

@@ -13,11 +13,6 @@
 
 namespace bpt {
 
-// The layout of the parameter pack (kernels/megakernel.py pack_params).
-constexpr int kParamFloats = 19;
-constexpr int kPShapeK = 0, kPSun = 1, kPSunE = 4, kPGamma = 5, kPBlend = 6, kPLobeExp = 7, kPLobeRough = 8,
-              kPSunWeight = 9, kPRayleigh = 10, kPMie = 13, kPExtinction = 16;
-
 __device__ __forceinline__ V3 sky_color(V3 rd, const float* P) {
   const double kPi = 3.14159265358979323;
   const double kG = 0.76;

@@ -1,9 +1,9 @@
 """Closest hit over the whole scene (port of ``bpt_tpu.integrator.intersect``
-for unit spheres, the transformed-quadric set and quads).
+for unit spheres, the transformed-quadric set, quads and the BVH mesh).
 
 Object ids follow the reference's order: spheres first (0, 1, ...), then the
-quadrics, then the quads.  Every group is merged with a strict ``<``, so on
-a tie the earlier object keeps the hit.
+quadrics, then the quads, then the mesh (one id).  Every group is merged
+with a strict ``<``, so on a tie the earlier object keeps the hit.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ class Hit(NamedTuple):
     color: torch.Tensor  # (..., 3)
     mat_type: torch.Tensor  # (...,) int32
     object_id: torch.Tensor  # (...,) float32 (edge-detector id; -INF on miss)
+    uv: torch.Tensor  # (..., 2) texture coordinates (mesh hits only)
 
 
 def _empty_hit(shape, device, dtype=torch.float32) -> Hit:
@@ -33,10 +34,11 @@ def _empty_hit(shape, device, dtype=torch.float32) -> Hit:
         color=torch.zeros(shape + (3,), dtype=dtype, device=device),
         mat_type=torch.full(shape, -100, dtype=torch.int32, device=device),
         object_id=torch.full(shape, -INFINITY, dtype=dtype, device=device),
+        uv=torch.zeros(shape + (2,), dtype=dtype, device=device),
     )
 
 
-def _merge(best: Hit, t, normal, color, mat_type, object_id) -> Hit:
+def _merge(best: Hit, t, normal, color, mat_type, object_id, uv=None) -> Hit:
     closer = t < best.t
     c3 = closer[..., None]
     return Hit(
@@ -45,6 +47,7 @@ def _merge(best: Hit, t, normal, color, mat_type, object_id) -> Hit:
         color=torch.where(c3, color, best.color),
         mat_type=torch.where(closer, mat_type, best.mat_type),
         object_id=torch.where(closer, object_id, best.object_id),
+        uv=best.uv if uv is None else torch.where(c3, uv, best.uv),
     )
 
 
@@ -87,12 +90,18 @@ def _intersect_quads(quads, ro, rd, best: Hit, id_base: int) -> Hit:
                   first.to(torch.float32) + float(id_base))
 
 
-def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_steps: list | None = None) -> Hit:
-    """Nearest hit over spheres, quadrics and quads for (..., 3) rays of any
-    batch shape.  ``torus_steps``, for measurement, receives the torus
-    march's per-lane step counts (``unit_torus_intersect``'s ``steps_out``)."""
-    if scene.mesh is not None:
-        raise NotImplementedError("meshes are not ported yet")
+def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_steps: list | None = None,
+                    active: torch.Tensor | None = None, mesh_steps: list | None = None) -> Hit:
+    """Nearest hit over spheres, quadrics, quads and the mesh for (..., 3)
+    rays of any batch shape.
+
+    ``active`` (bool, optional): the lanes still alive.  The elementwise
+    intersectors ignore it (the caller masks dead lanes); the mesh walk
+    skips the other lanes, which then miss the mesh.  For measurement,
+    ``torus_steps`` receives the torus march's per-lane step counts
+    (``unit_torus_intersect``'s ``steps_out``) and ``mesh_steps`` the walk's
+    per-lane inner-node visits and triangle tests and the masks of the mesh
+    records read (``intersect_mesh_bvh``'s)."""
     best = _empty_hit(ro.shape[:-1], ro.device, ro.dtype)
     id_base = 0
     if scene.spheres is not None:
@@ -103,4 +112,9 @@ def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_step
         id_base += scene.quadrics.inv_matrix.shape[0]
     if scene.quads is not None:
         best = _intersect_quads(scene.quads, ro, rd, best, id_base)
+        id_base += scene.quads.v0.shape[0]
+    if scene.mesh is not None:
+        from bpt_tpu_torch.accel.traverse import intersect_mesh_bvh  # accel.traverse imports this module
+
+        best = intersect_mesh_bvh(scene.mesh, ro, rd, best, id_base, active=active, steps_out=mesh_steps)
     return best

@@ -2,15 +2,18 @@
 
 Every bounce intersects all live rays, evaluates every material branch over
 the whole pixel array and selects by material id with per-lane masks — the
-plain PyTorch version of the fused kernel.  Two configurations are ported:
-env "none" with quad-light NEE (the Cornell and quadric demos) and env
-"sky" with sun NEE (the Preetham demo), with the DIFFUSE, METAL,
-TRANSPARENT and CLEARCOAT branches; other configurations raise
-``NotImplementedError``.
+plain PyTorch version of the fused kernel.  Four configurations are
+ported: env "none" with quad-light NEE (the Cornell, quadric and glTF
+demos), env "sky" with sun NEE (the Preetham demo), and env "hdri" with sun
+NEE or luminance-CDF env NEE (the HDRI demo), with the DIFFUSE, METAL,
+TRANSPARENT and CLEARCOAT branches over spheres, quadrics, quads and an
+untextured BVH mesh; other configurations, textured meshes and the metal
+roughness lobe raise ``NotImplementedError``.
 
 Draw order per bounce (the RNG seam shared with the kernel and the
 reference): blue noise gate1, gate2; hash hem.r, hem.phi, then quad.x,
-quad.y, quad.z (nee "quad") or lobe.cos, lobe.phi (nee "sun").  Discrete
+quad.y, quad.z (nee "quad") or lobe.cos, lobe.phi (nee "sun", and nee
+"env", where the pair feeds the inverse-CDF environment sample).  Discrete
 decisions are detached from autograd (``.detach()`` where the reference has
 ``stop_gradient``).
 
@@ -30,20 +33,23 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import math
+
 import torch
 
 from bpt_tpu_torch.core.fresnel import calc_fresnel_reflectance
 from bpt_tpu_torch.core.rng import BlueNoise, RngState, bn_next, rng_next
 from bpt_tpu_torch.core.sampling import cos_hemisphere_from_uniforms, specular_lobe_from_uniforms
 from bpt_tpu_torch.core.vecmath import INFINITY, dot, face_forward, normalize, reflect, refract
+from bpt_tpu_torch.env import EnvCDF, get_hdr_color, sample_env_cdf
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.intersect import scene_intersect
 from bpt_tpu_torch.lights import quad_light_from_uniforms
-from bpt_tpu_torch.scenes.types import CLEARCOAT_DIFFUSE, DIFFUSE, LIGHT, METAL, TRANSPARENT, Scene
+from bpt_tpu_torch.scenes.types import CLEARCOAT_DIFFUSE, DIFFUSE, LIGHT, METAL, TRANSPARENT, Scene, check_untextured
 from bpt_tpu_torch.sky import get_sky_color
 
 #: The (env, nee) pairs the port runs.
-SUPPORTED = (("none", "quad"), ("sky", "sun"))
+SUPPORTED = (("none", "quad"), ("sky", "sun"), ("hdri", "sun"), ("hdri", "env"))
 
 
 class RadianceResult(NamedTuple):
@@ -59,33 +65,44 @@ class RadianceResult(NamedTuple):
 class LaneCounts(NamedTuple):
     """One bounce's lane counts (0-d tensors), for measurement: the lanes
     still alive (those for which the kernel runs the bounce's intersection),
-    of those the lanes that hit something and the lanes that missed, and
-    the torus march's SDF evaluations on live lanes."""
+    of those the lanes that hit something and the lanes that missed, the
+    torus march's SDF evaluations and the mesh walk's inner-node visits and
+    triangle tests on live lanes, and the live shadow rays (NEE) that
+    missed every surface, i.e. reached the environment.  ``mesh_reads``:
+    with a mesh, the bool masks of its node, triangle and vertex-normal
+    records the bounce read (``intersect_mesh_bvh``'s), else None."""
 
     live: torch.Tensor
     hits: torch.Tensor
     misses: torch.Tensor
     torus_steps: torch.Tensor
+    node_visits: torch.Tensor
+    tri_tests: torch.Tensor
+    shadow_misses: torch.Tensor
+    mesh_reads: tuple | None = None
 
 
 def check_supported(scene: Scene, cfg: IntegratorConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not run
     (ValueError for a scene that lacks what its configuration needs)."""
+    if cfg.metal_roughness_lobe:
+        raise NotImplementedError("metal_roughness_lobe is not ported yet: ROADMAP, textured PBR")
     if (cfg.env, cfg.nee) not in SUPPORTED:
         raise NotImplementedError(
-            f"env={cfg.env!r}, nee={cfg.nee!r}: the port runs env 'none' + nee 'quad' and env 'sky' + nee 'sun'")
+            f"env={cfg.env!r}, nee={cfg.nee!r}: the port runs env 'none' + nee 'quad', env 'sky' + nee 'sun' and "
+            "env 'hdri' + nee 'sun' or 'env'")
     if cfg.sun_weight_mode not in ("sky", "hdri"):
         raise ValueError(f"sun_weight_mode {cfg.sun_weight_mode!r} is not 'sky' or 'hdri'")
-    if cfg.metal_roughness_lobe:
-        raise NotImplementedError("metal_roughness_lobe is not ported yet")
     if scene.mesh is not None:
-        raise NotImplementedError("meshes are not ported yet")
-    if scene.env is not None and (scene.env.hdr_image is not None or scene.env.env_cdf is not None):
-        raise NotImplementedError("the HDRI environment is not ported yet")
+        check_untextured(scene.mesh)
     if cfg.nee == "quad" and scene.quads is None:
         raise ValueError("quad-light NEE needs scene.quads")
     if cfg.env == "sky" and scene.env is None:
         raise ValueError("env 'sky' needs scene.env (its sun direction)")
+    if cfg.env == "hdri" and (scene.env is None or scene.env.hdr_image is None or scene.env.hdr_exposure is None):
+        raise ValueError("env 'hdri' needs scene.env with its sun direction, hdr_image and hdr_exposure")
+    if cfg.nee == "env" and scene.env.env_cdf is None:
+        raise ValueError("nee 'env' needs scene.env.env_cdf (env.build_env_cdf; hdri_scene builds it)")
 
 
 def _where3(c, a, b):
@@ -113,6 +130,9 @@ def calculate_radiance(
     bounce.
     """
     check_supported(scene, cfg)
+    if param_grads and (scene.mesh is not None or cfg.env == "hdri"):
+        raise NotImplementedError("the path-replay planes of mesh and HDRI scenes are not ported yet: ROADMAP, "
+                                  "K1-grad on mesh and HDRI")
     shape = ray_origin.shape[:-1]
     dev = ray_origin.device
     f32 = ray_origin.dtype
@@ -144,6 +164,7 @@ def calculate_radiance(
         lv0, lv1, lv2, lv3 = quads.v0[li], quads.v1[li], quads.v2[li], quads.v3[li]
         l_normal = normalize(quads.normal[li])
     sun_dir = None if scene.env is None else scene.env.sun_direction
+    env_cdf = EnvCDF(*scene.env.env_cdf) if cfg.nee == "env" else None
     lit = full(False, torch.bool)
     if param_grads:
         n_obj = sum(0 if g is None else g.color.shape[0] for g in (scene.spheres, scene.quadrics, scene.quads))
@@ -153,11 +174,16 @@ def calculate_radiance(
 
     for bounce in range(cfg.bounces):
         torus_steps = [] if lane_counts is not None and scene.quadrics is not None else None
-        hit = scene_intersect(scene, ro, rd, torus_steps=torus_steps)
+        mesh_steps = [] if lane_counts is not None and scene.mesh is not None else None
+        hit = scene_intersect(scene, ro, rd, torus_steps=torus_steps, active=alive, mesh_steps=mesh_steps)
         miss = hit.t >= INFINITY
         if lane_counts is not None:
-            steps = torus_steps[0][alive].sum() if torus_steps else torch.zeros((), dtype=torch.int64, device=dev)
-            lane_counts.append(LaneCounts(alive.sum(), (alive & ~miss).sum(), (alive & miss).sum(), steps))
+            none = torch.zeros((), dtype=torch.int64, device=dev)
+            steps = torus_steps[0][alive].sum() if torus_steps else none
+            visits, tests = (mesh_steps[0].sum(), mesh_steps[1].sum()) if mesh_steps else (none, none)
+            lane_counts.append(LaneCounts(alive.sum(), (alive & ~miss).sum(), (alive & miss).sum(), steps, visits,
+                                          tests, (alive & miss & sample_light).sum(),
+                                          tuple(mesh_steps[2:]) if mesh_steps else None))
 
         n = normalize(hit.normal)
         nl = face_forward(n, rd)
@@ -165,10 +191,13 @@ def calculate_radiance(
         hit_color = hit.color
         mat = hit.mat_type
 
-        if cfg.env == "sky":
+        if cfg.env != "none":
             m = alive & miss
-            env_color = get_sky_color(rd, sun_dir)
-            if bounce == 0:  # a primary ray sees the sky
+            if cfg.env == "sky":
+                env_color = get_sky_color(rd, sun_dir)
+            else:
+                env_color = get_hdr_color(scene.env.hdr_image, rd, scene.env.hdr_exposure)
+            if bounce == 0:  # a primary ray sees the environment
                 accum = _where3(m, env_color, accum)
                 sharp = torch.where(m, full(1.01), sharp)
             else:
@@ -177,13 +206,22 @@ def calculate_radiance(
                 c2 = (d_count == 0) & spec
                 c3 = sample_light
                 c4 = (d_count == 1) & (prev_mat == TRANSPARENT) & spec
+                if cfg.env == "hdri":
+                    c4 = c4 & (bounce < 3)
                 c5 = d_count > 0
-                sun_clip = torch.where(sun_cos < 0.99, one, zero)
+                if cfg.nee == "env":
+                    # env NEE covers the whole map at every diffuse vertex: a
+                    # BSDF-sampled env hit after a diffuse bounce would count twice
+                    sun_clip = zero
+                else:
+                    sun_clip = torch.where(sun_cos < 0.99, one, zero)
                 lit_env = mask * env_color
                 chosen = _where3(c2 | c3 | c4, lit_env,
                                  _where3(c5, lit_env * sun_clip[..., None], torch.zeros_like(lit_env)))
                 accum = _where3(m, chosen, accum)
                 sharp = torch.where(m & c2, full(1.01), sharp)
+                if cfg.env == "hdri":
+                    sharp = torch.where(m & ~c2 & ~c3 & c4 & (sun_cos > 0.99), full(1.01), sharp)
         # a miss ends the lane (env "none": black)
         alive = alive & ~miss
         lane = alive
@@ -222,9 +260,10 @@ def calculate_radiance(
             qy, rng = rng_next(rng)
             qz, rng = rng_next(rng)
             nee_dir, nee_w = quad_light_from_uniforms(x, nl, lv0, lv1, lv2, lv3, l_normal, qx, qy, qz)
-        else:  # sun NEE through the specular lobe about the sun direction
+        else:
             lc, rng = rng_next(rng)
             lp, rng = rng_next(rng)
+        if cfg.nee == "sun":  # through the specular lobe about the sun direction
             nee_dir = specular_lobe_from_uniforms(sun_dir.expand(rd.shape), cfg.sun_lobe_roughness, lc, lp)
             sun_cos_w = torch.clamp(dot(nee_dir, nl), min=0.0)
             if cfg.sun_weight_mode == "hdri":
@@ -232,6 +271,11 @@ def calculate_radiance(
                 nee_w = sun_cos_w * (sp * sp * 1.0e-7)
             else:
                 nee_w = sun_cos_w * 0.05
+        elif cfg.nee == "env":
+            # inverse-CDF draw over the luminance x sin(theta) marginals, weight
+            # cos / (pi pdf); the shadow ray's miss (case c3) brings the radiance
+            nee_dir, env_pdf = sample_env_cdf(env_cdf, lc, lp)
+            nee_w = torch.clamp(dot(nee_dir, nl), min=0.0) / (math.pi * torch.clamp(env_pdf, min=1e-8))
         gate1, gate2 = gate1.detach(), gate2.detach()
 
         b_diff = lane & (mat == DIFFUSE)

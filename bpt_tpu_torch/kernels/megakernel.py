@@ -1,13 +1,14 @@
 """The fused radiance pass: CUDA kernel wrappers + plain versions.
 
 ``trace_image_fused`` is the port of ``bpt_tpu.kernels.megakernel``'s
-``trace_image_pallas`` for three configurations of its kernel: Cornell
+``trace_image_pallas`` for five configurations of its kernel: Cornell
 (quads + unit spheres, env "none", quad-light NEE), quadric (the same plus
-the 12 transformed quadrics) and sky (env "sky", sun NEE).  On CUDA tensors
-it launches the hand-written kernel in ``csrc/megakernel.cu``; on CPU
-tensors it runs the plain PyTorch version, ``trace_image_fused_reference``
-(the port's wavefront ``trace_image``).  There is no fallback: a failed
-build or launch raises.
+the 12 transformed quadrics), sky (env "sky", sun NEE), mesh (an untextured
+BVH mesh, env "none") and hdri (env "hdri", sun or env NEE, with a mesh).
+On CUDA tensors it launches the hand-written kernel in
+``csrc/megakernel.cu``; on CPU tensors it runs the plain PyTorch version,
+``trace_image_fused_reference`` (the port's wavefront ``trace_image``).
+There is no fallback: a failed build or launch raises.
 
 ``differentiable=True`` is the port of the path-replay VJP (``_prb_fn``):
 a ``torch.autograd.Function`` whose forward runs the kernel's grads mode
@@ -16,7 +17,9 @@ a ``torch.autograd.Function`` whose forward runs the kernel's grads mode
 gradients of the sphere, quadric and quad colors in plain torch, as the JAX
 package leaves that part to XLA.  Geometry, the sun and the camera get no
 gradient through this route (as in JAX); ``diff.gradients.make_render_loss``
-(wavefront autograd) is the route for them.
+(wavefront autograd) is the route for them.  The grads mode of mesh and
+HDRI scenes is not ported yet (ROADMAP): ``differentiable=True`` on them
+raises.
 """
 
 from __future__ import annotations
@@ -35,14 +38,14 @@ from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported
 from bpt_tpu_torch.kernels import build
-from bpt_tpu_torch.scenes.types import Scene
+from bpt_tpu_torch.scenes.types import Scene, mesh_tables
 
 KERNEL = "megakernel"
 #: The kernel's configurations, as ``configuration`` names them.
-CONFIGURATIONS = ("cornell", "quadric", "sky")
-#: Launches of the forward kernel (entry bpt_trace) per configuration.
+CONFIGURATIONS = ("cornell", "quadric", "sky", "mesh", "hdri")
+#: Launches of the forward kernel per configuration.
 LAUNCHES = dict.fromkeys(CONFIGURATIONS, 0)
-#: Launches of the grads-mode kernel (entry bpt_trace_grads) per configuration.
+#: Launches of the grads-mode kernel per configuration.
 GRAD_LAUNCHES = dict.fromkeys(CONFIGURATIONS, 0)
 
 
@@ -54,10 +57,13 @@ def reset_launches() -> None:
 
 
 def configuration(scene: Scene, cfg: IntegratorConfig) -> str:
-    """The kernel configuration a call runs: "sky" (env sky, sun NEE),
+    """The kernel configuration a call runs: "hdri" (env hdri, sun or env
+    NEE), "sky" (env sky, sun NEE), "mesh" (env none, quad NEE, a BVH mesh),
     "quadric" (env none, quad NEE, the quadric set) or "cornell"."""
-    if cfg.env == "sky":
-        return "sky"
+    if cfg.env in ("hdri", "sky"):
+        return cfg.env
+    if scene.mesh is not None:
+        return "mesh"
     return "quadric" if scene.quadrics is not None else "cornell"
 
 #: The plain PyTorch version of the forward kernel.
@@ -71,15 +77,23 @@ def trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_c
 _MAX_QUADS = 256
 _MAX_SPHERES = 64
 _N_QUADRICS = 12
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_F = ctypes.c_float
-# cam, params, quads, nq, spheres, ns, quadrics, nqd, sky, blue_noise, bn_ox, bn_oy, width, height, bounces,
-# eps, light_index, diffuse_indirect_max, camera_is_moving, transparent_tint, frame_u, frame_f, 5 outputs,
-# [sg,] stream
-_ARGTYPES = [_P, _P, _P, _I, _P, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _F, _I, _I, _I, _I, ctypes.c_uint, _F,
-             _P, _P, _P, _P, _P, _P]
-_ARGTYPES_GRADS = _ARGTYPES[:-1] + [_P, _P]
+_ENVS = {"none": 0, "sky": 1, "hdri": 2}
+_NEES = {"quad": 0, "sun": 1, "env": 2}
+
+
+class _TraceArgs(ctypes.Structure):
+    """The kernel's argument block, ``TraceArgs`` of csrc/megakernel.cu
+    (pointers first, then 32-bit fields; the C side reports its size)."""
+
+    _POINTERS = ("cam", "params", "quads", "spheres", "quadrics", "mesh", "mesh_nodes", "mesh_tris", "mesh_normals",
+                 "hdr", "row_cdf", "col_cdf", "env_pdf", "blue_noise", "out_color", "out_normal", "out_ocolor",
+                 "out_oid", "out_sharp", "out_sg")
+    _fields_ = ([(name, ctypes.c_void_p) for name in _POINTERS]
+                + [(name, ctypes.c_int) for name in ("nq", "ns", "nqd", "bn_ox", "bn_oy", "width", "height", "bounces")]
+                + [("eps", ctypes.c_float)]
+                + [(name, ctypes.c_int) for name in ("light_index", "diffuse_indirect_max", "camera_is_moving",
+                                                     "transparent_tint")]
+                + [("frame_u", ctypes.c_uint32), ("frame_f", ctypes.c_float)])
 
 
 def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
@@ -110,47 +124,77 @@ def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None, torch.T
 _PARAMS: dict = {}
 
 
-def _param_constants(cfg: IntegratorConfig, device) -> torch.Tensor:
-    """The parameter pack of a call without quadrics or sun, on ``device``;
-    its entries 7.. (the sun lobe, the sun-NEE weight 0.05, the sky
-    constants) serve every call.  Made once per device and lobe roughness:
-    a host-to-device copy of pageable memory waits for the stream, so it
-    must not happen on every launch."""
-    key = (str(device), cfg.sun_lobe_roughness)
+def _device_constants(key, make, device) -> torch.Tensor:
+    """A small constant tensor made once per device and key: a host-to-device
+    copy of pageable memory waits for the stream, so it must not happen on
+    every launch."""
+    key = (str(device),) + key
     if key not in _PARAMS:
+        _PARAMS[key] = make().to(dtype=torch.float32, device=device).contiguous()
+    return _PARAMS[key]
+
+
+def _param_constants(cfg: IntegratorConfig, device) -> torch.Tensor:
+    """The parameter pack of a call without quadrics, sun or HDR map, on
+    ``device``; its entries 7..18 (the sun lobe, the sun-NEE weight 0.05,
+    the sky constants) serve every call."""
+    def make():
         rough = torch.clamp(torch.as_tensor(cfg.sun_lobe_roughness, dtype=torch.float32), 0.0, 1.0)
         head = torch.tensor([0.5, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0])
         lobe = torch.stack([lobe_exponent(cfg.sun_lobe_roughness), rough, torch.tensor(0.05)])
         consts = torch.as_tensor(np.concatenate([sky.RAYLEIGH_AT_X, sky.MIE_AT_X, sky.EXTINCTION_SUM]))
-        _PARAMS[key] = torch.cat([head, lobe, consts]).to(dtype=torch.float32, device=device).contiguous()
-    return _PARAMS[key]
+        return torch.cat([head, lobe, consts, torch.tensor([1.0, 0.0, 0.0])])
+
+    return _device_constants(("params", cfg.sun_lobe_roughness), make, device)
 
 
 def pack_params(scene: Scene, cfg: IntegratorConfig, device) -> torch.Tensor:
-    """(19,) float32 on ``device``, the layout of csrc/sky.cuh: shape_k, the
+    """(22,) float32 on ``device``, the layout of csrc/vec.cuh: shape_k, the
     sun direction, the sun-only sky terms (sun_e, gamma, blend), the sun
-    lobe's exponent and roughness, the sun-NEE weight scale, and the sky's
-    per-channel Rayleigh, Mie and extinction constants.  Every entry is
-    computed by the function the plain version calls, so the kernel sees the
-    same floats.  Only device work: no copy from the host."""
+    lobe's exponent and roughness, the sun-NEE weight scale (0.05, or
+    sun_power² 1e-7 under ``sun_weight_mode="hdri"``), the sky's
+    per-channel Rayleigh, Mie and extinction constants, and the HDR map's
+    exposure, height and width.  Every entry is computed by the function
+    the plain version calls, so the kernel sees the same floats.  Only
+    device work: no copy from the host."""
     params = _param_constants(cfg, device)
-    if scene.quadrics is None and cfg.env != "sky":
+    if scene.quadrics is None and cfg.env == "none":
         return params
     f32 = dict(dtype=torch.float32, device=device)
     parts = [params[:1] if scene.quadrics is None else torch.as_tensor(scene.quadrics.shape_k).to(**f32).reshape(1)]
     if cfg.env == "sky":
         sun = scene.env.sun_direction.to(**f32).reshape(3)
         parts += [sun, torch.stack(sky.sky_sun_terms(sun))]
+    elif cfg.env == "hdri":
+        parts += [scene.env.sun_direction.to(**f32).reshape(3), params[4:7]]
     else:
         parts.append(params[1:7])
     parts.append(params[7:9])
-    if cfg.env == "sky" and cfg.sun_weight_mode == "hdri":
+    if cfg.nee == "sun" and cfg.sun_weight_mode == "hdri":
         sp = scene.env.sun_power.to(**f32)
         parts.append((sp * sp * 1.0e-7).reshape(1))
     else:
         parts.append(params[9:10])
-    parts.append(params[10:])
+    parts.append(params[10:19])
+    if cfg.env == "hdri":
+        h, w = scene.env.hdr_image.shape[:2]
+        parts += [scene.env.hdr_exposure.to(**f32).reshape(1),
+                  _device_constants(("hdr shape", h, w), lambda: torch.tensor([float(h), float(w)]), device)]
+    else:
+        parts.append(params[19:])
     return torch.cat(parts).detach().contiguous()
+
+
+def pack_mesh(mesh) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """TriangleMesh -> (constants (17,), nodes (M, 2, 4), triangles (T, 3, 4),
+    normals (T, 3, 4)), float32, the layouts of csrc/bvh.cuh.
+
+    Constants: the inverse model matrix row-major and the material, made on
+    every call.  The three tables are the mesh's ``kernel_tables``, made
+    once by ``Scene.to``; a mesh that did not pass through it gets them
+    made for this call."""
+    consts = torch.cat([mesh.inv_matrix.reshape(16).to(torch.float32), mesh.mat_type.reshape(1).to(torch.float32)])
+    return (consts,) + tuple(mesh.kernel_tables if mesh.kernel_tables is not None else mesh_tables(mesh))
 
 
 def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
@@ -163,9 +207,13 @@ def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
 
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
-    for fn, argtypes in ((lib.bpt_trace, _ARGTYPES), (lib.bpt_trace_grads, _ARGTYPES_GRADS)):
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib.bpt_trace.argtypes = [ctypes.POINTER(_TraceArgs), ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p]
+    lib.bpt_trace.restype = ctypes.c_int
+    lib.bpt_trace_args_size.restype = ctypes.c_int
+    if lib.bpt_trace_args_size() != ctypes.sizeof(_TraceArgs):
+        raise RuntimeError(f"TraceArgs is {lib.bpt_trace_args_size()} bytes in the kernel and "
+                           f"{ctypes.sizeof(_TraceArgs)} in the wrapper")
     return lib
 
 
@@ -190,12 +238,16 @@ def _check_call(scene: Scene, cfg: IntegratorConfig, width: int, height: int, bl
 
 def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int, frame_counter,
             rand_vec2, blue_noise: torch.Tensor, grads: bool):
-    """Pack, check and launch one kernel entry on the current stream:
-    (RadianceResult, sg or None).  CUDA tensors only."""
+    """Pack, check and launch one kernel configuration on the current
+    stream: (RadianceResult, sg or None).  CUDA tensors only."""
     device = blue_noise.device
     if scene.quads is None:
         raise ValueError("the kernel needs at least one quad; a scene without quads runs on the wavefront "
                          "(trace_image)")
+    name = configuration(scene, cfg)
+    if grads and (scene.mesh is not None or cfg.env == "hdri"):
+        raise NotImplementedError(f"the grads mode of the {name} configuration is not ported yet: ROADMAP, "
+                                  "K1-grad on mesh and HDRI")
     quads, sph, qdr = pack_scene(scene)
     cam = pack_camera(camera, width, height)
     params = pack_params(scene, cfg, device)
@@ -205,17 +257,22 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
     if not 0 < nq <= _MAX_QUADS or ns > _MAX_SPHERES or nqd not in (0, _N_QUADRICS):
         raise ValueError(f"{nq} quads / {ns} spheres / {nqd} quadrics: the kernel takes 1..{_MAX_QUADS} / "
                          f"0..{_MAX_SPHERES} / 0 or {_N_QUADRICS}")
-    sky_env = cfg.env == "sky"
     light = 0
-    if not sky_env:
+    if cfg.nee == "quad":
         light = cfg.light_index if cfg.light_index >= 0 else nq - 1
         if not 0 <= light < nq:
             raise ValueError(f"light_index {cfg.light_index} out of range for {nq} quads")
+    mesh = pack_mesh(scene.mesh) if scene.mesh is not None else (None,) * 4
+    env = scene.env if cfg.env == "hdri" else None
+    hdr = (None,) * 4 if env is None else (env.hdr_image,) + tuple(env.env_cdf or (None,) * 3)
+    if cfg.nee != "env":
+        hdr = hdr[:1] + (None,) * 3
     tensors = {"blue_noise": blue_noise, "quads": quads, "camera": cam, "params": params, "spheres": sph,
-               "quadrics": qdr}
-    for name, t in tensors.items():
+               "quadrics": qdr, "mesh": mesh[0], "mesh_nodes": mesh[1], "mesh_tris": mesh[2],
+               "mesh_normals": mesh[3], "hdr": hdr[0], "row_cdf": hdr[1], "col_cdf": hdr[2], "env_pdf": hdr[3]}
+    for key, t in tensors.items():
         if t is not None:
-            _check_tensor(name, t, device)
+            _check_tensor(key, t, device)
     ox, oy = blue_noise_offsets(rand_vec2)
 
     def empty(*shape):
@@ -225,20 +282,20 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
     oid, sharp = empty(height, width), empty(height, width)
     n_obj = nq + ns + nqd
     sg = empty(n_obj if cfg.transparent_tint else 2 * n_obj, height, width) if grads else None
+    outputs = {"out_color": color, "out_normal": normal, "out_ocolor": ocolor, "out_oid": oid, "out_sharp": sharp,
+               "out_sg": sg}
+    ptrs = {key: (0 if t is None else t.data_ptr()) for key, t in (tensors | outputs).items()}
+    ptrs["cam"] = ptrs.pop("camera")
     lib = _library()
-    args = (cam.data_ptr(), params.data_ptr(), quads.data_ptr(), nq, 0 if sph is None else sph.data_ptr(), ns,
-            0 if qdr is None else qdr.data_ptr(), nqd, int(sky_env),
-            blue_noise.data_ptr(), ox, oy, width, height, cfg.bounces, cfg.eps_intersect, light,
-            cfg.diffuse_indirect_max, int(cfg.camera_is_moving), int(cfg.transparent_tint),
-            frame_to_u32(frame_counter), float(frame_counter),
-            color.data_ptr(), normal.data_ptr(), ocolor.data_ptr(), oid.data_ptr(), sharp.data_ptr())
+    args = _TraceArgs(**ptrs, nq=nq, ns=ns, nqd=nqd, bn_ox=ox, bn_oy=oy, width=width, height=height,
+                      bounces=cfg.bounces, eps=cfg.eps_intersect, light_index=light,
+                      diffuse_indirect_max=cfg.diffuse_indirect_max, camera_is_moving=int(cfg.camera_is_moving),
+                      transparent_tint=int(cfg.transparent_tint), frame_u=frame_to_u32(frame_counter),
+                      frame_f=float(frame_counter))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        if grads:
-            err = lib.bpt_trace_grads(*args, sg.data_ptr(), stream)
-        else:
-            err = lib.bpt_trace(*args, stream)
-    name = configuration(scene, cfg)
+        err = lib.bpt_trace(ctypes.byref(args), int(grads), _ENVS[cfg.env], _NEES[cfg.nee],
+                            int(scene.mesh is not None), stream)
     if err != 0:
         raise RuntimeError(f"trace_kernel ({name}{', grads' if grads else ''}) launch failed: CUDA error {err}")
     (GRAD_LAUNCHES if grads else LAUNCHES)[name] += 1
@@ -346,11 +403,17 @@ def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width
     call is the plain forward, as JAX's custom_vjp runs its primal.  Any
     other scene or camera tensor that requires a gradient raises
     ``NotImplementedError``: this route would leave it without one.
-    ``reorder=True`` (the staged, reorderable path) is not ported yet.
+    ``reorder=True`` (the staged, reorderable path) and
+    ``differentiable=True`` on mesh and HDRI scenes are not ported yet and
+    raise.
     """
     if reorder:
         raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
     _check_call(scene, cfg, width, height, blue_noise)
+    if differentiable and (scene.mesh is not None or cfg.env == "hdri"):
+        raise NotImplementedError("differentiable=True on mesh and HDRI scenes (K1-grad on mesh and HDRI) is not "
+                                  "ported yet: ROADMAP; use the wavefront route (fused=False, or "
+                                  "diff.make_render_loss)")
     if differentiable and torch.is_grad_enabled():
         _check_fixed_inputs(scene, camera)
         colors = [None if g is None else g.color for g in (scene.quads, scene.spheres, scene.quadrics)]

@@ -1,9 +1,12 @@
 """Material ids and scene containers (port of ``bpt_tpu.scenes.types``).
 
-Containers are NamedTuples of tensors with the reference's field names.
-Quads, unit spheres, the transformed-quadric set and the sun/sky
-environment are ported; ``mesh`` stays ``None`` until its family is, and so
-do the HDRI fields of ``Environment``.
+Containers are NamedTuples of tensors with the reference's field names:
+quads, unit spheres, the transformed-quadric set, the untextured triangle
+mesh with its binary BVH, and the sun / sky / HDRI environment.  The TPU
+packs of the reference's ``TriangleMesh`` (``pk_*``, ``fz_*``, ``*_q``) are
+not carried: they exist because the TPU kernels cannot gather per lane.  In
+their place a mesh on a CUDA device carries the CUDA kernel's node,
+triangle and normal tables (``MeshTables``), made by ``Scene.to``.
 """
 
 from __future__ import annotations
@@ -53,16 +56,86 @@ class Quadrics(NamedTuple):
     mat_type: torch.Tensor  # (12,) int32
 
 
+class MeshTables(NamedTuple):
+    """A mesh's tables in the layout of the CUDA kernel (csrc/bvh.cuh),
+    float32, 16-byte records: a node is (min.xyz, node_tri) and (max.xyz,
+    node_right), the ids' int32 bits in the fourth lane; a triangle its
+    three vertices, a normal record its three vertex normals, one per
+    record."""
+
+    nodes: torch.Tensor  # (M, 2, 4)
+    tris: torch.Tensor  # (T, 3, 4)
+    normals: torch.Tensor  # (T, 3, 4)
+
+
+class TriangleMesh(NamedTuple):
+    """De-indexed triangle soup in model space plus its flat binary BVH.
+
+    BVH layout: node i's left child is node i + 1; ``node_tri`` >= 0 marks a
+    leaf holding that triangle, -1 an inner node whose right child is
+    ``node_right[i]``.  The four texture maps of the reference stay None:
+    the port renders untextured meshes only (a textured one raises).
+    ``kernel_tables`` holds ``mesh_tables(mesh)`` once ``Scene.to`` has put
+    the mesh on a CUDA device, else None; it is made from the soup and the
+    BVH, so a mesh whose soup or BVH is replaced goes through ``Scene.to``
+    again (the transform and the material are read on every call)."""
+
+    p0: torch.Tensor  # (T, 3) float32
+    p1: torch.Tensor
+    p2: torch.Tensor
+    n0: torch.Tensor  # (T, 3) unit vertex normals
+    n1: torch.Tensor
+    n2: torch.Tensor
+    uv0: torch.Tensor  # (T, 2); (-1, -1) when the model has no UVs
+    uv1: torch.Tensor
+    uv2: torch.Tensor
+    node_tri: torch.Tensor  # (M,) int32: triangle id for leaves, -1 for inner nodes
+    node_right: torch.Tensor  # (M,) int32: right-child id of inner nodes
+    node_min: torch.Tensor  # (M, 3) float32
+    node_max: torch.Tensor  # (M, 3) float32
+    inv_matrix: torch.Tensor  # (4, 4) world -> object
+    mat_type: torch.Tensor  # 0-d int32, the model's uniform material
+    albedo: None = None
+    normal_map: None = None
+    metallic_roughness: None = None
+    emissive: None = None
+    kernel_tables: Optional[MeshTables] = None
+
+
+def mesh_tables(mesh: TriangleMesh) -> MeshTables:
+    """The CUDA kernel's tables of ``mesh``, on the mesh's device (84 MB for
+    a 524,288-triangle mesh)."""
+    def rows(xyz, w):  # built as int32 bits, so the ids' bit patterns never pass through float arithmetic
+        return torch.cat([xyz.to(torch.float32).contiguous().view(torch.int32), w.to(torch.int32)[:, None]], dim=1)
+
+    zeros = torch.zeros(mesh.p0.shape[0], dtype=torch.int32, device=mesh.p0.device)
+    nodes = torch.stack([rows(mesh.node_min, mesh.node_tri), rows(mesh.node_max, mesh.node_right)], dim=1)
+    tris = torch.stack([rows(p, zeros) for p in (mesh.p0, mesh.p1, mesh.p2)], dim=1)
+    normals = torch.stack([rows(n, zeros) for n in (mesh.n0, mesh.n1, mesh.n2)], dim=1)
+    return MeshTables(*(t.contiguous().view(torch.float32) for t in (nodes, tris, normals)))
+
+
+#: The texture fields of TriangleMesh; a mesh that sets one is not ported.
+TEXTURE_FIELDS = ("albedo", "normal_map", "metallic_roughness", "emissive")
+
+
+def check_untextured(mesh) -> None:
+    """Raise NotImplementedError for a mesh (or glTF model) with a texture."""
+    textured = [name for name in TEXTURE_FIELDS if getattr(mesh, name, None) is not None]
+    if textured:
+        raise NotImplementedError(f"textured meshes ({', '.join(textured)}) are not ported yet: ROADMAP, "
+                                  "textured PBR (textures.py, mesh_textured, metal_roughness_lobe)")
+
+
 class Environment(NamedTuple):
-    """Sun / sky light parameters.  Which pieces are used is decided by the
-    static IntegratorConfig.  The HDRI fields stay None until the HDRI
-    family is ported."""
+    """Sun / sky / HDRI light parameters.  Which pieces are used is decided
+    by the static IntegratorConfig."""
 
     sun_direction: torch.Tensor  # (3,) unit, pointing toward the sun
     sun_power: torch.Tensor  # 0-d (uSunPower)
-    hdr_image: Optional[torch.Tensor] = None
-    hdr_exposure: Optional[torch.Tensor] = None
-    env_cdf: Optional[tuple] = None
+    hdr_image: Optional[torch.Tensor] = None  # (H, W, 3) float32 equirect
+    hdr_exposure: Optional[torch.Tensor] = None  # 0-d (uHDRExposure)
+    env_cdf: Optional[tuple] = None  # env.EnvCDF (row_cdf, col_cdf, pdf), for nee "env"
 
 
 class Scene(NamedTuple):
@@ -71,27 +144,34 @@ class Scene(NamedTuple):
     quads: Optional[Quads] = None
     spheres: Optional[UnitSpheres] = None
     quadrics: Optional[Quadrics] = None
-    mesh: None = None
+    mesh: Optional[TriangleMesh] = None
     env: Optional[Environment] = None
 
     def to(self, device) -> "Scene":
-        """Every family that is set, on ``device``; a host number in a
-        0-d field (``shape_k``, ``sun_power``) becomes a float32 tensor."""
-        if self.mesh is not None:
-            raise NotImplementedError("scene.mesh is not ported yet")
+        """Every family that is set, on ``device``, field by field and into
+        nested tuples (the environment's CDF tables); a host number in a 0-d
+        field becomes a float32 tensor (``shape_k``, ``sun_power``,
+        ``hdr_exposure``), or int32 for ``mat_type``.  A mesh's kernel tables
+        are made anew on a CUDA device and dropped elsewhere."""
 
-        def field(t):
-            if t is None:
-                return t
+        def field(t, name):
+            if t is None or name == "kernel_tables":
+                return None
             if isinstance(t, torch.Tensor):
                 return t.to(device)
-            return torch.tensor(t, dtype=torch.float32, device=device)
+            if isinstance(t, tuple):
+                return type(t)(*(field(x, name) for x in t)) if hasattr(t, "_fields") else tuple(
+                    field(x, name) for x in t)
+            dtype = torch.int32 if name == "mat_type" else torch.float32
+            return torch.as_tensor(np.asarray(t), dtype=dtype, device=device)
 
         def move(group):
-            return None if group is None else type(group)(*(field(t) for t in group))
+            return None if group is None else type(group)(*(field(t, n) for n, t in zip(group._fields, group)))
 
-        return Scene(quads=move(self.quads), spheres=move(self.spheres), quadrics=move(self.quadrics),
-                     env=move(self.env))
+        scene = Scene(*(move(group) for group in self))
+        if scene.mesh is not None and torch.device(device).type == "cuda":
+            scene = scene._replace(mesh=scene.mesh._replace(kernel_tables=mesh_tables(scene.mesh)))
+        return scene
 
 
 def make_quad(normal, v0, v1, v2, v3, color, mat_type):

@@ -1,15 +1,16 @@
-"""Time the Cornell configuration of the CUDA kernel in several checkouts of
-this repository, in turns, on one card:
+"""Time the Cornell, quadric and sky configurations of the CUDA kernel in
+several checkouts of this repository, in turns, on one card:
 
     python -m bpt_tpu_torch.tools.ab_time PARENT . . PARENT
 
 Each checkout runs in a process of its own (its own kernel build, from its
-own sources) at 1024², 4 bounces, frame 2: the forward and grads kernels'
-device time per launch (torch.profiler, 50 launches), their time through the
-wrapper (CUDA events, 50 launches), the progressive frame (CUDA events, 30
-frames), and the registers and stack nvcc reported for its build.  Device
-times compare only within one call; put each version more than once, in
-turns.
+own sources) at 1024², 4 bounces, frame 2: the Cornell forward and grads
+kernels' device time per launch (torch.profiler, 50 launches), their time
+through the wrapper (CUDA events, 50 launches), the progressive frame (CUDA
+events, 30 frames), the quadric and sky forward kernels' device time (the
+demo scenes, 50 launches each), and the registers and stack nvcc reported
+for its build.  Device times compare only within one call; put each version
+more than once, in turns.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ def measure(checkout: str) -> None:
     from bpt_tpu_torch.kernels import megakernel
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+    from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
+    from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
 
     if not megakernel.__file__.startswith(str(Path(checkout).resolve())):
         raise RuntimeError(f"imported {megakernel.__file__}, not the checkout {checkout}")
@@ -72,8 +75,15 @@ def measure(checkout: str) -> None:
     renderer = ProgressiveRenderer(cornell_scene(), cfg, size, size, device=dev)
     camera = cornell_camera()
     renderer.render(camera, spp=2)
+    families = {"quadric": (quadric_geometry_scene(device=dev), quadric_camera(device=dev),
+                            IntegratorConfig(bounces=4, transparent_tint=True)),
+                "sky": (physical_sky_scene(device=dev), sky_camera(device=dev),
+                        IntegratorConfig(bounces=4, env="sky", nee="sun"))}
     numbers = dict(fwd_device_ms=device_ms(fwd), grads_device_ms=device_ms(grads), fwd_wrapper_ms=event_ms(fwd, 50),
                    grads_wrapper_ms=event_ms(grads, 50), frame_ms=event_ms(lambda: renderer.render_sample(camera), 30))
+    for name, (fscene, fcam, fcfg) in families.items():
+        numbers[f"{name}_fwd_device_ms"] = device_ms(
+            lambda: megakernel.trace_image_fused(fscene, fcam, fcfg, size, size, 2.0, rv, bn))
     build = []
     for log in glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log")):
         build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]

@@ -55,6 +55,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   for quadric 11's color and the light against autograd
                   through the plain trace_image (rtol 1e-4) and central
                   differences of the kernel's forward (rtol 2e-2).
+15. parity-mesh / parity-hdri — the mesh walk and the HDRI configurations
+                  of the forward kernel against their plain versions at
+                  1024², 4 bounces, frame 2, bit for bit: bench.py's
+                  capacity scene (the 524,288-triangle heightfield, DIFFUSE,
+                  the glTF camera), the same from a raised camera where the
+                  mesh takes most first hits, the triangle blob METAL and
+                  TRANSPARENT; the HDRI demo (the heightfield under
+                  synthetic_hdr()) with sun NEE and with env NEE, and with
+                  sun NEE under a map whose sun is above the horizon (its
+                  shadow rays must reach the sky).
+16. main-mesh / main-hdri — ProgressiveRenderer renders 8 spp of each at
+                  1024²: 8 launches of that configuration, a finite display.
+17. timing-mesh / timing-hdri — device time (torch.profiler), time through
+                  the wrapper (CUDA events), the plain version's time, the
+                  bound and its share, peak device memory.
+18. refusals    — differentiable=True and the grads mode on mesh and HDRI
+                  scenes, a textured mesh and metal_roughness_lobe raise
+                  NotImplementedError.
 
 It ends with a JSON line of per-kernel results (one entry per mode and
 configuration, each with its bound, the least time the card could take for
@@ -99,6 +117,21 @@ HIT_FLOP = 24  # per hit: normal, facing test, hit point (21) + the cheapest bra
 QUADRIC_SET_FLOP = 948
 TORUS_STEP_FLOP = 18  # one SDF march step: the point, map_torus, t += d
 SKY_FLOP = 132  # one Preetham evaluation on a miss (csrc/sky.cuh sky_color)
+# The mesh walk (csrc/bvh.cuh), per live lane of a bounce: the ray to object
+# space (18 + 15), its inverse direction (3) and the root slab test (12);
+# per inner node visited, the two children's slab tests (2 x 12); per
+# triangle test, Moller-Trumbore (52).  The winner's normal is not counted.
+MESH_RAY_FLOP = 48
+NODE_VISIT_FLOP = 24
+TRI_TEST_FLOP = 52
+HDRI_FLOP = 45  # one equirect lookup on a miss (csrc/hdri.cuh hdr_color)
+ENV = {"none": 0, "sky": 1, "hdri": 2}
+NEE = {"quad": 0, "sun": 1, "env": 2}
+
+
+def instance(grads: bool, env: str, nee: str, mesh: bool) -> str:
+    """The profiler's name of one template instantiation of the kernel."""
+    return f"trace_kernel<{str(grads).lower()}, {ENV[env]}, {NEE[nee]}, {str(mesh).lower()}>"
 
 
 def phase(name: str, msg: str) -> None:
@@ -153,23 +186,44 @@ def bound(flop: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+def mesh_records_read(lane_counts) -> list[int]:
+    """The distinct node, triangle and vertex-normal records of the mesh
+    that a frame's walks read: the union over the bounces of the plain
+    run's masks."""
+    return [int(torch.stack([c.mesh_reads[i] for c in lane_counts]).any(0).sum().item()) for i in range(3)]
+
+
 def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadrics: int = 0,
-                sky: bool = False) -> tuple[float, float]:
+                sky: bool = False, mesh: bool = False, hdri=None, env_nee: bool = False) -> tuple[float, float]:
     """(FP32 operations, bytes) the forward kernel needs for one frame whose
     plain run reported ``lane_counts`` (per bounce: live, hit and missed
-    lanes and the torus march's steps on live lanes).  Each input byte is
-    read once (the blue-noise table, the packed scene, the parameter pack),
-    each of the 11 output planes written once.  Sphere normals of closer
-    hits, quadric normals and all but the cheapest shading branch are left
+    lanes, the torus march's steps, the mesh walk's inner-node visits and
+    triangle tests on live lanes and the mesh records it read).  Each input
+    byte the kernel reads is counted once: the blue-noise table, the packed
+    scene, the parameter pack; of the mesh (``mesh``), the 32-byte node,
+    48-byte triangle and 48-byte vertex-normal records the frame's walks
+    read, each distinct record once (the plain walk's masks, their union
+    over the bounces); the HDR map of the environment ``hdri`` whole, and
+    its CDF tables only under env NEE (``env_nee``).  Each of the 11 output
+    planes is written once.  Sphere normals of closer hits, quadric and
+    mesh normals, NEE draws and all but the cheapest shading branch are left
     out, so the operation count is a lower bound."""
     live = sum(int(c.live) for c in lane_counts)
     hits = sum(int(c.hits) for c in lane_counts)
+    misses = sum(int(c.misses) for c in lane_counts)
     flop = (pixels * RAYGEN_FLOP + live * (n_spheres * SPHERE_FLOP + n_quads * QUAD_FLOP) + hits * HIT_FLOP
             + (live * QUADRIC_SET_FLOP if n_quadrics else 0)
             + sum(int(c.torus_steps) for c in lane_counts) * TORUS_STEP_FLOP
-            + (sum(int(c.misses) for c in lane_counts) * SKY_FLOP if sky else 0))
-    nbytes = (256 * 256 * 4 * 4 + 4 * (16 + 19 + 20 * n_quads + 21 * n_spheres + 20 * n_quadrics)
+            + (misses * SKY_FLOP if sky else 0) + (misses * HDRI_FLOP if hdri is not None else 0))
+    nbytes = (256 * 256 * 4 * 4 + 4 * (16 + 22 + 20 * n_quads + 21 * n_spheres + 20 * n_quadrics)
               + 11 * 4 * pixels)
+    if mesh:
+        flop += (live * MESH_RAY_FLOP + sum(int(c.node_visits) for c in lane_counts) * NODE_VISIT_FLOP
+                 + sum(int(c.tri_tests) for c in lane_counts) * TRI_TEST_FLOP)
+        nodes, tris, normals = mesh_records_read(lane_counts)
+        nbytes += 4 * 17 + 32 * nodes + 48 * tris + 48 * normals
+    if hdri is not None:
+        nbytes += 4 * sum(t.numel() for t in (hdri.hdr_image, *(hdri.env_cdf if env_nee else ())))
     return flop, nbytes
 
 
@@ -205,6 +259,190 @@ def kernel_device_ms(fn, iters: int, name: str) -> float | None:
     name = name.replace(" ", "")
     rows = [(ms, n) for key, ms, n in profiled_step(fn, iters)[2] if name in key.replace(" ", "")]
     return sum(ms for ms, _ in rows) / sum(n for _, n in rows) if rows else None
+
+
+def blob_model(T=128, seed=0):
+    """The random triangle blob of the JAX package's kernel tests."""
+    from bpt_tpu_torch.io.gltf import GLTFModel
+
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 8, (T, 1, 3)).astype(np.float32)
+    tri = (c + rng.normal(0, 3, (T, 3, 3))).astype(np.float32)
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True) + 1e-9
+    z2 = np.zeros((T, 2), np.float32)
+    return GLTFModel(p0=tri[:, 0], p1=tri[:, 1], p2=tri[:, 2], n0=n, n1=n, n2=n, uv0=z2, uv1=z2, uv2=z2,
+                     albedo=None, normal_map=None, metallic_roughness=None, emissive=None)
+
+
+def mesh_and_hdri(card: str, bn: torch.Tensor) -> list:
+    """Phases 15-18: the mesh and HDRI configurations.  Returns their
+    entries of the kernels line."""
+    import dataclasses
+
+    from bpt_tpu_torch.accel.builder import build_bvh_sah, triangle_aabbs
+    from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
+    from bpt_tpu_torch.camera import Camera
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.integrator.frame import trace_image
+    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.renderer import ProgressiveRenderer
+    from bpt_tpu_torch.scenes.gltf_scene import (gltf_camera, gltf_scene, hdri_camera, hdri_scene,
+                                                 heightfield_model, mesh_from_model)
+    from bpt_tpu_torch.scenes.types import DIFFUSE, METAL, TRANSPARENT
+
+    dev = torch.device("cuda")
+    # ---- the native BVH builder on bench.py's capacity mesh -----------------
+    model = heightfield_model()
+    mn, mx, _ = triangle_aabbs(model.p0, model.p1, model.p2)
+    t0 = time.perf_counter()
+    bvh = build_bvh_sah(mn, mx, use_native="require")
+    build_s = time.perf_counter() - t0
+    phase("build", f"native BVH builder (binned SAH): {model.p0.shape[0]} triangles -> {bvh.node_tri.shape[0]} "
+                   f"nodes, depth {bvh.max_depth} (stack 28), {build_s:.3f} s")
+    if bvh.max_depth >= 28:
+        raise AssertionError("the capacity mesh's BVH is deeper than the walk's stack")
+    capacity = mesh_from_model(model, mat_type=DIFFUSE, use_native="require")  # host tensors: the renderer moves it
+    hdr = synthetic_hdr()
+    place = dict(rotation=(0.3, 0.5, 0.0), scale=(1.5, 1.5, 1.5), translation=(0.0, -20.0, -85.0))
+    raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0)
+    mesh_cfg = IntegratorConfig(bounces=BOUNCES)
+    hdri_base = dict(bounces=BOUNCES, env="hdri", diffuse_indirect_max=2)
+    sun_cfg = IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **hdri_base)
+    env_cfg = IntegratorConfig(nee="env", **hdri_base)
+    cap_scene = gltf_scene(capacity, device=dev)
+    hdri_cap = hdri_scene(capacity, hdr, device=dev)
+    # the demo map's sun lies below the horizon, where no shadow ray reaches it: a sun above it
+    hdri_sun_up = hdri_scene(capacity, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev)
+    cases = [  # (family, label, scene, camera, cfg)
+        ("mesh", "(a) capacity: heightfield, DIFFUSE, glTF camera", cap_scene, gltf_camera(dev), mesh_cfg),
+        ("mesh", "(b) capacity from a raised camera", cap_scene, raised.to(dev), mesh_cfg),
+        ("mesh", "(c) blob METAL", gltf_scene(mesh_from_model(blob_model(), mat_type=METAL, **place), device=dev),
+         gltf_camera(dev), mesh_cfg),
+        ("mesh", "(c) blob TRANSPARENT", gltf_scene(mesh_from_model(blob_model(), mat_type=TRANSPARENT, **place),
+                                                    device=dev), gltf_camera(dev), mesh_cfg),
+        ("hdri", "nee sun (the demo's)", hdri_cap, hdri_camera(dev), sun_cfg),
+        ("hdri", "nee sun, the sun above the horizon", hdri_sun_up, hdri_camera(dev), sun_cfg),
+        ("hdri", "nee env", hdri_cap, hdri_camera(dev), env_cfg),
+    ]
+    pixels = SIZE * SIZE
+    errs = {}
+    for fam, label, scene, cam, cfg in cases:
+        got = megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        lanes = []
+        t0 = time.perf_counter()
+        ref = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        stats = compare(got, ref)
+        mesh_id = float(sum(g.color.shape[0] for g in (scene.spheres, scene.quads)))
+        share = (ref.object_id == mesh_id).float().mean().item()
+        misses = (ref.object_id < -1.0).float().mean().item()
+        extra = (f"mesh first hits {share:.4f}, env first-hit misses {misses:.4f}, shadow rays that reached the "
+                 f"environment per pixel {sum(int(c.shadow_misses) for c in lanes) / pixels:.4f}, "
+                 if fam == "hdri" else f"mesh first hits {share:.4f}, ")
+        phase(f"parity-{fam}", f"{label}: {extra}node visits {sum(int(c.node_visits) for c in lanes)}, triangle "
+                               f"tests {sum(int(c.tri_tests) for c in lanes)}, plain {plain_s:.2f} s; "
+                               + json.dumps(stats))
+        if not stats["ok"]:
+            raise AssertionError(f"{fam} kernel disagrees with its plain version ({label})")
+        if label.startswith("(b)") and share < 0.25:
+            raise AssertionError(f"the raised view's mesh share {share} is below 25%")
+        if "above the horizon" in label and sum(int(c.shadow_misses) for c in lanes) == 0:
+            raise AssertionError("no shadow ray reached the sun above the horizon")
+        key = "mesh" if fam == "mesh" else f"hdri_{cfg.nee}"
+        errs[key] = max(errs.get(key, 0.0), stats["max_abs_err"])
+
+    # ---- 16. the serving path ------------------------------------------------
+    launches = {}
+    for key, scene, cam, cfg in (("mesh", gltf_scene(capacity), gltf_camera(), mesh_cfg),
+                                 ("hdri_sun", hdri_scene(capacity, hdr), hdri_camera(), sun_cfg),
+                                 ("hdri_env", hdri_scene(capacity, hdr), hdri_camera(), env_cfg)):
+        fam = key.split("_")[0]
+        renderer = ProgressiveRenderer(scene, cfg, SIZE, SIZE)
+        if renderer.device.type != "cuda":
+            raise AssertionError(f"a renderer with no device argument runs on {renderer.device}")
+        megakernel.reset_launches()
+        img = renderer.render(cam, spp=SPP)
+        torch.cuda.synchronize()
+        launches[key] = megakernel.LAUNCHES[fam]
+        others = sum(megakernel.LAUNCHES.values()) + sum(megakernel.GRAD_LAUNCHES.values()) - launches[key]
+        if launches[key] != SPP or others != 0:
+            raise AssertionError(f"{key}: {launches[key]} launches of its configuration, {others} others, for {SPP} "
+                                 "frames")
+        if not bool(torch.isfinite(img).all()) or img.min().item() < 0.0 or img.max().item() > 1.0:
+            raise AssertionError(f"{key}: display is not finite in [0, 1]")
+        phase(f"main-{fam}", f"{key} {SIZE}x{SIZE}, {SPP} spp: {launches[key]} launches, display in "
+                             f"[{img.min().item():.4f}, {img.max().item():.4f}], mean {img.mean().item():.4f}")
+
+    # ---- 17. timing ---------------------------------------------------------------
+    entries = []
+    rays = SIZE * SIZE * BOUNCES
+    for key, fam, scene, cam, cfg, replaces in (
+            ("mesh", "mesh", cap_scene, gltf_camera(dev), mesh_cfg, "bpt_tpu/kernels/megakernel.py:483"),
+            ("hdri_sun", "hdri", hdri_cap, hdri_camera(dev), sun_cfg, "bpt_tpu/kernels/megakernel.py:1183"),
+            ("hdri_env", "hdri", hdri_cap, hdri_camera(dev), env_cfg, "bpt_tpu/kernels/megakernel.py:2390")):
+        def call(scene=scene, cam=cam, cfg=cfg):
+            return megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+
+        def plain(scene=scene, cam=cam, cfg=cfg):
+            return megakernel.trace_image_fused_reference(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+
+        ms = cuda_ms(call, iters=20, warmup=3)
+        dev_ms = kernel_device_ms(call, 10, instance(False, cfg.env, cfg.nee, True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak_kernel = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+        peak_plain = torch.cuda.max_memory_allocated() / 1e9
+        lanes = []
+        trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+        flop, nbytes = kernel_work(lanes, scene.quads.v0.shape[0], scene.spheres.color.shape[0], pixels,
+                                   mesh=True, hdri=scene.env if fam == "hdri" else None, env_nee=cfg.nee == "env")
+        bound_ms, bound_by = bound(flop, nbytes)
+        nodes_read, tris_read, normals_read = mesh_records_read(lanes)
+        reached = f"{100 * bound_ms / dev_ms:.1f}%" if dev_ms else "not measured"
+        phase(f"timing-{fam}", f"{card}: {key} {SIZE}x{SIZE}, {BOUNCES} bounces: kernel device {dev_ms} ms, through "
+                               f"its wrapper {ms:.3f} ms ({rays / ms / 1e3:.1f} Mrays/s), plain {plain_ms:.3f} ms; "
+                               f"live lanes {[int(c.live) for c in lanes]}, node visits "
+                               f"{[int(c.node_visits) for c in lanes]}, triangle tests "
+                               f"{[int(c.tri_tests) for c in lanes]}, misses {[int(c.misses) for c in lanes]}; "
+                               f"records read: {nodes_read} of {scene.mesh.node_tri.shape[0]} nodes, {tris_read} "
+                               f"triangles and {normals_read} normal records of {scene.mesh.p0.shape[0]}; "
+                               f"{flop / 1e9:.4f} GFLOP + {nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms "
+                               f"({bound_by}), {reached} of it reached; peak device memory {peak_kernel:.3f} GB "
+                               f"(kernel call), {peak_plain:.3f} GB (plain)")
+        entries.append({"name": f"megakernel_{key}", "route": "cuda", "source": "bpt_tpu_torch/csrc/megakernel.cu",
+                        "replaces": replaces, "launches": launches[key], "max_abs_err": errs[key], "ms": ms,
+                        "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                        "library_ms": None})
+
+    # ---- 18. what the slice leaves out raises --------------------------------
+    refused = []
+    textured = capacity._replace(albedo=torch.ones(4, 4, 3))
+    for label, fn in (
+            ("differentiable=True, mesh", lambda: megakernel.trace_image_fused(
+                cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
+            ("differentiable=True, hdri", lambda: megakernel.trace_image_fused(
+                hdri_cap, hdri_camera(dev), env_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
+            ("grads mode, mesh", lambda: megakernel.trace_image_fused_grads(
+                cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn)),
+            ("textured mesh", lambda: megakernel.trace_image_fused(
+                gltf_scene(textured, device=dev), gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn)),
+            ("metal_roughness_lobe", lambda: megakernel.trace_image_fused(
+                cap_scene, gltf_camera(dev), dataclasses.replace(mesh_cfg, metal_roughness_lobe=True), 8, 8, 1.0,
+                RAND_VEC2, bn))):
+        try:
+            fn()
+        except NotImplementedError:
+            refused.append(label)
+        else:
+            raise AssertionError(f"{label} did not raise NotImplementedError")
+    phase("refusals", "NotImplementedError for " + ", ".join(refused))
+    return entries
 
 
 def main() -> int:
@@ -428,10 +666,11 @@ def main() -> int:
     ms_grad_plain = cuda_ms(lambda: megakernel.trace_image_fused_grads_reference(bscene, cam, cfg, SIZE, SIZE, 2.0,
                                                                                  RAND_VEC2, bn), iters=3, warmup=1)
     dev_fwd = kernel_device_ms(lambda: megakernel.trace_image_fused(bscene, cam, cfg, SIZE, SIZE, 2.0,
-                                                                      RAND_VEC2, bn), 20, "trace_kernel<false, false>")
+                                                                      RAND_VEC2, bn), 20,
+                               instance(False, "none", "quad", False))
     dev_grad = kernel_device_ms(lambda: megakernel.trace_image_fused_grads(bscene, cam, cfg, SIZE, SIZE, 2.0,
                                                                              RAND_VEC2, bn), 20,
-                                  "trace_kernel<true, false>")
+                                  instance(True, "none", "quad", False))
     qc = bscene.quads.color.clone().requires_grad_(True)
     one = megakernel.trace_image_fused(bscene._replace(quads=bscene.quads._replace(color=qc)), cam, cfg, SIZE, SIZE,
                                        2.0, RAND_VEC2, bn, differentiable=True)
@@ -625,9 +864,8 @@ def main() -> int:
                                                                          RAND_VEC2, bn), iters=2, warmup=1)
         g_plain = cuda_ms(lambda: megakernel.trace_image_fused_grads_reference(tscene, fcam, fcfg, SIZE, SIZE, 2.0,
                                                                                RAND_VEC2, bn), iters=2, warmup=1)
-        instance = "true" if fam == "sky" else "false"
-        f_dev = kernel_device_ms(fwd_call, 10, f"trace_kernel<false, {instance}>")
-        g_dev = kernel_device_ms(grads_call, 10, f"trace_kernel<true, {instance}>")
+        f_dev = kernel_device_ms(fwd_call, 10, instance(False, fcfg.env, fcfg.nee, False))
+        g_dev = kernel_device_ms(grads_call, 10, instance(True, fcfg.env, fcfg.nee, False))
         f_frame = cuda_ms(lambda: frenderer.render_sample(mcam), iters=10, warmup=2)
         flanes = []
         _, fsg = trace_image(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True,
@@ -714,6 +952,7 @@ def main() -> int:
                 raise AssertionError(f"path-replay gradient of {name} disagrees: " + rows[-1])
     phase("grad-quadric", f"{GRAD_SIZE}x{GRAD_SIZE}, tint on: " + "; ".join(rows))
 
+    kernels += mesh_and_hdri(card, bn)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,10 +23,13 @@ from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.kernels import megakernel
 from bpt_tpu_torch.kernels.integration import attach_cuda_path
 from bpt_tpu_torch.renderer import ProgressiveRenderer
+from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
+from bpt_tpu_torch.io.gltf import GLTFModel
 from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, hdri_camera, hdri_scene, mesh_from_model
 from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
 from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
-from bpt_tpu_torch.scenes.types import METAL, TRANSPARENT
+from bpt_tpu_torch.scenes.types import DIFFUSE, METAL, TRANSPARENT
 
 torch.set_num_threads(2)
 
@@ -45,6 +48,9 @@ SLICE_MODULES = [
     "bpt_tpu_torch.device", "bpt_tpu_torch.sky", "bpt_tpu_torch.scenes.quadric_geometry",
     "bpt_tpu_torch.scenes.sky_scene", "bpt_tpu_torch.apps.common", "bpt_tpu_torch.apps.cornell_box",
     "bpt_tpu_torch.apps.quadric_geometry", "bpt_tpu_torch.apps.physical_sky", "bpt_tpu_torch.tools.ab_time",
+    "bpt_tpu_torch.io", "bpt_tpu_torch.io.gltf", "bpt_tpu_torch.io.hdr", "bpt_tpu_torch.accel",
+    "bpt_tpu_torch.accel.builder", "bpt_tpu_torch.accel.native", "bpt_tpu_torch.accel.traverse", "bpt_tpu_torch.env",
+    "bpt_tpu_torch.scenes.gltf_scene", "bpt_tpu_torch.apps.gltf_model", "bpt_tpu_torch.apps.hdri_environment",
 ]
 
 
@@ -70,7 +76,7 @@ def test_import_loads_no_jax_and_no_cuda():
 
 @pytest.mark.parametrize("change", [
     dict(env="sky", nee="quad"),
-    dict(env="hdri", nee="env"),
+    dict(env="hdri", nee="env", metal_roughness_lobe=True),
     dict(nee="sun"),
     dict(metal_roughness_lobe=True),
 ])
@@ -81,11 +87,24 @@ def test_trace_image_fused_rejects_unported_configs(change):
                                      torch.as_tensor(blue_noise_table()))
 
 
+def blob_model(T=128, seed=0) -> GLTFModel:
+    """The random triangle blob of the JAX package's kernel tests."""
+    rng = np.random.default_rng(seed)
+    c = rng.normal(0, 8, (T, 1, 3)).astype(np.float32)
+    tri = (c + rng.normal(0, 3, (T, 3, 3))).astype(np.float32)
+    n = np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True) + 1e-9
+    z2 = np.zeros((T, 2), np.float32)
+    return GLTFModel(p0=tri[:, 0], p1=tri[:, 1], p2=tri[:, 2], n0=n, n1=n, n2=n, uv0=z2, uv1=z2, uv2=z2,
+                     albedo=None, normal_map=None, metallic_roughness=None, emissive=None)
+
+
 def test_trace_image_fused_rejects_bad_inputs():
     scene, cam, cfg = cornell_scene(), cornell_camera(), IntegratorConfig(bounces=2)
     bn = torch.as_tensor(blue_noise_table())
-    with pytest.raises(NotImplementedError):
-        megakernel.trace_image_fused(scene._replace(mesh=object()), cam, cfg, 8, 8, 1.0, RV, bn)
+    textured = mesh_from_model(blob_model(8))._replace(albedo=torch.ones(4, 4, 3))
+    with pytest.raises(NotImplementedError, match="textured"):
+        megakernel.trace_image_fused(scene._replace(mesh=textured), cam, cfg, 8, 8, 1.0, RV, bn)
     with pytest.raises(ValueError, match="256, 256, 4"):
         megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn[:128])
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -156,6 +175,10 @@ def test_configuration_names_and_checks():
     assert megakernel.configuration(cornell_scene(), IntegratorConfig()) == "cornell"
     assert megakernel.configuration(quadric_geometry_scene(), IntegratorConfig()) == "quadric"
     assert megakernel.configuration(physical_sky_scene(), sky_cfg) == "sky"
+    mesh = mesh_from_model(blob_model(8))
+    assert megakernel.configuration(gltf_scene(mesh), IntegratorConfig()) == "mesh"
+    assert megakernel.configuration(hdri_scene(mesh, synthetic_hdr(8, 16)), IntegratorConfig(env="hdri", nee="env")) \
+        == "hdri"
     bn = torch.as_tensor(blue_noise_table())
     with pytest.raises(ValueError, match="scene.env"):
         megakernel.trace_image_fused(cornell_scene(), cornell_camera(), sky_cfg, 8, 8, 1.0, RV, bn)
@@ -330,3 +353,65 @@ def test_cuda_wrapper_limits(cuda_device):
                               mat_type=q.quadrics.mat_type[:5])
     with pytest.raises(ValueError, match="0 or 12"):
         megakernel.trace_image_fused(q._replace(quadrics=few), qcam, qcfg, 8, 8, 1.0, RV, bn)
+
+
+def _mesh_and_hdri_cases(device):
+    """The blob (128 triangles, the JAX kernel tests' generator) placed in
+    front of each demo camera, so that it takes a good share of the first
+    hits: DIFFUSE and TRANSPARENT (double-sided) in the glTF box, DIFFUSE
+    under the HDRI sky with sun and env NEE, and with sun NEE under a map
+    whose sun is above the horizon."""
+    place = dict(rotation=(0.3, 0.5, 0.0), scale=(1.5, 1.5, 1.5))
+    box = dict(translation=(0.0, -20.0, -85.0), **place)
+    sky = dict(translation=(0.0, 0.0, -165.0), **place)
+    hdri_mesh = mesh_from_model(blob_model(), mat_type=DIFFUSE, **sky)
+    hdri = hdri_scene(hdri_mesh, synthetic_hdr(32, 64), device=device)
+    hdri_cfg = dict(bounces=4, env="hdri", diffuse_indirect_max=2)
+    sun_cfg = IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **hdri_cfg)
+    return {
+        "mesh": (gltf_scene(mesh_from_model(blob_model(), mat_type=DIFFUSE, **box), device=device),
+                 gltf_camera(device=device), IntegratorConfig(bounces=4)),
+        "mesh-glass": (gltf_scene(mesh_from_model(blob_model(), mat_type=TRANSPARENT, **box), device=device),
+                       gltf_camera(device=device), IntegratorConfig(bounces=4)),
+        "hdri-sun": (hdri, hdri_camera(device=device), sun_cfg),
+        "hdri-env": (hdri, hdri_camera(device=device), IntegratorConfig(nee="env", **hdri_cfg)),
+        "hdri-sun-up": (hdri_scene(hdri_mesh, synthetic_hdr(32, 64, sun_uv=(0.7, 0.7)), device=device),
+                        hdri_camera(device=device), sun_cfg),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mesh", "mesh-glass", "hdri-sun", "hdri-env", "hdri-sun-up"])
+def test_cuda_mesh_and_hdri_kernels_match_plain_version(cuda_device, case):
+    """64x64, 4 bounces, frame 2: the mesh walk and the HDRI configurations
+    of the forward kernel equal their plain versions bit for bit, launch
+    under their own configuration's count, and the mesh takes first hits;
+    under the raised sun, shadow rays reach it."""
+    scene, cam, cfg = _mesh_and_hdri_cases(cuda_device)[case]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    name = megakernel.configuration(scene, cfg)
+    assert name == case.split("-")[0]
+    before = megakernel.LAUNCHES[name]
+    got = megakernel.trace_image_fused(scene, cam, cfg, 64, 64, 2.0, RV, bn)
+    assert megakernel.LAUNCHES[name] == before + 1
+    counts = []
+    ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 64, 64, 2.0, RV, bn, lane_counts=counts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (got.object_id == 8.0 if name == "mesh" else got.object_id == 6.0).float().mean().item() > 0.05
+    if case == "hdri-sun-up":
+        assert sum(int(c.shadow_misses) for c in counts) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_and_hdri_refuse_the_grads_mode(cuda_device):
+    """The kernel's grads mode and the path-replay route are not ported for
+    mesh and HDRI scenes: both raise instead of launching."""
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    for case in ("mesh", "hdri-env"):
+        scene, cam, cfg = _mesh_and_hdri_cases(cuda_device)[case]
+        with pytest.raises(NotImplementedError, match="K1-grad"):
+            megakernel.trace_image_fused_grads(scene, cam, cfg, 8, 8, 1.0, RV, bn)
+        with pytest.raises(NotImplementedError, match="K1-grad"):
+            megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn, differentiable=True)

@@ -2,6 +2,8 @@
 constructors, ray generation and closest-hit parity between bpt_tpu_torch
 and bpt_tpu; and the scene-level guards of the kernel module."""
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,7 +30,7 @@ from bpt_tpu_torch.integrator.intersect import scene_intersect
 from bpt_tpu_torch.kernels import megakernel
 from bpt_tpu_torch.integrator import IntegratorConfig
 from bpt_tpu_torch.kernels import build
-from bpt_tpu_torch.scenes import cornell, quadric_geometry, sky_scene
+from bpt_tpu_torch.scenes import cornell, gltf_scene, quadric_geometry, sky_scene
 from bpt_tpu_torch.scenes.types import CLEARCOAT_DIFFUSE, DIFFUSE, METAL, TRANSPARENT, Environment, Quadrics, Scene
 
 torch.set_num_threads(2)
@@ -200,12 +202,16 @@ def test_quadric_and_sky_scenes_round_trip():
 
 
 def test_convert_refuses_meshes_and_hdri():
+    """A textured mesh is still refused (textured PBR is not ported); the
+    HDRI fields of the environment are now carried."""
     src = _np(jsky_scene.physical_sky_scene())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        convert.scene_from_numpy(src._replace(mesh=object()))
-    hdri = src._replace(env=src.env._replace(hdr_image=np.zeros((4, 8, 3), np.float32)))
-    with pytest.raises(NotImplementedError, match="HDRI"):
-        convert.scene_from_numpy(hdri)
+    textured = SimpleNamespace(**{name: None for name in ("normal_map", "metallic_roughness", "emissive")},
+                               albedo=np.ones((4, 4, 3), np.float32))
+    with pytest.raises(NotImplementedError, match="textured"):
+        convert.scene_from_numpy(src._replace(mesh=textured))
+    hdri = src._replace(env=src.env._replace(hdr_image=np.zeros((4, 8, 3), np.float32), hdr_exposure=np.float32(2)))
+    env = convert.scene_from_numpy(hdri).env
+    assert env.hdr_image.shape == (4, 8, 3) and env.hdr_exposure.item() == 2.0 and env.env_cdf is None
 
 
 def test_quadric_scene_intersect_parity():
@@ -265,8 +271,9 @@ def test_scene_to_moves_every_family():
     back = scene.to("cpu")
     assert back.quadrics.shape_k.item() == pytest.approx(0.35) and back.env.sun_power.item() == 2.0
     torch.testing.assert_close(back.env.sun_direction, scene.env.sun_direction, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        scene._replace(mesh=object()).to("cpu")
+    mesh = gltf_scene.mesh_from_model(gltf_scene.heightfield_model(n_side=2))
+    moved_mesh = scene._replace(mesh=mesh).to("meta").mesh
+    assert all(t is None or t.device.type == "meta" for t in moved_mesh)
 
 
 def _fused_call(scene, camera, cfg):
