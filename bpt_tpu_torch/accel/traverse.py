@@ -22,7 +22,8 @@ import torch
 from bpt_tpu_torch.core.vecmath import (INFINITY, cross, dot, normal_to_world, normalize, safe_inv, transform_dir,
                                         transform_point)
 from bpt_tpu_torch.integrator.intersect import Hit, _merge
-from bpt_tpu_torch.scenes.types import TRANSPARENT, TriangleMesh
+from bpt_tpu_torch.scenes.types import PBR_MATERIAL, TRANSPARENT, TriangleMesh
+from bpt_tpu_torch.textures import perturb_normal
 
 MAX_STACK_DEPTH = 28  # the reference's stack size
 
@@ -174,26 +175,32 @@ def intersect_mesh_bvh(mesh: TriangleMesh, ro: torch.Tensor, rd: torch.Tensor, b
     """The model section of the closest hit: the ray to object space, the
     walk, then one barycentric normal (w·n0 + u·n1 + v·n2, normalized) and
     uv for the winning triangle, merged into ``best`` with a strict ``<``.
-    The hit colour is 1 and the material the mesh's own; the object id is
+    With a normal map the object-space normal is perturbed per texel before
+    the world transform.  The hit colour is 1; the material is PBR_MATERIAL
+    when the mesh has an albedo, else the mesh's own; the object id is
     ``id_base`` (after spheres, quadrics and quads).  Back faces are culled
-    unless the (untextured) mesh is TRANSPARENT, as in the reference.
+    unless the mesh is an untextured TRANSPARENT one, as in the reference.
     ``steps_out`` receives ``traverse_bvh``'s, then the (T,) bool mask of
     the vertex-normal records read: the winners that beat ``best``."""
     ro_o = transform_point(mesh.inv_matrix, ro)
     rd_o = transform_dir(mesh.inv_matrix, rd)  # not normalized: t stays a world-space distance
+    pbr = mesh.albedo is not None
+    cull = pbr or int(mesh.mat_type) != TRANSPARENT
     t, tri, u, v = traverse_bvh(mesh.node_tri, mesh.node_right, mesh.node_min, mesh.node_max, mesh.p0, mesh.p1,
-                                mesh.p2, ro_o, rd_o, int(mesh.mat_type) != TRANSPARENT, MAX_STACK_DEPTH,
-                                active=active, steps_out=steps_out)
+                                mesh.p2, ro_o, rd_o, cull, MAX_STACK_DEPTH, active=active, steps_out=steps_out)
     hit_ok = tri >= 0
     tid = torch.clamp(tri, min=0)
     w = 1.0 - u - v
     n = mesh.n0[tid] * w[..., None] + mesh.n1[tid] * u[..., None] + mesh.n2[tid] * v[..., None]
     uv = mesh.uv0[tid] * w[..., None] + mesh.uv1[tid] * u[..., None] + mesh.uv2[tid] * v[..., None]
-    n_world = normal_to_world(mesh.inv_matrix, normalize(n))
+    n = normalize(n)
+    if mesh.normal_map is not None:
+        n = perturb_normal(n, mesh.normal_map, uv)
+    n_world = normal_to_world(mesh.inv_matrix, n)
     t = torch.where(hit_ok, t, torch.full_like(t, INFINITY))
+    mat = torch.full_like(t, PBR_MATERIAL, dtype=torch.int32) if pbr else mesh.mat_type.to(torch.int32).expand_as(t)
     if steps_out is not None:
         normal_read = torch.zeros(mesh.p0.shape[0], dtype=torch.bool, device=ro.device)
         normal_read[tid[t < best.t]] = True
         steps_out.append(normal_read)
-    return _merge(best, t, n_world, torch.ones_like(ro), mesh.mat_type.to(torch.int32).expand_as(t),
-                  torch.full_like(t, float(id_base)), uv=uv)
+    return _merge(best, t, n_world, torch.ones_like(ro), mat, torch.full_like(t, float(id_base)), uv=uv)

@@ -1,11 +1,13 @@
-"""Demo 4 — an untextured glTF model with its BVH, in the Cornell box.
+"""Demo 4 — a glTF model with its BVH, in the Cornell box.
 
     python -m bpt_tpu_torch.apps.gltf_model --model teapot --models-dir DIR [--device cpu]
 
 The model presets are the JAX demo's (``apps/gltf_model.py``).  The assets
 are not in the repository: ``--models-dir`` names the directory that holds
-them, and a missing file fails with its path.  Textured models (duck,
-helmet) raise NotImplementedError: textured PBR is not ported yet.
+them, and a missing file fails with its path.  A textured model (duck,
+helmet) renders its PBR maps with the metal roughness lobe on
+(``metal_roughness_lobe = albedo is not None``, as in the JAX demo);
+``--mat`` is the material of an untextured one.
 """
 
 import os
@@ -37,7 +39,7 @@ def main(argv=None):
     model = load_gltf(os.path.join(args.models_dir, name), initial_scale=scale, flip_z=flip)
     print(f"{args.model}: {model.triangle_count} triangles, textured={model.albedo is not None}")
     mesh = mesh_from_model(model, mat_type=args.mat)
-    cfg = IntegratorConfig(bounces=args.bounces)
+    cfg = IntegratorConfig(bounces=args.bounces, metal_roughness_lobe=model.albedo is not None)
     r = ProgressiveRenderer(gltf_scene(mesh), cfg, args.size, args.size, device=args.device)
     return run_and_save(r, gltf_camera(), args, f"gltf_{args.model}")
 

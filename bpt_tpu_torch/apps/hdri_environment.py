@@ -1,13 +1,12 @@
-"""Demo 5 — an HDRI environment around an untextured glTF model.
+"""Demo 5 — an HDRI environment around a glTF model.
 
-    python -m bpt_tpu_torch.apps.hdri_environment --model teapot --models-dir DIR [--nee env] [--device cpu]
+    python -m bpt_tpu_torch.apps.hdri_environment --model duck --models-dir DIR [--nee env] [--device cpu]
 
 The flags are the JAX demo's (``apps/hdri_environment.py``).  ``--hdr``
 takes any equirect Radiance file; without one a procedural sky with a sun
 (``synthetic_hdr``) lights the scene.  The glTF assets are not in the
-repository (a missing file fails with its path), and the default model,
-duck, is textured: it raises NotImplementedError until textured PBR is
-ported.  The untextured runs are ``--model teapot`` and ``--model bunny``.
+repository (a missing file fails with its path).  The default model, duck,
+is textured: its PBR maps render with the metal roughness lobe on.
 """
 
 import os

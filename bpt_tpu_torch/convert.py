@@ -15,8 +15,7 @@ import torch
 from bpt_tpu_torch.camera import Camera
 from bpt_tpu_torch.renderer import RenderState
 from bpt_tpu_torch.env import EnvCDF
-from bpt_tpu_torch.scenes.types import (TEXTURE_FIELDS, Environment, Quadrics, Quads, Scene, TriangleMesh, UnitSpheres,
-                                       check_untextured)
+from bpt_tpu_torch.scenes.types import Environment, Quadrics, Quads, Scene, TriangleMesh, UnitSpheres
 
 
 def _tensor(x, device, dtype=None) -> torch.Tensor:
@@ -26,14 +25,16 @@ def _tensor(x, device, dtype=None) -> torch.Tensor:
 def _group(cls, src, device, fields=None):
     if src is None:
         return None
-    return cls(**{name: _tensor(getattr(src, name), device) for name in fields or cls._fields})
+    return cls(**{name: None if getattr(src, name) is None else _tensor(getattr(src, name), device)
+                  for name in fields or cls._fields})
 
 
 #: The TriangleMesh fields carried across: the soup, the binary BVH, the
-#: transform and the material.  The JAX mesh's TPU packs (``pk_*``, ``fz_*``,
-#: ``*_q``) are left behind, and the CUDA tables are the port's own; a
-#: texture map raises.
-MESH_FIELDS = tuple(f for f in TriangleMesh._fields if f not in TEXTURE_FIELDS + ("kernel_tables",))
+#: transform, the material and the four PBR maps (None where the JAX mesh
+#: has none).  The JAX mesh's TPU packs (``pk_*``, ``fz_*``, the ``*_q``
+#: quad-packed twins of the maps) are left behind, and the CUDA tables are
+#: the port's own.
+MESH_FIELDS = tuple(f for f in TriangleMesh._fields if f != "kernel_tables")
 
 
 def _env(env, device):
@@ -50,12 +51,9 @@ def _env(env, device):
 
 def scene_from_numpy(scene_np, device=None) -> Scene:
     """A JAX ``Scene`` of numpy arrays -> the port's ``Scene`` on ``device``:
-    quads, spheres, quadrics, the mesh (``MESH_FIELDS``; a textured mesh
-    raises NotImplementedError) and the environment with its HDRI fields
-    and CDF tables."""
+    quads, spheres, quadrics, the mesh (``MESH_FIELDS``) and the environment
+    with its HDRI fields and CDF tables."""
     mesh = getattr(scene_np, "mesh", None)
-    if mesh is not None:
-        check_untextured(mesh)
     return Scene(quads=_group(Quads, scene_np.quads, device),
                  spheres=_group(UnitSpheres, scene_np.spheres, device),
                  quadrics=_group(Quadrics, getattr(scene_np, "quadrics", None), device),

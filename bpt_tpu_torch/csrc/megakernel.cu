@@ -1,6 +1,6 @@
 // Path-tracing megakernel for Hopper (sm_90a): the Cornell, transformed-
-// quadric, physical-sky, glTF-mesh and HDRI configurations; forward mode for
-// all, grads mode for the first three.
+// quadric, physical-sky, glTF-mesh (untextured and textured PBR) and HDRI
+// configurations; forward mode for all, grads mode for the first three.
 //
 // Replaces: bpt_tpu/kernels/megakernel.py::_make_kernel, launched through
 // _pallas_forward (monolithic mode), in these configurations:
@@ -14,18 +14,24 @@
 //   * mesh: an untextured triangle mesh walked in the bounce loop through
 //     its binary BVH (csrc/bvh.cuh), after the quads (the glTF demo);
 //   * hdri: env "hdri" (the equirect miss of csrc/hdri.cuh) with sun NEE or
-//     luminance-CDF environment NEE, with the mesh (the HDRI demo).
+//     luminance-CDF environment NEE, with the mesh (the HDRI demo);
+//   * textured (mesh_textured): a mesh with PBR maps under any of the
+//     environments above; at each mesh hit the thread fetches and decodes
+//     its own texels (csrc/textures.cuh): the normal map before the world
+//     transform, then the albedo, the emissive terminal and the per-texel
+//     class, and with metal_roughness_lobe the METAL bounce's lobe.
 // Template arguments select each at compile time: kEnv (none, sky, hdri),
-// kNee (quad, sun, env), kMesh, and kGrads for param_grads (entry
-// bpt_trace, argument grads; grads mode for env none and sky without a
-// mesh).  It computes what the plain PyTorch integrator
+// kNee (quad, sun, env), kMesh, kTextured (only with kMesh) and kGrads for
+// param_grads (entry bpt_trace, argument grads; grads mode for env none and
+// sky without a mesh).  It computes what the plain PyTorch integrator
 // (bpt_tpu_torch/integrator/radiance.py, a mirror of the JAX wavefront)
 // computes, draw for draw: ray generation with tent AA and thin-lens DoF (4
 // hash draws), then up to `bounces` bounces with the fixed per-bounce
 // schedule gate1, gate2 (blue noise) and hem.r, hem.phi (hash), then
-// quad.x, quad.y, quad.z with quad NEE or lobe.cos, lobe.phi with sun and
-// env NEE.  Without quad NEE there is no light-hit block: a LIGHT-typed
-// surface is an unknown material and ends the path, as in the plain version.
+// quad.x, quad.y, quad.z with quad NEE, then lobe.cos, lobe.phi with sun
+// and env NEE and with the metal roughness lobe (after the quad triple).
+// Without quad NEE there is no light-hit block: a LIGHT-typed surface is an
+// unknown material and ends the path, as in the plain version.
 //
 // The grads mode writes the same 11 planes plus the path-replay planes
 // out_sg, (n_sg, H, W) planes-major, n_obj = ns + nqd + nq objects in
@@ -50,9 +56,11 @@
 // evaluation on every miss (acos, cos, exp and 4 powf per channel) and
 // the sun lobe's powf per bounce.  Mesh: the BVH walk's dependent gathers
 // and the warp divergence of the walks (csrc/bvh.cuh); HDRI: the equirect
-// gathers and the CDF searches (csrc/hdri.cuh).  Without a mesh it moves
-// almost no memory: a few hundred floats of scene constants, one
-// blue-noise texel and 11 output floats per pixel.  The grads mode adds
+// gathers and the CDF searches (csrc/hdri.cuh); textured: on top of the
+// walk, four bilinear samples (4 taps of dependent scalar loads each) per
+// PBR hit from maps larger than the L2 cache (csrc/textures.cuh).  Without
+// a mesh it moves almost no memory: a few hundred floats of scene
+// constants, one blue-noise texel and 11 output floats per pixel.  The grads mode adds
 // n_sg * 4 bytes per pixel.
 //
 // What the design does about that: one thread per pixel with its whole path
@@ -65,8 +73,8 @@
 // branch and the environment only on its own miss, leaves the torus march
 // when its lane freezes, and does not march a ray that misses the torus's
 // bound; every draw of a bounce is still consumed, so the random streams
-// stay aligned with the plain version.  The mesh walk and the HDRI code
-// are compiled only into the instantiations that use them (a configuration
+// stay aligned with the plain version.  The mesh walk, the texel work and
+// the HDRI code are compiled only into the instantiations that use them (a configuration
 // pays registers and scheduling for code it carries even when it never
 // runs it: the quadric loop costs the Cornell configuration 2-3%).  The
 // divergence of the march and of the walk is left as it is: sorting rays or
@@ -103,6 +111,7 @@
 #include "hdri.cuh"
 #include "quadrics.cuh"
 #include "sky.cuh"
+#include "textures.cuh"
 #include "vec.cuh"
 
 namespace bpt {
@@ -133,12 +142,16 @@ struct TraceArgs {
   float* out_oid;
   float* out_sharp;
   float* out_sg;
+  const float2* mesh_uvs;  // textured: uv0, uv1, uv2 per triangle
+  const float* tex[4];  // textured: albedo, normal, metallic-roughness, emissive (h, w, 3) maps (or null)
   int nq, ns, nqd;
   int bn_ox, bn_oy, width, height, bounces;
   float eps;
   int light_index, diffuse_indirect_max, camera_is_moving, transparent_tint;
   uint32_t frame_u;
   float frame_f;
+  int tex_h[4], tex_w[4];
+  int metal_roughness_lobe;
 };
 
 }  // namespace bpt
@@ -154,6 +167,7 @@ constexpr int kDiffuse = 1;
 constexpr int kTransparent = 2;
 constexpr int kMetal = 3;
 constexpr int kClearcoat = 4;
+constexpr int kPbr = 10;
 
 constexpr int kEnvNone = 0, kEnvSky = 1, kEnvHdri = 2;
 constexpr int kNeeQuad = 0, kNeeSun = 1, kNeeEnv = 2;
@@ -163,8 +177,9 @@ constexpr int kNeeQuad = 0, kNeeSun = 1, kNeeEnv = 2;
 // vlen aperture focus; quad row (20) = n3 v0 v1 v2 v3 color3 mat pad; sphere
 // row (21) = inverse 4x4 row-major (16) color3 mat pad; quadric row (20) =
 // inverse 4x4 row-major (16) color3 mat; mesh constants (17) = inverse 4x4
-// row-major (16) mat, and its nodes, triangles and normals (csrc/bvh.cuh);
-// the parameter pack: vec.cuh.
+// row-major (16) mat (kPbr for a mesh with an albedo), and its nodes,
+// triangles and normals (csrc/bvh.cuh), UV records and texels
+// (csrc/textures.cuh); the parameter pack: vec.cuh.
 constexpr int kCamFloats = 16;
 constexpr int kQuadFloats = 20;
 constexpr int kSphereFloats = 21;
@@ -266,8 +281,9 @@ __device__ __forceinline__ V3 quad_light(const float* lq, V3 x, V3 nl, float rx,
   return d;
 }
 
-template <bool kGrads, int kEnv, int kNee, bool kMesh>
+template <bool kGrads, int kEnv, int kNee, bool kMesh, bool kTextured>
 __global__ void trace_kernel(const TraceArgs a) {
+  static_assert(kMesh || !kTextured, "a textured configuration walks a mesh");
   constexpr bool kSky = kEnv == kEnvSky;
   const int nq = a.nq, ns = a.ns, nqd = a.nqd, width = a.width, height = a.height, bounces = a.bounces;
   const int diffuse_indirect_max = a.diffuse_indirect_max, transparent_tint = a.transparent_tint;
@@ -299,7 +315,8 @@ __global__ void trace_kernel(const TraceArgs a) {
   const int pix = py * width + px;
   const float shape_k = P[kPShapeK];
   const int mesh_mat = kMesh ? (int)mesh_inv[16] : 0;
-  const bool mesh_cull = mesh_mat != kTransparent;  // double-sided only when TRANSPARENT
+  const bool mesh_cull = mesh_mat != kTransparent;  // double-sided only when untextured TRANSPARENT
+  const bool lobe = kTextured && a.metal_roughness_lobe;
 
   // ---- grads mode: zero this pixel's path-replay entries -----------------
   const size_t plane = (size_t)width * (size_t)height;
@@ -356,6 +373,7 @@ __global__ void trace_kernel(const TraceArgs a) {
     int mat = -100;
     float hid = -kInf;
     int hobj = -1;
+    float hu = 0.0f, hv = 0.0f;  // a textured mesh hit's UV
     for (int s = 0; s < ns; ++s) {
       const float* m = spheres + s * kSphereFloats;
       QHit h = q_sphere(xform_point(m, ro), xform_dir(m, rd));
@@ -398,7 +416,13 @@ __global__ void trace_kernel(const TraceArgs a) {
       const MeshHit mh = bvh_closest(a.mesh_nodes, a.mesh_tris, ro_o, rd_o, mesh_cull);
       if (mh.t < t_best) {
         t_best = mh.t;
-        nrm = normalize(xform_normal(mesh_inv, mesh_normal(a.mesh_normals, mh)));
+        V3 n_obj = mesh_normal(a.mesh_normals, mh);
+        if constexpr (kTextured) {  // the normal map perturbs the object-space normal
+          mesh_uv(a.mesh_uvs, mh.tri, mh.u, mh.v, &hu, &hv);
+          if (a.tex[kTexNormal]) n_obj = perturb_normal(n_obj, a.tex[kTexNormal], a.tex_h[kTexNormal],
+                                                        a.tex_w[kTexNormal], hu, hv);
+        }
+        nrm = normalize(xform_normal(mesh_inv, n_obj));
         hc = v3(1.0f, 1.0f, 1.0f);
         mat = mesh_mat;
         hid = (float)(ns + nqd + nq);
@@ -466,21 +490,51 @@ __global__ void trace_kernel(const TraceArgs a) {
     // ---- so does a failed shadow ray -------------------------------------
     if (sample_light) break;
 
+    // ---- a textured mesh's PBR texels: albedo, emission, class, roughness
+    float mr_g = 0.0f;  // the METAL lobe's roughness
+    if constexpr (kTextured) {
+      if (mat == kPbr) {
+        hc = sample_linear(a.tex[kTexAlbedo], a.tex_h[kTexAlbedo], a.tex_w[kTexAlbedo], hu, hv);
+        if (a.tex[kTexEmissive]) {  // an emissive texel ends a specular path, tested before the class
+          const V3 em = sample_linear(a.tex[kTexEmissive], a.tex_h[kTexEmissive], a.tex_w[kTexEmissive], hu, hv);
+          if (spec && fmaxf(fmaxf(em.x, em.y), em.z) > 0.01f) {
+            sharp = 1.01f;
+            acc = mul3(mask, em);
+            break;
+          }
+        }
+        mat = kDiffuse;
+        if (a.tex[kTexMetalRough]) {  // roughness (G): CLEARCOAT; metalness (B) overrides it: METAL
+          const Taps t = bilinear_taps(a.tex_h[kTexMetalRough], a.tex_w[kTexMetalRough], hu, hv);
+          mr_g = srgb_linear(tap_channel(a.tex[kTexMetalRough], t, 1));
+          if (mr_g > 0.01f) mat = kClearcoat;
+          if (srgb_linear(tap_channel(a.tex[kTexMetalRough], t, 2)) > 0.01f) mat = kMetal;
+        }
+      }
+    }
+
     // ---- this bounce's fixed-schedule draws (all consumed) --------------
     const float gate1 = bn[(2 * bounce) & 3];
     const float gate2 = bn[(2 * bounce + 1) & 3];
     const float hem_r = rng_next(sx, sy);
     const float hem_p = rng_next(sx, sy);
-    float d0 = rng_next(sx, sy);  // quad.x | lobe.cos
-    float d1 = rng_next(sx, sy);  // quad.y | lobe.phi
-    float d2 = kNee == kNeeQuad ? rng_next(sx, sy) : 0.0f;  // quad.z
+    float q0 = 0.0f, q1 = 0.0f, q2 = 0.0f, lc = 0.0f, lp = 0.0f;
+    if constexpr (kNee == kNeeQuad) {  // quad.x, quad.y, quad.z
+      q0 = rng_next(sx, sy);
+      q1 = rng_next(sx, sy);
+      q2 = rng_next(sx, sy);
+    }
+    if (kNee != kNeeQuad || lobe) {  // lobe.cos, lobe.phi
+      lc = rng_next(sx, sy);
+      lp = rng_next(sx, sy);
+    }
     auto nee = [&](float* w) {
       if constexpr (kNee == kNeeSun) {
-        return sun_nee(P, nl, d0, d1, w);
+        return sun_nee(P, nl, lc, lp, w);
       } else if constexpr (kNee == kNeeEnv) {
-        return env_nee(a.row_cdf, a.col_cdf, a.env_pdf, (int)P[kPHdrH], (int)P[kPHdrW], nl, d0, d1, w);
+        return env_nee(a.row_cdf, a.col_cdf, a.env_pdf, (int)P[kPHdrH], (int)P[kPHdrW], nl, lc, lp, w);
       } else {
-        return quad_light(lq, x, nl, d0, d1, d2, w);
+        return quad_light(lq, x, nl, q0, q1, q2, w);
       }
     };
 
@@ -505,6 +559,7 @@ __global__ void trace_kernel(const TraceArgs a) {
       mask = mul3(mask, hc);
       add_sg(hobj, 1.0f);
       rd = reflect(rd, nl);
+      if (lobe) rd = roughness_lobe(rd, mr_g, lc, lp);
       ro = add(x, mul(nl, eps));
       sample_light = false;
     } else if (mat == kTransparent) {
@@ -590,18 +645,19 @@ __global__ void trace_kernel(const TraceArgs a) {
   a.out_sharp[pix] = sharp;
 }
 
-template <bool kGrads, int kEnv, int kNee, bool kMesh>
+template <bool kGrads, int kEnv, int kNee, bool kMesh, bool kTextured = false>
 int launch_cfg(const TraceArgs& a, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
   const size_t smem = sizeof(float) * (kCamFloats + kParamFloats + a.nq * kQuadFloats + a.ns * kSphereFloats +
                                        a.nqd * kQuadricFloats + (kMesh ? kMeshFloats : 0));
-  trace_kernel<kGrads, kEnv, kNee, kMesh><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  trace_kernel<kGrads, kEnv, kNee, kMesh, kTextured><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int kEnv, int kNee>
 int launch_forward(const TraceArgs& a, int mesh, void* stream) {
+  if (mesh == 2) return launch_cfg<false, kEnv, kNee, true, true>(a, stream);
   return mesh ? launch_cfg<false, kEnv, kNee, true>(a, stream) : launch_cfg<false, kEnv, kNee, false>(a, stream);
 }
 
@@ -611,12 +667,14 @@ extern "C" int bpt_trace_args_size() { return static_cast<int>(sizeof(bpt::Trace
 
 // One frame of the configuration the arguments select: env 0 none, 1 sky,
 // 2 hdri; nee 0 quad, 1 sun, 2 env (the pairs none + quad, sky + sun,
-// hdri + sun and hdri + env); mesh 0 or 1.  grads != 0 adds the (n_sg, H, W)
-// path-replay planes out_sg (n_sg = ns + nqd + nq with transparent_tint,
-// twice that without), for env none and sky without a mesh.  Returns the
-// CUDA error of the launch, or -1 for a combination that is not built.
+// hdri + sun and hdri + env); mesh 0 none, 1 untextured, 2 textured (PBR
+// maps).  grads != 0 adds the (n_sg, H, W) path-replay planes out_sg
+// (n_sg = ns + nqd + nq with transparent_tint, twice that without), for env
+// none and sky without a mesh.  Returns the CUDA error of the launch, or -1
+// for a combination that is not built.
 extern "C" int bpt_trace(const bpt::TraceArgs* args, int grads, int env, int nee, int mesh, void* stream) {
   const bpt::TraceArgs& a = *args;
+  if (mesh < 0 || mesh > 2) return -1;
   if (grads) {
     if (mesh) return -1;
     if (env == kEnvNone && nee == kNeeQuad) return launch_cfg<true, kEnvNone, kNeeQuad, false>(a, stream);

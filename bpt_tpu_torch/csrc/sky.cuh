@@ -52,15 +52,7 @@ __device__ __forceinline__ V3 sky_color(V3 rd, const float* P) {
 // (lc, lp), and its weight max(0, dot(dir, nl)) * scale, scale being 0.05
 // (weight mode "sky") or sun_power^2 * 1e-7 ("hdri").
 __device__ __forceinline__ V3 sun_nee(const float* P, V3 nl, float lc, float lp, float* weight) {
-  V3 w = load3(P + kPSun);
-  float cos_t = powf(lc, P[kPLobeExp]);
-  float sin_t = safe_sqrt(1.0f - cos_t * cos_t);
-  float phi = lp * kTwoPi;
-  V3 u, v;
-  onb(w, &u, &v);
-  float a = cosf(phi) * sin_t, b = sinf(phi) * sin_t;
-  V3 lobe = add(add(mul(u, a), mul(v, b)), mul(w, cos_t));
-  V3 d = normalize(add(w, mul(sub(lobe, w), P[kPLobeRough])));
+  V3 d = lobe_dir(load3(P + kPSun), P[kPLobeExp], P[kPLobeRough], lc, lp);
   *weight = fmaxf(dot(d, nl), 0.0f) * P[kPSunWeight];
   return d;
 }

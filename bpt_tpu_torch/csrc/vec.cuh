@@ -55,4 +55,18 @@ __device__ __forceinline__ void onb(V3 w, V3* u, V3* v) {
   *v = cross(w, *u);
 }
 
+// A direction in the specular lobe about w from the draws (lc, lp), for sun
+// NEE and the metal roughness lobe: cos(theta) = lc^exponent, then
+// normalize(mix(w, lobe, rough)).
+__device__ __forceinline__ V3 lobe_dir(V3 w, float exponent, float rough, float lc, float lp) {
+  const float cos_t = powf(lc, exponent);
+  const float sin_t = safe_sqrt(1.0f - cos_t * cos_t);
+  const float phi = lp * kTwoPi;
+  V3 u, v;
+  onb(w, &u, &v);
+  const float a = cosf(phi) * sin_t, b = sinf(phi) * sin_t;
+  const V3 lobe = add(add(mul(u, a), mul(v, b)), mul(w, cos_t));
+  return normalize(add(w, mul(sub(lobe, w), rough)));
+}
+
 }  // namespace bpt

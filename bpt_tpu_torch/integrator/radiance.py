@@ -6,15 +6,22 @@ plain PyTorch version of the fused kernel.  Four configurations are
 ported: env "none" with quad-light NEE (the Cornell, quadric and glTF
 demos), env "sky" with sun NEE (the Preetham demo), and env "hdri" with sun
 NEE or luminance-CDF env NEE (the HDRI demo), with the DIFFUSE, METAL,
-TRANSPARENT and CLEARCOAT branches over spheres, quadrics, quads and an
-untextured BVH mesh; other configurations, textured meshes and the metal
-roughness lobe raise ``NotImplementedError``.
+TRANSPARENT and CLEARCOAT branches over spheres, quadrics, quads and a BVH
+mesh.  A mesh with an albedo is PBR_MATERIAL: at each hit its albedo,
+emissive and metallic-roughness texels are sampled and decoded
+(pow(max(x, 0), 2.2)); an emissive texel (max > 0.01) ends a specular path
+as a light; the roughness channel (g > 0.01) makes it CLEARCOAT_DIFFUSE and
+the metalness channel (b > 0.01) METAL, else it is DIFFUSE; with
+``metal_roughness_lobe`` a METAL bounce draws its direction from the
+specular lobe of that roughness (0 off the mesh).  Other (env, nee) pairs
+raise ``NotImplementedError``.
 
 Draw order per bounce (the RNG seam shared with the kernel and the
 reference): blue noise gate1, gate2; hash hem.r, hem.phi, then quad.x,
-quad.y, quad.z (nee "quad") or lobe.cos, lobe.phi (nee "sun", and nee
-"env", where the pair feeds the inverse-CDF environment sample).  Discrete
-decisions are detached from autograd (``.detach()`` where the reference has
+quad.y, quad.z (nee "quad"), then lobe.cos, lobe.phi (nee "sun" and "env",
+where the pair feeds the inverse-CDF environment sample, and with
+``metal_roughness_lobe``, under quad NEE too).  Discrete decisions are
+detached from autograd (``.detach()`` where the reference has
 ``stop_gradient``).
 
 With ``param_grads=True`` the pass also returns the path-replay planes of
@@ -45,8 +52,10 @@ from bpt_tpu_torch.env import EnvCDF, get_hdr_color, sample_env_cdf
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.intersect import scene_intersect
 from bpt_tpu_torch.lights import quad_light_from_uniforms
-from bpt_tpu_torch.scenes.types import CLEARCOAT_DIFFUSE, DIFFUSE, LIGHT, METAL, TRANSPARENT, Scene, check_untextured
+from bpt_tpu_torch.scenes.types import (CLEARCOAT_DIFFUSE, DIFFUSE, LIGHT, MAP_FIELDS, METAL, PBR_MATERIAL, TRANSPARENT,
+                                        Scene, is_textured)
 from bpt_tpu_torch.sky import get_sky_color
+from bpt_tpu_torch.textures import sample_bilinear, texels_read
 
 #: The (env, nee) pairs the port runs.
 SUPPORTED = (("none", "quad"), ("sky", "sun"), ("hdri", "sun"), ("hdri", "env"))
@@ -70,7 +79,18 @@ class LaneCounts(NamedTuple):
     triangle tests on live lanes, and the live shadow rays (NEE) that
     missed every surface, i.e. reached the environment.  ``mesh_reads``:
     with a mesh, the bool masks of its node, triangle and vertex-normal
-    records the bounce read (``intersect_mesh_bvh``'s), else None."""
+    records the bounce read (``intersect_mesh_bvh``'s), else None.
+
+    With a textured mesh, what the kernel's texel work was: ``pbr_classes``,
+    the PBR hits decided DIFFUSE, CLEARCOAT_DIFFUSE and METAL, (3,);
+    ``emissive_hits``, the PBR hits an emissive texel ended; ``lobe_draws``,
+    the METAL bounces that drew the roughness lobe with a roughness above 0;
+    ``texel_samples``, per map (albedo, normal, metallic-roughness,
+    emissive) the bilinear samples taken, (4,): the normal map at every live
+    mesh hit, the albedo and the emissive map at every PBR hit, the
+    metallic-roughness map at every PBR hit that did not end (0 for a map
+    the mesh lacks); and ``texel_reads``, per map the (H, W) bool mask of the
+    texels those samples read, or None."""
 
     live: torch.Tensor
     hits: torch.Tensor
@@ -80,21 +100,22 @@ class LaneCounts(NamedTuple):
     tri_tests: torch.Tensor
     shadow_misses: torch.Tensor
     mesh_reads: tuple | None = None
+    pbr_classes: torch.Tensor | None = None
+    emissive_hits: torch.Tensor | None = None
+    lobe_draws: torch.Tensor | None = None
+    texel_samples: torch.Tensor | None = None
+    texel_reads: tuple | None = None
 
 
 def check_supported(scene: Scene, cfg: IntegratorConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not run
     (ValueError for a scene that lacks what its configuration needs)."""
-    if cfg.metal_roughness_lobe:
-        raise NotImplementedError("metal_roughness_lobe is not ported yet: ROADMAP, textured PBR")
     if (cfg.env, cfg.nee) not in SUPPORTED:
         raise NotImplementedError(
             f"env={cfg.env!r}, nee={cfg.nee!r}: the port runs env 'none' + nee 'quad', env 'sky' + nee 'sun' and "
             "env 'hdri' + nee 'sun' or 'env'")
     if cfg.sun_weight_mode not in ("sky", "hdri"):
         raise ValueError(f"sun_weight_mode {cfg.sun_weight_mode!r} is not 'sky' or 'hdri'")
-    if scene.mesh is not None:
-        check_untextured(scene.mesh)
     if cfg.nee == "quad" and scene.quads is None:
         raise ValueError("quad-light NEE needs scene.quads")
     if cfg.env == "sky" and scene.env is None:
@@ -107,6 +128,19 @@ def check_supported(scene: Scene, cfg: IntegratorConfig) -> None:
 
 def _where3(c, a, b):
     return torch.where(c[..., None], a, b)
+
+
+def _texel_counts(counts: LaneCounts, mesh, uv, mesh_won, pbr_hits, pbr_lanes, emissive_hit, mat, mr_g,
+                  lobe: bool) -> LaneCounts:
+    """``counts`` with one bounce's texel work filled in (see LaneCounts)."""
+    maps = [getattr(mesh, name) for name in MAP_FIELDS]
+    sampled = (pbr_hits, mesh_won, pbr_lanes, pbr_hits)  # the lanes that sample each map
+    reads = tuple(None if tex is None else texels_read(tex, uv[lanes]) for tex, lanes in zip(maps, sampled))
+    samples = torch.stack([lanes.sum() * (tex is not None) for tex, lanes in zip(maps, sampled)])
+    classes = torch.stack([(pbr_lanes & (mat == m)).sum() for m in (DIFFUSE, CLEARCOAT_DIFFUSE, METAL)])
+    lobe_draws = (pbr_lanes & (mat == METAL) & (mr_g > 0.0)).sum() if lobe else torch.zeros_like(classes[0])
+    return counts._replace(pbr_classes=classes, emissive_hits=emissive_hit.sum(), lobe_draws=lobe_draws,
+                           texel_samples=samples, texel_reads=reads)
 
 
 def calculate_radiance(
@@ -163,6 +197,10 @@ def calculate_radiance(
         li = cfg.light_index if cfg.light_index >= 0 else quads.v0.shape[0] - 1
         lv0, lv1, lv2, lv3 = quads.v0[li], quads.v1[li], quads.v2[li], quads.v3[li]
         l_normal = normalize(quads.normal[li])
+    use_lobe = cfg.nee in ("sun", "env") or cfg.metal_roughness_lobe
+    pbr_mesh = scene.mesh if scene.mesh is not None and scene.mesh.albedo is not None else None
+    textured = is_textured(scene.mesh)  # an albedo or a normal map: the kernel's textured configuration
+    mesh_id = float(sum(0 if g is None else g.color.shape[0] for g in (scene.spheres, scene.quadrics, scene.quads)))
     sun_dir = None if scene.env is None else scene.env.sun_direction
     env_cdf = EnvCDF(*scene.env.env_cdf) if cfg.nee == "env" else None
     lit = full(False, torch.bool)
@@ -184,6 +222,7 @@ def calculate_radiance(
             lane_counts.append(LaneCounts(alive.sum(), (alive & ~miss).sum(), (alive & miss).sum(), steps, visits,
                                           tests, (alive & miss & sample_light).sum(),
                                           tuple(mesh_steps[2:]) if mesh_steps else None))
+            mesh_won = alive & ~miss & (hit.object_id == mesh_id)  # the lanes whose normal-map texel is sampled
 
         n = normalize(hit.normal)
         nl = face_forward(n, rd)
@@ -249,6 +288,34 @@ def calculate_radiance(
         alive = alive & ~(lane & sample_light)
         lane = alive
 
+        # ---- a textured mesh's PBR texels: albedo, emission, class, roughness
+        mr_g = zero  # the METAL lobe's roughness
+        if pbr_mesh is not None:
+            is_pbr = lane & (mat == PBR_MATERIAL)
+            pbr_hits = is_pbr
+            albedo = torch.pow(torch.clamp(sample_bilinear(pbr_mesh.albedo, hit.uv), min=0.0), 2.2)
+            hit_color = _where3(is_pbr, albedo, hit_color)
+            emissive_hit = torch.zeros_like(is_pbr)
+            if pbr_mesh.emissive is not None:  # an emissive texel ends a specular path, tested before the class
+                emission = torch.pow(torch.clamp(sample_bilinear(pbr_mesh.emissive, hit.uv), min=0.0), 2.2)
+                emissive_hit = is_pbr & spec & (torch.amax(emission, dim=-1) > 0.01)
+                sharp = torch.where(emissive_hit, full(1.01), sharp)
+                accum = _where3(emissive_hit, mask * emission, accum)
+                alive = alive & ~emissive_hit
+                lane = alive
+                is_pbr = is_pbr & ~emissive_hit
+            mat = torch.where(is_pbr, torch.full_like(mat, DIFFUSE), mat)
+            if pbr_mesh.metallic_roughness is not None:  # roughness: CLEARCOAT; metalness overrides: METAL
+                mr = torch.pow(torch.clamp(sample_bilinear(pbr_mesh.metallic_roughness, hit.uv), min=0.0), 2.2)
+                mat = torch.where(is_pbr & (mr[..., 1] > 0.01), torch.full_like(mat, CLEARCOAT_DIFFUSE), mat)
+                mat = torch.where(is_pbr & (mr[..., 2] > 0.01), torch.full_like(mat, METAL), mat)
+                mr_g = torch.where(is_pbr, mr[..., 1], mr_g)
+        elif textured:  # a normal map alone: the mesh keeps its own material
+            pbr_hits = is_pbr = emissive_hit = torch.zeros_like(alive)
+        if textured and lane_counts is not None:
+            lane_counts[-1] = _texel_counts(lane_counts[-1], scene.mesh, hit.uv, mesh_won, pbr_hits, is_pbr,
+                                            emissive_hit, mat, mr_g, cfg.metal_roughness_lobe)
+
         # ---- fixed-schedule RNG draws for this bounce ----------------------
         gate1, bn = bn_next(bn)
         gate2, bn = bn_next(bn)
@@ -260,7 +327,7 @@ def calculate_radiance(
             qy, rng = rng_next(rng)
             qz, rng = rng_next(rng)
             nee_dir, nee_w = quad_light_from_uniforms(x, nl, lv0, lv1, lv2, lv3, l_normal, qx, qy, qz)
-        else:
+        if use_lobe:  # after the quad triple when the lobe is on under quad NEE
             lc, rng = rng_next(rng)
             lp, rng = rng_next(rng)
         if cfg.nee == "sun":  # through the specular lobe about the sun direction
@@ -292,9 +359,11 @@ def calculate_radiance(
         ro_diff = x + nl * eps
         sl_diff = ~go_indirect_d
 
-        # ==== METAL (perfect mirror) ========================================
+        # ==== METAL (a mirror, or the roughness lobe about it) ==============
         mask_metal = mask * hit_color
         rd_metal = reflect(rd, nl)
+        if cfg.metal_roughness_lobe:
+            rd_metal = specular_lobe_from_uniforms(rd_metal, mr_g, lc, lp)
         ro_metal = x + nl * eps
 
         # ==== TRANSPARENT ===================================================

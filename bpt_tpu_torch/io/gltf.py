@@ -1,14 +1,16 @@
 """Minimal glTF 2.0 / GLB reader: a de-indexed triangle soup and its PBR
 textures, numpy and the standard library only.
 
-A copy of ``GLTFModel`` and ``load_gltf`` (with their helpers) from
-``bpt_tpu.io.gltf``, which cannot be imported without jax.  Every mesh
-primitive of the default scene is merged into one soup; node transforms are
-baked into the vertices; RH -> LH by negating z; a uniform initial scale;
-the four PBR textures of the first textured material (PIL decodes them, and
-is imported only when a model has images).  The port renders untextured
-models only: a model with textures loads, and ``mesh_from_model`` refuses
-it.
+A copy of ``GLTFModel``, ``load_gltf`` (with their helpers) and
+``describe_gltf`` from ``bpt_tpu.io.gltf``, which cannot be imported without
+jax.  Every mesh primitive of the default scene is merged into one soup;
+node transforms are baked into the vertices; RH -> LH by negating z; a
+uniform initial scale; the four PBR textures of the first textured material
+(or of ``material_index``), decoded by PIL (imported only when a model has
+images) into (H, W, 3) float32 sRGB-encoded maps that
+``scenes.gltf_scene.mesh_from_model`` carries to the renderer.
+``describe_gltf`` dumps a file's meshes and materials for the loading
+debugger.
 """
 
 from __future__ import annotations
@@ -325,3 +327,47 @@ def load_gltf(
         metallic_roughness=metallic_roughness,
         emissive=emissive,
     )
+
+
+def describe_gltf(path: str) -> dict:
+    """The asset's meshes (primitives, their material, attributes, indexing,
+    mode) and materials (PBR factors, texture indices, doubleSided,
+    alphaMode), its image URIs (long data URIs shortened) and node count: the
+    loading debugger's dump of mesh and material internals."""
+    base_dir = os.path.dirname(os.path.abspath(path))
+    with open(path, "rb") as f:
+        raw = f.read()
+    if raw[:4] == b"glTF":
+        gltf, _ = _read_glb(raw)
+    else:
+        gltf = json.loads(raw.decode("utf-8"))
+    meshes = []
+    for i, mesh in enumerate(gltf.get("meshes", [])):
+        prims = [{"material": prim.get("material"), "attributes": sorted(prim.get("attributes", {})),
+                  "indexed": "indices" in prim, "mode": prim.get("mode", 4)}
+                 for prim in mesh.get("primitives", [])]
+        meshes.append({"name": mesh.get("name", f"mesh{i}"), "primitives": prims})
+    materials = []
+    for i, mat in enumerate(gltf.get("materials", [])):
+        pbr = mat.get("pbrMetallicRoughness", {})
+        materials.append({
+            "name": mat.get("name", f"material{i}"),
+            "baseColorFactor": pbr.get("baseColorFactor"),
+            "baseColorTexture": pbr.get("baseColorTexture", {}).get("index"),
+            "metallicFactor": pbr.get("metallicFactor"),
+            "roughnessFactor": pbr.get("roughnessFactor"),
+            "metallicRoughnessTexture": pbr.get("metallicRoughnessTexture", {}).get("index"),
+            "normalTexture": mat.get("normalTexture", {}).get("index"),
+            "emissiveTexture": mat.get("emissiveTexture", {}).get("index"),
+            "doubleSided": mat.get("doubleSided", False),
+            "alphaMode": mat.get("alphaMode", "OPAQUE"),
+        })
+    return {
+        "path": path,
+        "base_dir": base_dir,
+        "meshes": meshes,
+        "materials": materials,
+        "images": [(uri[:40] + f"...<{len(uri)} chars>") if len(uri) > 60 else uri
+                   for uri in (img.get("uri", "<embedded>") for img in gltf.get("images", []))],
+        "nodes": len(gltf.get("nodes", [])),
+    }

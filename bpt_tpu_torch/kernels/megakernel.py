@@ -1,10 +1,12 @@
 """The fused radiance pass: CUDA kernel wrappers + plain versions.
 
 ``trace_image_fused`` is the port of ``bpt_tpu.kernels.megakernel``'s
-``trace_image_pallas`` for five configurations of its kernel: Cornell
+``trace_image_pallas`` for six configurations of its kernel: Cornell
 (quads + unit spheres, env "none", quad-light NEE), quadric (the same plus
 the 12 transformed quadrics), sky (env "sky", sun NEE), mesh (an untextured
-BVH mesh, env "none") and hdri (env "hdri", sun or env NEE, with a mesh).
+BVH mesh, env "none"), hdri (env "hdri", sun or env NEE, with an untextured
+mesh) and textured (a mesh with PBR maps, ``mesh_textured``, under any of
+those environments, with or without ``metal_roughness_lobe``).
 On CUDA tensors it launches the hand-written kernel in
 ``csrc/megakernel.cu``; on CPU tensors it runs the plain PyTorch version,
 ``trace_image_fused_reference`` (the port's wavefront ``trace_image``).
@@ -17,9 +19,9 @@ a ``torch.autograd.Function`` whose forward runs the kernel's grads mode
 gradients of the sphere, quadric and quad colors in plain torch, as the JAX
 package leaves that part to XLA.  Geometry, the sun and the camera get no
 gradient through this route (as in JAX); ``diff.gradients.make_render_loss``
-(wavefront autograd) is the route for them.  The grads mode of mesh and
-HDRI scenes is not ported yet (ROADMAP): ``differentiable=True`` on them
-raises.
+(wavefront autograd) is the route for them.  The grads mode of mesh, HDRI
+and textured scenes is not ported yet (ROADMAP, K1-grad on mesh and HDRI):
+``differentiable=True`` on them raises.
 """
 
 from __future__ import annotations
@@ -38,11 +40,11 @@ from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported
 from bpt_tpu_torch.kernels import build
-from bpt_tpu_torch.scenes.types import Scene, mesh_tables
+from bpt_tpu_torch.scenes.types import MAP_FIELDS, PBR_MATERIAL, Scene, is_textured, mesh_tables
 
 KERNEL = "megakernel"
 #: The kernel's configurations, as ``configuration`` names them.
-CONFIGURATIONS = ("cornell", "quadric", "sky", "mesh", "hdri")
+CONFIGURATIONS = ("cornell", "quadric", "sky", "mesh", "hdri", "textured")
 #: Launches of the forward kernel per configuration.
 LAUNCHES = dict.fromkeys(CONFIGURATIONS, 0)
 #: Launches of the grads-mode kernel per configuration.
@@ -57,9 +59,12 @@ def reset_launches() -> None:
 
 
 def configuration(scene: Scene, cfg: IntegratorConfig) -> str:
-    """The kernel configuration a call runs: "hdri" (env hdri, sun or env
+    """The kernel configuration a call runs: "textured" (a mesh with an
+    albedo or a normal map, any environment), "hdri" (env hdri, sun or env
     NEE), "sky" (env sky, sun NEE), "mesh" (env none, quad NEE, a BVH mesh),
     "quadric" (env none, quad NEE, the quadric set) or "cornell"."""
+    if is_textured(scene.mesh):
+        return "textured"
     if cfg.env in ("hdri", "sky"):
         return cfg.env
     if scene.mesh is not None:
@@ -87,13 +92,15 @@ class _TraceArgs(ctypes.Structure):
 
     _POINTERS = ("cam", "params", "quads", "spheres", "quadrics", "mesh", "mesh_nodes", "mesh_tris", "mesh_normals",
                  "hdr", "row_cdf", "col_cdf", "env_pdf", "blue_noise", "out_color", "out_normal", "out_ocolor",
-                 "out_oid", "out_sharp", "out_sg")
+                 "out_oid", "out_sharp", "out_sg", "mesh_uvs")
     _fields_ = ([(name, ctypes.c_void_p) for name in _POINTERS]
+                + [("tex", ctypes.c_void_p * 4)]
                 + [(name, ctypes.c_int) for name in ("nq", "ns", "nqd", "bn_ox", "bn_oy", "width", "height", "bounces")]
                 + [("eps", ctypes.c_float)]
                 + [(name, ctypes.c_int) for name in ("light_index", "diffuse_indirect_max", "camera_is_moving",
                                                      "transparent_tint")]
-                + [("frame_u", ctypes.c_uint32), ("frame_f", ctypes.c_float)])
+                + [("frame_u", ctypes.c_uint32), ("frame_f", ctypes.c_float)]
+                + [("tex_h", ctypes.c_int * 4), ("tex_w", ctypes.c_int * 4), ("metal_roughness_lobe", ctypes.c_int)])
 
 
 def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
@@ -185,16 +192,17 @@ def pack_params(scene: Scene, cfg: IntegratorConfig, device) -> torch.Tensor:
     return torch.cat(parts).detach().contiguous()
 
 
-def pack_mesh(mesh) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """TriangleMesh -> (constants (17,), nodes (M, 2, 4), triangles (T, 3, 4),
-    normals (T, 3, 4)), float32, the layouts of csrc/bvh.cuh.
+def pack_mesh(mesh):
+    """TriangleMesh -> (constants (17,), MeshTables), float32, the layouts of
+    csrc/bvh.cuh and csrc/textures.cuh.
 
-    Constants: the inverse model matrix row-major and the material, made on
-    every call.  The three tables are the mesh's ``kernel_tables``, made
-    once by ``Scene.to``; a mesh that did not pass through it gets them
-    made for this call."""
-    consts = torch.cat([mesh.inv_matrix.reshape(16).to(torch.float32), mesh.mat_type.reshape(1).to(torch.float32)])
-    return (consts,) + tuple(mesh.kernel_tables if mesh.kernel_tables is not None else mesh_tables(mesh))
+    Constants: the inverse model matrix row-major and the material
+    (PBR_MATERIAL for a mesh with an albedo), made on every call.  The
+    tables are the mesh's ``kernel_tables``, made once by ``Scene.to``; a
+    mesh that did not pass through it gets them made for this call."""
+    mat = torch.full_like(mesh.mat_type, PBR_MATERIAL) if mesh.albedo is not None else mesh.mat_type
+    consts = torch.cat([mesh.inv_matrix.reshape(16).to(torch.float32), mat.reshape(1).to(torch.float32)])
+    return consts, mesh.kernel_tables if mesh.kernel_tables is not None else mesh_tables(mesh)
 
 
 def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
@@ -228,6 +236,8 @@ def _check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 def _check_call(scene: Scene, cfg: IntegratorConfig, width: int, height: int, blue_noise: torch.Tensor) -> None:
     check_supported(scene, cfg)
+    if cfg.metal_roughness_lobe and (scene.mesh is None or scene.mesh.albedo is None):
+        raise ValueError("metal_roughness_lobe needs a textured mesh (an albedo: the lobe's roughness is per texel)")
     if width <= 0 or height <= 0:
         raise ValueError(f"bad image size {width}x{height}")
     if tuple(blue_noise.shape) != (256, 256, 4):
@@ -247,7 +257,7 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
     name = configuration(scene, cfg)
     if grads and (scene.mesh is not None or cfg.env == "hdri"):
         raise NotImplementedError(f"the grads mode of the {name} configuration is not ported yet: ROADMAP, "
-                                  "K1-grad on mesh and HDRI")
+                                  "K1-grad on mesh and HDRI (textured meshes included)")
     quads, sph, qdr = pack_scene(scene)
     cam = pack_camera(camera, width, height)
     params = pack_params(scene, cfg, device)
@@ -262,17 +272,28 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
         light = cfg.light_index if cfg.light_index >= 0 else nq - 1
         if not 0 <= light < nq:
             raise ValueError(f"light_index {cfg.light_index} out of range for {nq} quads")
-    mesh = pack_mesh(scene.mesh) if scene.mesh is not None else (None,) * 4
+    mesh_consts, tables = pack_mesh(scene.mesh) if scene.mesh is not None else (None, None)
+    textured = is_textured(scene.mesh)
+    maps = [getattr(scene.mesh, m) if textured else None for m in MAP_FIELDS]
+    if textured and tables.uvs is None:
+        raise ValueError("the mesh's kernel_tables lack its UV records: pass it through Scene.to again")
     env = scene.env if cfg.env == "hdri" else None
     hdr = (None,) * 4 if env is None else (env.hdr_image,) + tuple(env.env_cdf or (None,) * 3)
     if cfg.nee != "env":
         hdr = hdr[:1] + (None,) * 3
     tensors = {"blue_noise": blue_noise, "quads": quads, "camera": cam, "params": params, "spheres": sph,
-               "quadrics": qdr, "mesh": mesh[0], "mesh_nodes": mesh[1], "mesh_tris": mesh[2],
-               "mesh_normals": mesh[3], "hdr": hdr[0], "row_cdf": hdr[1], "col_cdf": hdr[2], "env_pdf": hdr[3]}
+               "quadrics": qdr, "mesh": mesh_consts, "mesh_nodes": None if tables is None else tables.nodes,
+               "mesh_tris": None if tables is None else tables.tris,
+               "mesh_normals": None if tables is None else tables.normals, "hdr": hdr[0], "row_cdf": hdr[1],
+               "col_cdf": hdr[2], "env_pdf": hdr[3], "mesh_uvs": tables.uvs if textured else None}
     for key, t in tensors.items():
         if t is not None:
             _check_tensor(key, t, device)
+    for key, t in zip(MAP_FIELDS, maps):
+        if t is not None:
+            _check_tensor(key, t, device)
+            if t.dim() != 3 or t.shape[-1] != 3 or t.numel() >= 2 ** 31:
+                raise ValueError(f"{key} must be (H, W, 3) with fewer than 2**31 floats, got {tuple(t.shape)}")
     ox, oy = blue_noise_offsets(rand_vec2)
 
     def empty(*shape):
@@ -291,11 +312,14 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
                       bounces=cfg.bounces, eps=cfg.eps_intersect, light_index=light,
                       diffuse_indirect_max=cfg.diffuse_indirect_max, camera_is_moving=int(cfg.camera_is_moving),
                       transparent_tint=int(cfg.transparent_tint), frame_u=frame_to_u32(frame_counter),
-                      frame_f=float(frame_counter))
+                      frame_f=float(frame_counter), metal_roughness_lobe=int(cfg.metal_roughness_lobe))
+    for i, t in enumerate(maps):
+        if t is not None:
+            args.tex[i], args.tex_h[i], args.tex_w[i] = t.data_ptr(), t.shape[0], t.shape[1]
+    mesh_arg = 0 if scene.mesh is None else 2 if textured else 1
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.bpt_trace(ctypes.byref(args), int(grads), _ENVS[cfg.env], _NEES[cfg.nee],
-                            int(scene.mesh is not None), stream)
+        err = lib.bpt_trace(ctypes.byref(args), int(grads), _ENVS[cfg.env], _NEES[cfg.nee], mesh_arg, stream)
     if err != 0:
         raise RuntimeError(f"trace_kernel ({name}{', grads' if grads else ''}) launch failed: CUDA error {err}")
     (GRAD_LAUNCHES if grads else LAUNCHES)[name] += 1
@@ -404,15 +428,16 @@ def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width
     other scene or camera tensor that requires a gradient raises
     ``NotImplementedError``: this route would leave it without one.
     ``reorder=True`` (the staged, reorderable path) and
-    ``differentiable=True`` on mesh and HDRI scenes are not ported yet and
-    raise.
+    ``differentiable=True`` on mesh, HDRI and textured scenes are not ported
+    yet and raise ``NotImplementedError``; ``metal_roughness_lobe`` without
+    a textured mesh raises ``ValueError``, as JAX's kernel entry refuses it.
     """
     if reorder:
         raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
     _check_call(scene, cfg, width, height, blue_noise)
     if differentiable and (scene.mesh is not None or cfg.env == "hdri"):
-        raise NotImplementedError("differentiable=True on mesh and HDRI scenes (K1-grad on mesh and HDRI) is not "
-                                  "ported yet: ROADMAP; use the wavefront route (fused=False, or "
+        raise NotImplementedError("differentiable=True on mesh, HDRI and textured scenes (K1-grad on mesh and "
+                                  "HDRI) is not ported yet: ROADMAP; use the wavefront route (fused=False, or "
                                   "diff.make_render_loss)")
     if differentiable and torch.is_grad_enabled():
         _check_fixed_inputs(scene, camera)

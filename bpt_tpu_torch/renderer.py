@@ -62,8 +62,9 @@ class ProgressiveRenderer:
     """Host-side render loop: owns the scene on its device, the config and the
     accumulation state, and detects camera motion.
 
-    Passing a new Camera each frame lets the 16-float world-matrix comparison
-    decide resets, as in the reference.
+    Every frame compares the camera's 16-float world matrix with the last
+    one's, as the reference does, so a camera edited in place
+    (``cam.position.add_(...)``) counts as moving just as a new one does.
 
     It runs on the card: ``device=None`` means ``"cuda"`` and raises where
     there is none.  The radiance pass is ``trace_image_fused``: the CUDA
@@ -82,21 +83,27 @@ class ProgressiveRenderer:
         self.blue_noise = torch.as_tensor(bn, dtype=torch.float32).to(self.device).contiguous()
         self.state = init_state(height, width, self.device)
         self._np_rng = np.random.default_rng(seed)
-        self._last_cam = None
         self._last_cam_matrix: Optional[np.ndarray] = None
-        self._cam_on_device = (None, None)
+        self._cam_on_device: tuple = (None, None)
 
     def camera_moved(self, camera: Camera) -> bool:
-        if camera is self._last_cam:
-            return False
+        """Whether the world matrix differs from the last frame's (always
+        True on the first frame)."""
         m = camera.world_matrix().cpu().numpy()
         moved = self._last_cam_matrix is None or not np.array_equal(m, self._last_cam_matrix)
-        self._last_cam, self._last_cam_matrix = camera, m
+        self._last_cam_matrix = m
         return moved
 
     def _device_camera(self, camera: Camera) -> Camera:
-        if self._cam_on_device[0] is not camera:
-            self._cam_on_device = (camera, camera.to(self.device))
+        """The camera on the renderer's device.  A camera already there is
+        used as it is; another one is copied once per distinct set of values
+        (keyed on its values, not on the object, so an edit in place makes
+        a new copy): a copy from pageable host memory waits for the stream."""
+        if all(t.device == self.blue_noise.device for t in camera):  # the resolved device ("cuda:0")
+            return camera
+        key = torch.cat([t.detach().reshape(-1).cpu() for t in camera])
+        if self._cam_on_device[0] is None or not torch.equal(self._cam_on_device[0], key):
+            self._cam_on_device = (key, camera.to(self.device))
         return self._cam_on_device[1]
 
     def _step(self, camera: Camera, moving: bool, rand_vec2) -> RenderState:
@@ -117,7 +124,7 @@ class ProgressiveRenderer:
         same per-frame offsets as stepping one frame at a time, as done here.
         """
         self.state = init_state(self.height, self.width, self.device)
-        self._last_cam = self._last_cam_matrix = None
+        self._last_cam_matrix = None
         self.render_sample(camera)  # the first sample handles the reset protocol
         for _ in range(spp - 1):
             self._step(camera, False, self._np_rng.random(2))

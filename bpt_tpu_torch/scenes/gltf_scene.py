@@ -1,4 +1,4 @@
-"""glTF-model demo scenes (port of ``bpt_tpu.scenes.gltf_scene``, untextured).
+"""glTF-model demo scenes (port of ``bpt_tpu.scenes.gltf_scene``).
 
 * ``gltf_scene``: the Cornell box with its quad light, the two instanced
   spheres and a BVH mesh (the glTF demo);
@@ -9,8 +9,12 @@
   capacity cell (``n_side = 512``), a stand-in for large glTF assets.
 
 ``mesh_from_model`` builds the binary BVH on the host (binned SAH, the
-native builder when it compiles) and wraps the soup as a ``TriangleMesh``.
-Textured models raise: textured PBR is a later slice of the port (ROADMAP).
+native builder when it compiles) and wraps the soup and the model's PBR maps
+as a ``TriangleMesh``.  The reference's TPU bakes and splits
+(``bake_triangle_attrs``, ``_bake_vertex_normal_map``,
+``split_mixed_decision_triangles``, ``split_normal_variance_triangles``) are
+not carried: they shrink the bias of a Pallas kernel that cannot fetch a
+texel per lane, and the CUDA kernel fetches its own texels.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ from bpt_tpu_torch.scenes.types import (
     Scene,
     TriangleMesh,
     UnitSpheres,
-    check_untextured,
     make_quad,
     quads_from_rows,
 )
@@ -43,19 +46,23 @@ from bpt_tpu_torch.utils.transforms import invert_rigid, trs_matrix
 def mesh_from_model(model: GLTFModel, mat_type: int = METAL, translation=(0.0, 0.0, 0.0),
                     rotation=(0.0, 0.0, 0.0), scale=(1.0, 1.0, 1.0), use_native: str = "auto",
                     device=None) -> TriangleMesh:
-    """An untextured glTF soup -> TriangleMesh with a freshly built BVH.
+    """A glTF soup -> TriangleMesh with a freshly built BVH.
 
     The transform is the model's runtime TransformNode (its inverse becomes
     ``inv_matrix``); the initial scale is already in the vertices.  The
     BVH is the binned-SAH build; ``use_native``: as
-    ``accel.builder.build_bvh_sah``.
+    ``accel.builder.build_bvh_sah``.  The four PBR maps are carried as
+    (H, W, 3) float32, sRGB-encoded, v = 0 at row 0; ``mat_type`` is the
+    material of a model without an albedo.
     """
-    check_untextured(model)
     mn, mx, _ = triangle_aabbs(model.p0, model.p1, model.p2)
     bvh = build_bvh_sah(mn, mx, use_native=use_native)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    def tex(a):
+        return None if a is None else torch.as_tensor(np.ascontiguousarray(a, np.float32), device=device)
 
     m = trs_matrix(translation=translation, rotation=rotation, scale=scale, device=device)
     return TriangleMesh(
@@ -66,6 +73,8 @@ def mesh_from_model(model: GLTFModel, mat_type: int = METAL, translation=(0.0, 0
         node_min=dev(bvh.node_min), node_max=dev(bvh.node_max),
         inv_matrix=invert_rigid(m),
         mat_type=torch.tensor(mat_type, dtype=torch.int32, device=device),
+        albedo=tex(model.albedo), normal_map=tex(model.normal_map),
+        metallic_roughness=tex(model.metallic_roughness), emissive=tex(model.emissive),
     )
 
 

@@ -1,12 +1,13 @@
 """Material ids and scene containers (port of ``bpt_tpu.scenes.types``).
 
 Containers are NamedTuples of tensors with the reference's field names:
-quads, unit spheres, the transformed-quadric set, the untextured triangle
-mesh with its binary BVH, and the sun / sky / HDRI environment.  The TPU
-packs of the reference's ``TriangleMesh`` (``pk_*``, ``fz_*``, ``*_q``) are
-not carried: they exist because the TPU kernels cannot gather per lane.  In
-their place a mesh on a CUDA device carries the CUDA kernel's node,
-triangle and normal tables (``MeshTables``), made by ``Scene.to``.
+quads, unit spheres, the transformed-quadric set, the triangle mesh with
+its binary BVH and its PBR texture maps, and the sun / sky / HDRI
+environment.  The TPU packs of the reference's ``TriangleMesh`` (``pk_*``,
+``fz_*``, ``*_q``) are not carried: they exist because the TPU kernels
+cannot gather per lane.  In their place a mesh on a CUDA device carries the
+CUDA kernel's node, triangle, normal and UV tables (``MeshTables``),
+made by ``Scene.to``.
 """
 
 from __future__ import annotations
@@ -16,13 +17,15 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-# Material type ids (the reference's enum values).  Only the ids the Cornell
-# family dispatches on are ported; the others arrive with their families.
+# Material type ids (the reference's enum values).  Only the ids the ported
+# families dispatch on are carried; PBR_MATERIAL is a textured mesh's, decided
+# per texel into DIFFUSE, CLEARCOAT_DIFFUSE or METAL.
 LIGHT = 0
 DIFFUSE = 1
 TRANSPARENT = 2
 METAL = 3
 CLEARCOAT_DIFFUSE = 4
+PBR_MATERIAL = 10
 
 
 class Quads(NamedTuple):
@@ -57,15 +60,18 @@ class Quadrics(NamedTuple):
 
 
 class MeshTables(NamedTuple):
-    """A mesh's tables in the layout of the CUDA kernel (csrc/bvh.cuh),
-    float32, 16-byte records: a node is (min.xyz, node_tri) and (max.xyz,
-    node_right), the ids' int32 bits in the fourth lane; a triangle its
-    three vertices, a normal record its three vertex normals, one per
-    record."""
+    """A mesh's tables in the layout of the CUDA kernel (csrc/bvh.cuh,
+    csrc/textures.cuh), float32, 16-byte records: a node is (min.xyz,
+    node_tri) and (max.xyz, node_right), the ids' int32 bits in the fourth
+    lane; a triangle its three vertices, a normal record its three vertex
+    normals, one per record.  A textured mesh (an albedo or a normal map)
+    adds its 24-byte UV record (uv0, uv1, uv2); the kernel reads the maps
+    themselves from the mesh, (H, W, 3) float32."""
 
     nodes: torch.Tensor  # (M, 2, 4)
     tris: torch.Tensor  # (T, 3, 4)
     normals: torch.Tensor  # (T, 3, 4)
+    uvs: Optional[torch.Tensor] = None  # (T, 3, 2)
 
 
 class TriangleMesh(NamedTuple):
@@ -73,12 +79,14 @@ class TriangleMesh(NamedTuple):
 
     BVH layout: node i's left child is node i + 1; ``node_tri`` >= 0 marks a
     leaf holding that triangle, -1 an inner node whose right child is
-    ``node_right[i]``.  The four texture maps of the reference stay None:
-    the port renders untextured meshes only (a textured one raises).
+    ``node_right[i]``.  The PBR maps are (H, W, 3) float32, sRGB-encoded (the
+    integrator decodes pow(x, 2.2) per sample), v = 0 at row 0, or None; a
+    mesh with an albedo is PBR_MATERIAL, decided per texel.
     ``kernel_tables`` holds ``mesh_tables(mesh)`` once ``Scene.to`` has put
     the mesh on a CUDA device, else None; it is made from the soup and the
     BVH, so a mesh whose soup or BVH is replaced goes through ``Scene.to``
-    again (the transform and the material are read on every call)."""
+    again (the transform and the material are read on
+    every call)."""
 
     p0: torch.Tensor  # (T, 3) float32
     p1: torch.Tensor
@@ -95,16 +103,26 @@ class TriangleMesh(NamedTuple):
     node_max: torch.Tensor  # (M, 3) float32
     inv_matrix: torch.Tensor  # (4, 4) world -> object
     mat_type: torch.Tensor  # 0-d int32, the model's uniform material
-    albedo: None = None
-    normal_map: None = None
-    metallic_roughness: None = None
-    emissive: None = None
+    albedo: Optional[torch.Tensor] = None  # (H, W, 3) each
+    normal_map: Optional[torch.Tensor] = None
+    metallic_roughness: Optional[torch.Tensor] = None
+    emissive: Optional[torch.Tensor] = None
     kernel_tables: Optional[MeshTables] = None
+
+
+#: The PBR maps of a TriangleMesh, in the kernel's order (csrc/textures.cuh).
+MAP_FIELDS = ("albedo", "normal_map", "metallic_roughness", "emissive")
+
+
+def is_textured(mesh) -> bool:
+    """Whether the mesh runs the kernel's textured configuration: it has an
+    albedo (PBR) or a normal map."""
+    return mesh is not None and (mesh.albedo is not None or mesh.normal_map is not None)
 
 
 def mesh_tables(mesh: TriangleMesh) -> MeshTables:
     """The CUDA kernel's tables of ``mesh``, on the mesh's device (84 MB for
-    a 524,288-triangle mesh)."""
+    a 524,288-triangle mesh; a textured one adds 12.6 MB of UV records)."""
     def rows(xyz, w):  # built as int32 bits, so the ids' bit patterns never pass through float arithmetic
         return torch.cat([xyz.to(torch.float32).contiguous().view(torch.int32), w.to(torch.int32)[:, None]], dim=1)
 
@@ -112,19 +130,11 @@ def mesh_tables(mesh: TriangleMesh) -> MeshTables:
     nodes = torch.stack([rows(mesh.node_min, mesh.node_tri), rows(mesh.node_max, mesh.node_right)], dim=1)
     tris = torch.stack([rows(p, zeros) for p in (mesh.p0, mesh.p1, mesh.p2)], dim=1)
     normals = torch.stack([rows(n, zeros) for n in (mesh.n0, mesh.n1, mesh.n2)], dim=1)
-    return MeshTables(*(t.contiguous().view(torch.float32) for t in (nodes, tris, normals)))
-
-
-#: The texture fields of TriangleMesh; a mesh that sets one is not ported.
-TEXTURE_FIELDS = ("albedo", "normal_map", "metallic_roughness", "emissive")
-
-
-def check_untextured(mesh) -> None:
-    """Raise NotImplementedError for a mesh (or glTF model) with a texture."""
-    textured = [name for name in TEXTURE_FIELDS if getattr(mesh, name, None) is not None]
-    if textured:
-        raise NotImplementedError(f"textured meshes ({', '.join(textured)}) are not ported yet: ROADMAP, "
-                                  "textured PBR (textures.py, mesh_textured, metal_roughness_lobe)")
+    tables = MeshTables(*(t.contiguous().view(torch.float32) for t in (nodes, tris, normals)))
+    if not is_textured(mesh):
+        return tables
+    uvs = torch.stack([mesh.uv0, mesh.uv1, mesh.uv2], dim=1).to(torch.float32).contiguous()
+    return tables._replace(uvs=uvs)
 
 
 class Environment(NamedTuple):

@@ -1,0 +1,92 @@
+"""Texture sampling with REPEAT wrap, and tangent-space normal mapping.
+
+Port of ``bpt_tpu.textures``: ``sample_bilinear``, ``sample_nearest`` and
+``perturb_normal`` are the plain PyTorch versions of what the CUDA kernel
+does per lane (``csrc/textures.cuh``), in the same operation order.  A map
+is (H, W, C) float32 with v = 0 at row 0.  The reference's ``quad_pack``
+and ``sample_bilinear_packed`` are not carried: they pack 2x2 texel quads
+because a TPU gather costs the same per row whatever its width, and the
+packed lookup is bit-equal to the raw one.  A GPU thread fetches its four
+taps itself.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bpt_tpu_torch.core.vecmath import cross, dot
+
+
+def _texel_coords(tex: torch.Tensor, uv: torch.Tensor):
+    """The bilinear taps' integer rows and columns (int32, then the floored
+    modulo of ``jnp.mod``: a UV below 0 or above 1 wraps) and the weights
+    fx, fy."""
+    h, w = tex.shape[0], tex.shape[1]
+    x = uv[..., 0] * w - 0.5
+    y = uv[..., 1] * h - 0.5
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    x0i = torch.remainder(x0.to(torch.int32), w)
+    x1i = torch.remainder(x0i + 1, w)
+    y0i = torch.remainder(y0.to(torch.int32), h)
+    y1i = torch.remainder(y0i + 1, h)
+    return x0i.long(), x1i.long(), y0i.long(), y1i.long(), fx, fy
+
+
+def sample_bilinear(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample with REPEAT wrap on both axes: (H, W, C) map, (..., 2)
+    UVs (any values) -> (..., C), combined as
+    (c00 (1 - fx) + c01 fx) (1 - fy) + (c10 (1 - fx) + c11 fx) fy."""
+    x0i, x1i, y0i, y1i, fx, fy = _texel_coords(tex, uv)
+    c00 = tex[y0i, x0i]
+    c01 = tex[y0i, x1i]
+    c10 = tex[y1i, x0i]
+    c11 = tex[y1i, x1i]
+    return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
+
+
+def texels_read(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """For measurement: the (H, W) bool mask of the texels that
+    ``sample_bilinear(tex, uv)`` reads for the (N, 2) UVs ``uv``."""
+    x0i, x1i, y0i, y1i, _, _ = _texel_coords(tex, uv)
+    read = torch.zeros(tex.shape[:2], dtype=torch.bool, device=tex.device)
+    for y in (y0i, y1i):
+        for x in (x0i, x1i):
+            read[y, x] = True
+    return read
+
+
+def sample_nearest(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Nearest-texel sample with REPEAT wrap (texelFetch-style)."""
+    h, w = tex.shape[0], tex.shape[1]
+    xi = torch.remainder(torch.floor(uv[..., 0] * w).to(torch.int32), w)
+    yi = torch.remainder(torch.floor(uv[..., 1] * h).to(torch.int32), h)
+    return tex[yi.long(), xi.long()]
+
+
+def _unit(v: torch.Tensor) -> torch.Tensor:
+    """v / sqrt(max(|v|², 1e-20)), a true division as in the reference's
+    perturbNormal."""
+    return v / torch.sqrt(torch.clamp(dot(v, v), min=1e-20))[..., None]
+
+
+def perturb_normal(n_obj: torch.Tensor, normal_map: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """Tangent-space normal mapping of the (..., 3) object-space shading
+    normal ``n_obj`` (the reference perturbs before the world transform).
+
+    The tangent frame is the cross-trick ONB of the samplers: up = (0, 1, 0)
+    where |n.y| < 0.9, else (1, 0, 0); S = unit(cross(up, n)), T = cross(n, S).
+    The map's texel m = 2 * sample - 1, unit, gives unit(S m.x + T m.y + n m.z).
+    The reference's normal_scale argument is left out: its one call site
+    passes (1, 1)."""
+    nl = _unit(n_obj)
+    up_y = (torch.abs(nl[..., 1]) < 0.9)[..., None]
+    ey = torch.tensor([0.0, 1.0, 0.0], dtype=nl.dtype, device=nl.device)
+    ex = torch.tensor([1.0, 0.0, 0.0], dtype=nl.dtype, device=nl.device)
+    s = _unit(cross(torch.where(up_y, ey, ex), nl))
+    t = cross(nl, s)
+    map_n = _unit(sample_bilinear(normal_map, uv)[..., :3] * 2.0 - 1.0)
+    out = s * map_n[..., 0:1] + t * map_n[..., 1:2] + nl * map_n[..., 2:3]
+    return _unit(out)

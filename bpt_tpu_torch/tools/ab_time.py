@@ -1,5 +1,6 @@
-"""Time the Cornell, quadric and sky configurations of the CUDA kernel in
-several checkouts of this repository, in turns, on one card:
+"""Time the Cornell, quadric, sky, mesh, HDRI and textured configurations of
+the CUDA kernel in several checkouts of this repository, in turns, on one
+card:
 
     python -m bpt_tpu_torch.tools.ab_time PARENT . . PARENT
 
@@ -8,8 +9,13 @@ own sources) at 1024², 4 bounces, frame 2: the Cornell forward and grads
 kernels' device time per launch (torch.profiler, 50 launches), their time
 through the wrapper (CUDA events, 50 launches), the progressive frame (CUDA
 events, 30 frames), the quadric and sky forward kernels' device time (the
-demo scenes, 50 launches each), and the registers and stack nvcc reported
-for its build.  Device times compare only within one call; put each version
+demo scenes, 50 launches each), the mesh and HDRI ones' (bench.py's
+524,288-triangle capacity scene from the glTF camera, the HDRI demo on it
+with sun and env NEE, 20 launches each), the textured ones' (the checkout's
+chip_smoke.textured_stand_in, that mesh with four 2048² maps, from
+chip_smoke.py's raised camera: the glTF demo's configuration and the HDRI
+demo's with sun and env NEE, the lobe on, 20 launches each), and the
+registers and stack nvcc reported for its build.  Device times compare only within one call; put each version
 more than once, in turns.
 """
 
@@ -29,11 +35,16 @@ def measure(checkout: str) -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    import chip_smoke  # the checkout's own
+    from bpt_tpu_torch.camera import Camera
     from bpt_tpu_torch.core.rng import blue_noise_table
     from bpt_tpu_torch.integrator import IntegratorConfig
     from bpt_tpu_torch.kernels import megakernel
     from bpt_tpu_torch.renderer import ProgressiveRenderer
+    from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+    from bpt_tpu_torch.scenes.gltf_scene import (gltf_camera, gltf_scene, hdri_camera, hdri_scene, heightfield_model,
+                                                 mesh_from_model)
     from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
     from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
 
@@ -81,9 +92,27 @@ def measure(checkout: str) -> None:
                         IntegratorConfig(bounces=4, env="sky", nee="sun"))}
     numbers = dict(fwd_device_ms=device_ms(fwd), grads_device_ms=device_ms(grads), fwd_wrapper_ms=event_ms(fwd, 50),
                    grads_wrapper_ms=event_ms(grads, 50), frame_ms=event_ms(lambda: renderer.render_sample(camera), 30))
+    capacity = mesh_from_model(heightfield_model(), mat_type=1, use_native="require")  # DIFFUSE
+    hdri = hdri_scene(capacity, synthetic_hdr(), device=dev)
+    hdri_cfg = dict(bounces=4, env="hdri", diffuse_indirect_max=2)
+    families.update({
+        "mesh": (gltf_scene(capacity, device=dev), gltf_camera(device=dev), IntegratorConfig(bounces=4)),
+        "hdri_sun": (hdri, hdri_camera(device=dev),
+                     IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **hdri_cfg)),
+        "hdri_env": (hdri, hdri_camera(device=dev), IntegratorConfig(nee="env", **hdri_cfg))})
+    stand_in = mesh_from_model(chip_smoke.textured_stand_in(heightfield_model()), mat_type=1, use_native="require")
+    raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0).to(dev)
+    textured_hdri = hdri_scene(stand_in, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev)
+    lobe = dict(hdri_cfg, metal_roughness_lobe=True)
+    families.update({
+        "textured": (gltf_scene(stand_in, device=dev), raised, IntegratorConfig(bounces=4, metal_roughness_lobe=True)),
+        "textured_hdri_sun": (textured_hdri, raised,
+                              IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **lobe)),
+        "textured_hdri_env": (textured_hdri, raised, IntegratorConfig(nee="env", **lobe))})
     for name, (fscene, fcam, fcfg) in families.items():
         numbers[f"{name}_fwd_device_ms"] = device_ms(
-            lambda: megakernel.trace_image_fused(fscene, fcam, fcfg, size, size, 2.0, rv, bn))
+            lambda: megakernel.trace_image_fused(fscene, fcam, fcfg, size, size, 2.0, rv, bn),
+            20 if fscene.mesh is not None else 50)
     build = []
     for log in glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log")):
         build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]

@@ -70,9 +70,33 @@ Phases, one line each; any failure raises and the script exits non-zero:
 17. timing-mesh / timing-hdri — device time (torch.profiler), time through
                   the wrapper (CUDA events), the plain version's time, the
                   bound and its share, peak device memory.
-18. refusals    — differentiable=True and the grads mode on mesh and HDRI
-                  scenes, a textured mesh and metal_roughness_lobe raise
-                  NotImplementedError.
+18. refusals    — differentiable=True and the grads mode on mesh, HDRI and
+                  textured scenes raise NotImplementedError,
+                  metal_roughness_lobe without a textured mesh ValueError.
+19. parity-textured — the textured configuration against its plain version
+                  at 1024², 4 bounces, frame 2, bit for bit, on a stand-in at
+                  the reference's capacity (the 524,288-triangle heightfield
+                  with planar UVs tiled 4x and offset past 0 and 1, and four
+                  2048² maps made from a seed: a smooth albedo, a bump map, a
+                  metallic-roughness map whose class changes inside
+                  triangles, an emissive map with a few percent of its
+                  texels lit), from the raised camera: the glTF demo's
+                  configuration (quad NEE, the metal roughness lobe), the
+                  HDRI demo's with sun NEE (the sun above the horizon) and
+                  with env NEE, the lobe on.  The plain runs' lane counts
+                  must show every PBR class, emissive terminations, texel
+                  samples of all four maps and lobe draws with a roughness
+                  above 0.  Then the stand-in with its normal map alone
+                  (no albedo: the mesh's own material, TRANSPARENT), bit for
+                  bit, sampling the normal map only.
+20. main-textured — ProgressiveRenderer renders 8 spp of each at 1024²: 8
+                  launches of the textured configuration, a finite display.
+21. timing-textured — device time (torch.profiler), time through the
+                  wrapper (CUDA events), the plain version's time, the bound
+                  (the texel samples' operations and the distinct texels and
+                  UV records read added) and its share, peak device memory.
+22. parity-camera — the Cornell kernel with a thin lens (aperture 1, focus
+                  100) and with camera_is_moving, bit for bit at 1024².
 
 It ends with a JSON line of per-kernel results (one entry per mode and
 configuration, each with its bound, the least time the card could take for
@@ -125,13 +149,23 @@ MESH_RAY_FLOP = 48
 NODE_VISIT_FLOP = 24
 TRI_TEST_FLOP = 52
 HDRI_FLOP = 45  # one equirect lookup on a miss (csrc/hdri.cuh hdr_color)
+# A textured mesh (csrc/textures.cuh): a bilinear sample (the coordinates
+# 10, three channels of 9); 3 more for the decode of an albedo, emissive or
+# metallic-roughness sample; 75 more for the normal map's frame and
+# normalisations; the winner's UV (12) per PBR hit; the roughness lobe (70:
+# the exponent, the ONB, the lobe and its mix) per lobe draw.
+TEX_SAMPLE_FLOP = 37
+TEX_DECODE_FLOP = 3
+NORMAL_MAP_FLOP = 75
+MESH_UV_FLOP = 12
+LOBE_FLOP = 70
 ENV = {"none": 0, "sky": 1, "hdri": 2}
 NEE = {"quad": 0, "sun": 1, "env": 2}
 
 
-def instance(grads: bool, env: str, nee: str, mesh: bool) -> str:
+def instance(grads: bool, env: str, nee: str, mesh: bool, textured: bool = False) -> str:
     """The profiler's name of one template instantiation of the kernel."""
-    return f"trace_kernel<{str(grads).lower()}, {ENV[env]}, {NEE[nee]}, {str(mesh).lower()}>"
+    return f"trace_kernel<{str(grads).lower()}, {ENV[env]}, {NEE[nee]}, {str(mesh).lower()}, {str(textured).lower()}>"
 
 
 def phase(name: str, msg: str) -> None:
@@ -194,7 +228,8 @@ def mesh_records_read(lane_counts) -> list[int]:
 
 
 def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadrics: int = 0,
-                sky: bool = False, mesh: bool = False, hdri=None, env_nee: bool = False) -> tuple[float, float]:
+                sky: bool = False, mesh: bool = False, hdri=None, env_nee: bool = False,
+                textured: bool = False) -> tuple[float, float]:
     """(FP32 operations, bytes) the forward kernel needs for one frame whose
     plain run reported ``lane_counts`` (per bounce: live, hit and missed
     lanes, the torus march's steps, the mesh walk's inner-node visits and
@@ -207,7 +242,12 @@ def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadri
     its CDF tables only under env NEE (``env_nee``).  Each of the 11 output
     planes is written once.  Sphere normals of closer hits, quadric and
     mesh normals, NEE draws and all but the cheapest shading branch are left
-    out, so the operation count is a lower bound."""
+    out, so the operation count is a lower bound.  With ``textured``, the
+    texel samples (per map), their decode and the normal map's frame, the
+    UV of each PBR hit and the lobe draws add their operations, and each
+    distinct texel the samples read (12 bytes, RGB; 8 of the
+    metallic-roughness map, whose G and B are all the decode reads) and the
+    24-byte UV record of each winning triangle their bytes."""
     live = sum(int(c.live) for c in lane_counts)
     hits = sum(int(c.hits) for c in lane_counts)
     misses = sum(int(c.misses) for c in lane_counts)
@@ -224,7 +264,25 @@ def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadri
         nbytes += 4 * 17 + 32 * nodes + 48 * tris + 48 * normals
     if hdri is not None:
         nbytes += 4 * sum(t.numel() for t in (hdri.hdr_image, *(hdri.env_cdf if env_nee else ())))
+    if textured:
+        albedo, normal, metal_rough, emissive = (int(x) for x in sum(c.texel_samples for c in lane_counts))
+        flop += ((albedo + normal + metal_rough + emissive) * TEX_SAMPLE_FLOP
+                 + (albedo + metal_rough + emissive) * TEX_DECODE_FLOP + normal * NORMAL_MAP_FLOP
+                 + albedo * MESH_UV_FLOP + sum(int(c.lobe_draws) for c in lane_counts) * LOBE_FLOP)
+        albedo_t, normal_t, metal_rough_t, emissive_t = texels_read(lane_counts)
+        nbytes += 12 * (albedo_t + normal_t + emissive_t) + 8 * metal_rough_t + 24 * mesh_records_read(lane_counts)[2]
     return flop, nbytes
+
+
+def texels_read(lane_counts) -> list[int]:
+    """The distinct texels of each map (albedo, normal, metallic-roughness,
+    emissive) that a frame's samples read: the union over the bounces of the
+    plain run's masks (0 for a map the mesh lacks)."""
+    out = []
+    for i in range(4):
+        masks = [c.texel_reads[i] for c in lane_counts if c.texel_reads is not None and c.texel_reads[i] is not None]
+        out.append(int(torch.stack(masks).any(0).sum().item()) if masks else 0)
+    return out
 
 
 def profiled_step(fn, iters: int) -> tuple[float, float, list]:
@@ -389,7 +447,7 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> list:
             return megakernel.trace_image_fused_reference(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
 
         ms = cuda_ms(call, iters=20, warmup=3)
-        dev_ms = kernel_device_ms(call, 10, instance(False, cfg.env, cfg.nee, True))
+        dev_ms = kernel_device_ms(call, 10, instance(False, cfg.env, cfg.nee, True, False))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         call()
@@ -422,26 +480,236 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> list:
 
     # ---- 18. what the slice leaves out raises --------------------------------
     refused = []
-    textured = capacity._replace(albedo=torch.ones(4, 4, 3))
-    for label, fn in (
-            ("differentiable=True, mesh", lambda: megakernel.trace_image_fused(
+    textured = gltf_scene(mesh_from_model(blob_model(8))._replace(albedo=torch.ones(4, 4, 3)), device=dev)
+    for label, error, fn in (
+            ("differentiable=True, mesh", NotImplementedError, lambda: megakernel.trace_image_fused(
                 cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
-            ("differentiable=True, hdri", lambda: megakernel.trace_image_fused(
+            ("differentiable=True, hdri", NotImplementedError, lambda: megakernel.trace_image_fused(
                 hdri_cap, hdri_camera(dev), env_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
-            ("grads mode, mesh", lambda: megakernel.trace_image_fused_grads(
+            ("grads mode, mesh", NotImplementedError, lambda: megakernel.trace_image_fused_grads(
                 cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn)),
-            ("textured mesh", lambda: megakernel.trace_image_fused(
-                gltf_scene(textured, device=dev), gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn)),
-            ("metal_roughness_lobe", lambda: megakernel.trace_image_fused(
+            ("differentiable=True, textured mesh", NotImplementedError, lambda: megakernel.trace_image_fused(
+                textured, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
+            ("metal_roughness_lobe without a textured mesh", ValueError, lambda: megakernel.trace_image_fused(
                 cap_scene, gltf_camera(dev), dataclasses.replace(mesh_cfg, metal_roughness_lobe=True), 8, 8, 1.0,
                 RAND_VEC2, bn))):
         try:
             fn()
-        except NotImplementedError:
-            refused.append(label)
+        except error:
+            refused.append(f"{error.__name__} for {label}")
         else:
-            raise AssertionError(f"{label} did not raise NotImplementedError")
-    phase("refusals", "NotImplementedError for " + ", ".join(refused))
+            raise AssertionError(f"{label} did not raise {error.__name__}")
+    phase("refusals", ", ".join(refused))
+    return entries
+
+
+def textured_stand_in(model, size: int = 2048, seed: int = 6):
+    """The heightfield ``model`` as a textured model at the reference's
+    capacity: planar UVs (x, z) tiled 4x across it and offset so that they
+    run from -0.5 to 3.5 and from -0.3 to 3.7, and four ``size``² maps (the
+    Damaged Helmet's size) made from ``seed``: a smooth albedo; a bump map;
+    a metallic-roughness map of 8x8-texel cells (a heightfield triangle
+    spans about 16 texels, so classes change inside triangles), each cell
+    DIFFUSE, CLEARCOAT_DIFFUSE or METAL with a roughness that varies across
+    it; an emissive map with 3% of its cells lit."""
+    rng = np.random.default_rng(seed)
+
+    def uv(p):
+        return np.stack([(p[:, 0] + 45.0) / 90.0 * 4.0 - 0.5, (p[:, 2] + 45.0) / 90.0 * 4.0 - 0.3],
+                        -1).astype(np.float32)
+
+    t = (np.arange(size, dtype=np.float32) + 0.5) / size
+    x, y = t[None, :], t[:, None]  # columns u, rows v
+    two_pi = np.float32(2.0 * np.pi)
+    ones = np.ones((size, size), np.float32)
+    albedo = np.stack([0.55 + 0.3 * np.sin(two_pi * (3 * x + 2 * y)), 0.5 + 0.3 * np.cos(two_pi * (2 * x - 5 * y)),
+                       0.45 + 0.25 * np.sin(two_pi * 7 * x) * np.cos(two_pi * 4 * y)], -1)
+    normal = np.stack([0.5 + 0.3 * np.sin(two_pi * 96 * x) * np.cos(two_pi * 64 * y),
+                       0.5 + 0.3 * np.cos(two_pi * 80 * x + 1.0) * np.sin(two_pi * 112 * y), ones], -1)
+    cells = size // 8
+    block = np.ones((8, 8), np.float32)
+    cls = np.kron(rng.integers(0, 3, (cells, cells)), block)
+    rough = np.kron(rng.uniform(0.05, 0.9, (cells, cells)), block) * (0.75 + 0.25 * np.sin(two_pi * 512 * x))
+    metal = np.kron(rng.uniform(0.5, 1.0, (cells, cells)), block)
+    metal_rough = np.stack([0.0 * ones, np.where(cls >= 1, rough, 0.0), np.where(cls == 2, metal, 0.0)], -1)
+    lit = np.kron(rng.uniform(0, 1, (cells, cells)) < 0.03, block) > 0
+    emissive = np.where(lit[..., None], np.array([0.9, 0.7, 0.4], np.float32), 0.0)
+    maps = {name: np.ascontiguousarray(a, np.float32) for name, a in (
+        ("albedo", albedo), ("normal_map", normal), ("metallic_roughness", metal_rough), ("emissive", emissive))}
+    return model._replace(uv0=uv(model.p0), uv1=uv(model.p1), uv2=uv(model.p2), **maps)
+
+
+def textured_and_camera(card: str, bn: torch.Tensor) -> list:
+    """Phases 19-22: the textured configuration and the camera cases.
+    Returns the textured entry of the kernels line."""
+    from bpt_tpu_torch.camera import Camera
+    from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.integrator.frame import trace_image
+    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.renderer import ProgressiveRenderer
+    from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+    from bpt_tpu_torch.scenes.gltf_scene import gltf_scene, hdri_scene, heightfield_model, mesh_from_model
+    from bpt_tpu_torch.scenes.types import DIFFUSE, MAP_FIELDS, TRANSPARENT
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = textured_stand_in(heightfield_model())
+    mesh = mesh_from_model(model, mat_type=DIFFUSE, use_native="require")  # host tensors: the renderer moves them
+    gltf = gltf_scene(mesh, device=dev)
+    hdri = hdri_scene(mesh, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev)  # the sun above the horizon
+    table_mb = sum(t.numel() * 4 for t in megakernel.pack_mesh(gltf.mesh)[1] if t is not None) / 1e6
+    map_mb = sum(getattr(gltf.mesh, m).numel() * 4 for m in MAP_FIELDS) / 1e6
+    shapes = [tuple(getattr(model, m).shape) for m in MAP_FIELDS]
+    phase("parity-textured", f"stand-in: {model.p0.shape[0]} triangles, maps {shapes}, u in "
+                             f"[{model.uv0[:, 0].min():.2f}, {model.uv0[:, 0].max():.2f}], v in "
+                             f"[{model.uv0[:, 1].min():.2f}, {model.uv0[:, 1].max():.2f}], kernel tables "
+                             f"{table_mb:.1f} MB, maps {map_mb:.1f} MB (one copy, read by the kernel), built in "
+                             f"{time.perf_counter() - t0:.1f} s")
+    raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0)
+    hdri_base = dict(bounces=BOUNCES, env="hdri", diffuse_indirect_max=2, metal_roughness_lobe=True)
+    host_hdri = hdri_scene(mesh, synthetic_hdr(sun_uv=(0.7, 0.7)))
+    cases = [  # (key, scene on the card, scene on the host, cfg)
+        ("textured", gltf, gltf_scene(mesh), IntegratorConfig(bounces=BOUNCES, metal_roughness_lobe=True)),
+        ("textured_hdri_sun", hdri, host_hdri,
+         IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **hdri_base)),
+        ("textured_hdri_env", hdri, host_hdri, IntegratorConfig(nee="env", **hdri_base)),
+    ]
+    pixels, rays = SIZE * SIZE, SIZE * SIZE * BOUNCES
+    cam = raised.to(dev)
+    errs, lanes_of = {}, {}
+    for key, scene, _, cfg in cases:
+        if megakernel.configuration(scene, cfg) != "textured":
+            raise AssertionError(f"{key} does not run the textured configuration")
+        got = megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        lanes = []
+        t0 = time.perf_counter()
+        ref = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        stats = compare(got, ref)
+        mesh_id = float(sum(g.color.shape[0] for g in (scene.spheres, scene.quads)))
+        share = (ref.object_id == mesh_id).float().mean().item()
+        classes = [int(x) for x in sum(c.pbr_classes for c in lanes)]
+        emissive = sum(int(c.emissive_hits) for c in lanes)
+        lobe = sum(int(c.lobe_draws) for c in lanes)
+        samples = [int(x) for x in sum(c.texel_samples for c in lanes)]
+        phase("parity-textured", f"{key}: mesh first hits {share:.4f}; PBR hits decided DIFFUSE / CLEARCOAT / METAL "
+                                 f"{classes}, emissive terminations {emissive}, lobe draws with roughness > 0 {lobe}, "
+                                 f"texel samples (albedo, normal, metallic-roughness, emissive) {samples}, distinct "
+                                 f"texels read {texels_read(lanes)}; plain {plain_s:.2f} s; " + json.dumps(stats))
+        if not stats["ok"]:
+            raise AssertionError(f"textured kernel disagrees with its plain version ({key})")
+        if min(classes) == 0 or emissive == 0 or lobe == 0 or min(samples) == 0:
+            raise AssertionError(f"{key}: a branch did not fire (classes {classes}, emissive {emissive}, lobe {lobe}, "
+                                 f"samples {samples})")
+        errs[key], lanes_of[key] = stats["max_abs_err"], lanes
+    # a normal map without an albedo: the textured configuration keeps the mesh's own material (TRANSPARENT:
+    # double-sided, refracting) and decodes no PBR texel
+    bump = gltf_scene(mesh._replace(albedo=None, metallic_roughness=None, emissive=None,
+                                    mat_type=torch.tensor(TRANSPARENT, dtype=torch.int32)), device=dev)
+    cfg = IntegratorConfig(bounces=BOUNCES)
+    if megakernel.configuration(bump, cfg) != "textured":
+        raise AssertionError("a normal map alone does not run the textured configuration")
+    got = megakernel.trace_image_fused(bump, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+    lanes = []
+    ref = trace_image(bump, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+    torch.cuda.synchronize()
+    stats = compare(got, ref)
+    samples = [int(x) for x in sum(c.texel_samples for c in lanes)]
+    classes = [int(x) for x in sum(c.pbr_classes for c in lanes)]
+    phase("parity-textured", f"normal map only, TRANSPARENT: texel samples {samples}, PBR hits {classes}; "
+                             + json.dumps(stats))
+    if not stats["ok"]:
+        raise AssertionError("textured kernel disagrees with its plain version (normal map only)")
+    if samples[1] == 0 or sum(samples) != samples[1] or sum(classes) != 0:
+        raise AssertionError(f"normal map only: texel samples {samples}, PBR hits {classes}")
+    errs["textured_normal_only"] = stats["max_abs_err"]
+    del bump, got, ref
+
+    # ---- 20. the serving path ------------------------------------------------
+    launches = {}
+    for key, _, host_scene, cfg in cases:
+        renderer = ProgressiveRenderer(host_scene, cfg, SIZE, SIZE)
+        megakernel.reset_launches()
+        img = renderer.render(raised, spp=SPP)
+        torch.cuda.synchronize()
+        launches[key] = megakernel.LAUNCHES["textured"]
+        others = sum(megakernel.LAUNCHES.values()) + sum(megakernel.GRAD_LAUNCHES.values()) - launches[key]
+        if renderer.device.type != "cuda" or launches[key] != SPP or others != 0:
+            raise AssertionError(f"{key}: {launches[key]} textured launches, {others} others, for {SPP} frames on "
+                                 f"{renderer.device}")
+        if not bool(torch.isfinite(img).all()) or img.min().item() < 0.0 or img.max().item() > 1.0:
+            raise AssertionError(f"{key}: display is not finite in [0, 1]")
+        frame_ms = cuda_ms(lambda: renderer.render_sample(raised), iters=10, warmup=2)
+        phase("main-textured", f"{key} {SIZE}x{SIZE}, {SPP} spp: {launches[key]} launches, display in "
+                               f"[{img.min().item():.4f}, {img.max().item():.4f}], mean {img.mean().item():.4f}; "
+                               f"progressive frame {frame_ms:.3f} ms")
+        del renderer
+
+    # ---- 21. timing -----------------------------------------------------------
+    entries = []
+    for key, scene, _, cfg in cases:
+        def call(scene=scene, cfg=cfg):
+            return megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+
+        ms = cuda_ms(call, iters=20, warmup=3)
+        dev_ms = kernel_device_ms(call, 10, instance(False, cfg.env, cfg.nee, True, True))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        call()
+        torch.cuda.synchronize()
+        peak_kernel = torch.cuda.max_memory_allocated() / 1e9
+        plain_ms = cuda_ms(lambda: megakernel.trace_image_fused_reference(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2,
+                                                                          bn), iters=1, warmup=0)
+        lanes = lanes_of[key]
+        flop, nbytes = kernel_work(lanes, scene.quads.v0.shape[0], scene.spheres.color.shape[0], pixels, mesh=True,
+                                   hdri=scene.env if cfg.env == "hdri" else None, env_nee=cfg.nee == "env",
+                                   textured=True)
+        bound_ms, bound_by = bound(flop, nbytes)
+        reached = f"{100 * bound_ms / dev_ms:.2f}%" if dev_ms else "not measured"
+        phase("timing-textured", f"{card}: {key} {SIZE}x{SIZE}, {BOUNCES} bounces: kernel device {dev_ms} ms, "
+                                 f"through its wrapper {ms:.3f} ms ({rays / ms / 1e3:.1f} Mrays/s), plain "
+                                 f"{plain_ms:.3f} ms; live lanes {[int(c.live) for c in lanes]}, node visits "
+                                 f"{[int(c.node_visits) for c in lanes]}, texel samples "
+                                 f"{[c.texel_samples.tolist() for c in lanes]}; {flop / 1e9:.4f} GFLOP + "
+                                 f"{nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms ({bound_by}), {reached} of it "
+                                 f"reached; peak device memory {peak_kernel:.3f} GB (kernel call)")
+        if key == "textured":  # the same geometry and view untextured (DIFFUSE), for what the texels cost
+            bare = dict(albedo=None, normal_map=None, metallic_roughness=None, emissive=None)
+            tables = scene.mesh.kernel_tables
+            plain_mesh = scene._replace(mesh=scene.mesh._replace(
+                kernel_tables=None if tables is None else tables._replace(uvs=None), **bare))
+            untextured_ms = kernel_device_ms(
+                lambda: megakernel.trace_image_fused(plain_mesh, cam, IntegratorConfig(bounces=BOUNCES), SIZE, SIZE,
+                                                     2.0, RAND_VEC2, bn), 10, instance(False, "none", "quad", True))
+            phase("timing-textured", f"{card}: the same mesh and camera untextured (DIFFUSE, no lobe): kernel "
+                                     f"device {untextured_ms} ms")
+            entries.append({"name": "megakernel_textured", "route": "cuda",
+                            "source": "bpt_tpu_torch/csrc/megakernel.cu",
+                            "replaces": "bpt_tpu/kernels/megakernel.py:1183", "launches": launches[key],
+                            "max_abs_err": max(errs.values()), "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+                            "launches_hdri_sun": launches["textured_hdri_sun"],
+                            "launches_hdri_env": launches["textured_hdri_env"]})
+    del gltf, hdri, cases
+
+    # ---- 22. the thin lens and camera_is_moving on the Cornell kernel ------
+    lens = cornell_camera(device=dev)._replace(aperture_size=torch.tensor(1.0, device=dev),
+                                               focus_distance=torch.tensor(100.0, device=dev))
+    if not float(lens.aperture_size) > 0.0:
+        raise AssertionError("the thin-lens case has no aperture")
+    glass = cornell_scene(right_sphere_mat=TRANSPARENT, device=dev)
+    for label, lens_cam, cfg in (("thin lens, aperture 1, focus 100", lens, IntegratorConfig(bounces=BOUNCES)),
+                                 ("camera_is_moving", cornell_camera(device=dev),
+                                  IntegratorConfig(bounces=BOUNCES, camera_is_moving=True))):
+        got = megakernel.trace_image_fused(glass, lens_cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        ref = megakernel.trace_image_fused_reference(glass, lens_cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        torch.cuda.synchronize()
+        stats = compare(got, ref)
+        phase("parity-camera", f"{label}: " + json.dumps(stats))
+        if not stats["ok"]:
+            raise AssertionError(f"the Cornell kernel disagrees with its plain version ({label})")
     return entries
 
 
@@ -953,6 +1221,7 @@ def main() -> int:
     phase("grad-quadric", f"{GRAD_SIZE}x{GRAD_SIZE}, tint on: " + "; ".join(rows))
 
     kernels += mesh_and_hdri(card, bn)
+    kernels += textured_and_camera(card, bn)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -51,6 +51,7 @@ SLICE_MODULES = [
     "bpt_tpu_torch.io", "bpt_tpu_torch.io.gltf", "bpt_tpu_torch.io.hdr", "bpt_tpu_torch.accel",
     "bpt_tpu_torch.accel.builder", "bpt_tpu_torch.accel.native", "bpt_tpu_torch.accel.traverse", "bpt_tpu_torch.env",
     "bpt_tpu_torch.scenes.gltf_scene", "bpt_tpu_torch.apps.gltf_model", "bpt_tpu_torch.apps.hdri_environment",
+    "bpt_tpu_torch.textures", "bpt_tpu_torch.apps.debug_gltf_loading",
 ]
 
 
@@ -81,10 +82,16 @@ def test_import_loads_no_jax_and_no_cuda():
     dict(metal_roughness_lobe=True),
 ])
 def test_trace_image_fused_rejects_unported_configs(change):
+    """(env, nee) pairs the port does not run raise NotImplementedError;
+    metal_roughness_lobe without a textured mesh raises ValueError, as JAX's
+    kernel entry refuses it (its roughness is per texel)."""
     cfg = dataclasses.replace(IntegratorConfig(bounces=2), **change)
-    with pytest.raises(NotImplementedError):
-        megakernel.trace_image_fused(cornell_scene(), cornell_camera(), cfg, 8, 8, 1.0, RV,
-                                     torch.as_tensor(blue_noise_table()))
+    scene = cornell_scene()
+    if cfg.env == "hdri":
+        scene = hdri_scene(mesh_from_model(blob_model(8)), synthetic_hdr(8, 16))
+    error = ValueError if cfg.metal_roughness_lobe else NotImplementedError
+    with pytest.raises(error, match="textured mesh" if error is ValueError else ""):
+        megakernel.trace_image_fused(scene, cornell_camera(), cfg, 8, 8, 1.0, RV, torch.as_tensor(blue_noise_table()))
 
 
 def blob_model(T=128, seed=0) -> GLTFModel:
@@ -100,11 +107,19 @@ def blob_model(T=128, seed=0) -> GLTFModel:
 
 
 def test_trace_image_fused_rejects_bad_inputs():
+    """Bad inputs raise; a textured mesh is no longer one of them: it runs
+    (here the plain version) under the "textured" configuration, while
+    the lobe on an untextured mesh raises."""
     scene, cam, cfg = cornell_scene(), cornell_camera(), IntegratorConfig(bounces=2)
     bn = torch.as_tensor(blue_noise_table())
     textured = mesh_from_model(blob_model(8))._replace(albedo=torch.ones(4, 4, 3))
-    with pytest.raises(NotImplementedError, match="textured"):
-        megakernel.trace_image_fused(scene._replace(mesh=textured), cam, cfg, 8, 8, 1.0, RV, bn)
+    lobe = dataclasses.replace(cfg, metal_roughness_lobe=True)
+    assert megakernel.configuration(scene._replace(mesh=textured), lobe) == "textured"
+    out = megakernel.trace_image_fused(scene._replace(mesh=textured), cam, lobe, 8, 8, 1.0, RV, bn)
+    assert bool(torch.isfinite(out.color).all())
+    with pytest.raises(ValueError, match="textured mesh"):
+        megakernel.trace_image_fused(scene._replace(mesh=textured._replace(albedo=None)), cam, lobe, 8, 8, 1.0, RV,
+                                     bn)
     with pytest.raises(ValueError, match="256, 256, 4"):
         megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn[:128])
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -415,3 +430,124 @@ def test_cuda_mesh_and_hdri_refuse_the_grads_mode(cuda_device):
             megakernel.trace_image_fused_grads(scene, cam, cfg, 8, 8, 1.0, RV, bn)
         with pytest.raises(NotImplementedError, match="K1-grad"):
             megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn, differentiable=True)
+
+
+def textured_model(mr=None, emissive=None, varying=False, normal=False, T=128, albedo=True) -> GLTFModel:
+    """The blob with random UVs in [-1.5, 2.5] (every map wraps both ways)
+    and maps made from seeds: a random 32x32 albedo (None without
+    ``albedo``: the mesh keeps its own material); a metallic-roughness
+    map, constant ``mr`` or, with ``varying``, a 16x16 map whose class
+    (DIFFUSE, CLEARCOAT, METAL with a random roughness) changes from texel
+    to texel; an emissive map, constant ``emissive`` or, with ``varying``,
+    10% of its texels lit; with ``normal``, a 16x16 bump map."""
+    m = blob_model(T)
+    rng = np.random.default_rng(7)
+    uv = rng.uniform(-1.5, 2.5, (T, 3, 2)).astype(np.float32)
+    albedo_map = rng.uniform(0.1, 1.0, (32, 32, 3)).astype(np.float32)  # drawn either way: the same other maps
+    albedo_map = albedo_map if albedo else None
+    em = None if emissive is None else np.tile(np.asarray(emissive, np.float32), (8, 8, 1))
+    mrm = None if mr is None else np.tile(np.asarray(mr, np.float32), (8, 8, 1))
+    if varying:
+        cls_map = rng.integers(0, 3, (16, 16))
+        mrm = np.zeros((16, 16, 3), np.float32)
+        mrm[..., 1] = np.where(cls_map >= 1, rng.uniform(0.3, 0.9, (16, 16)), 0.0)
+        mrm[..., 2] = np.where(cls_map == 2, rng.uniform(0.5, 1.0, (16, 16)), 0.0)
+        em = np.where(rng.uniform(0, 1, (16, 16, 1)) < 0.1, np.array([0.9, 0.6, 0.3], np.float32), 0.0)
+        em = em.astype(np.float32)
+    nmap = None
+    if normal:
+        nmap = (0.5 + 0.25 * rng.standard_normal((16, 16, 3))).astype(np.float32)
+        nmap[..., 2] = 1.0
+    return GLTFModel(p0=m.p0, p1=m.p1, p2=m.p2, n0=m.n0, n1=m.n1, n2=m.n2, uv0=uv[:, 0], uv1=uv[:, 1],
+                     uv2=uv[:, 2], albedo=albedo_map, normal_map=nmap, metallic_roughness=mrm, emissive=em)
+
+
+def _textured_cases(device):
+    """The textured blob in front of each demo camera: the glTF box with the
+    lobe (the demo's configuration) and without it (a constant clearcoat
+    map and glow); the HDRI demo with sun NEE (the sun above the horizon)
+    and env NEE, the lobe on; the sky scene with the textured blob; then
+    the two camera cases of the Cornell box: a thin lens (aperture 1,
+    focus 100) and camera_is_moving, with the TRANSPARENT sphere."""
+    place = dict(rotation=(0.3, 0.5, 0.0), scale=(1.5, 1.5, 1.5))
+    box, sky = dict(translation=(0.0, -20.0, -85.0), **place), dict(translation=(0.0, 0.0, -165.0), **place)
+    hdri_cfg = dict(bounces=4, env="hdri", diffuse_indirect_max=2, metal_roughness_lobe=True)
+    varying = textured_model(varying=True, normal=True)
+    hdri = hdri_scene(mesh_from_model(varying, mat_type=DIFFUSE, **sky),
+                      synthetic_hdr(32, 64, sun_uv=(0.7, 0.7)), device=device)
+    lobe = IntegratorConfig(bounces=4, metal_roughness_lobe=True)
+    sky_scene = physical_sky_scene(device=device)._replace(
+        mesh=gltf_scene(mesh_from_model(varying, **sky), device=device).mesh)
+    return {
+        "gltf-lobe": (gltf_scene(mesh_from_model(varying, **box), device=device), gltf_camera(device=device), lobe),
+        "gltf-glow": (gltf_scene(mesh_from_model(textured_model(mr=(0.0, 0.25, 0.0), emissive=(0.4, 0.2, 0.1),
+                                                                normal=True), **box), device=device),
+                      gltf_camera(device=device), IntegratorConfig(bounces=4)),
+        "hdri-sun": (hdri, hdri_camera(device=device),
+                     IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **hdri_cfg)),
+        "hdri-env": (hdri, hdri_camera(device=device), IntegratorConfig(nee="env", **hdri_cfg)),
+        "sky": (sky_scene, sky_camera(device=device), IntegratorConfig(bounces=4, env="sky", nee="sun",
+                                                                        metal_roughness_lobe=True)),
+        **{f"normal-only-{label}": (gltf_scene(mesh_from_model(textured_model(normal=True, albedo=False), mat_type=mat,
+                                                               **box), device=device),
+                                    gltf_camera(device=device), IntegratorConfig(bounces=4))
+           for label, mat in (("transparent", TRANSPARENT), ("diffuse", DIFFUSE))},
+        "dof": (cornell_scene(right_sphere_mat=TRANSPARENT, device=device),
+                cornell_camera(device=device)._replace(aperture_size=torch.tensor(1.0, device=device),
+                                                       focus_distance=torch.tensor(100.0, device=device)),
+                IntegratorConfig(bounces=4)),
+        "moving": (cornell_scene(right_sphere_mat=TRANSPARENT, device=device), cornell_camera(device=device),
+                   IntegratorConfig(bounces=4, camera_is_moving=True)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["gltf-lobe", "gltf-glow", "hdri-sun", "hdri-env", "sky", "normal-only-transparent",
+                                  "normal-only-diffuse", "dof", "moving"])
+def test_cuda_textured_and_camera_cases_match_plain_version(cuda_device, case):
+    """64x64, 4 bounces, frame 2: the textured configuration (under quad,
+    sun and env NEE, with and without the metal roughness lobe, and with a
+    normal map alone on a TRANSPARENT and a DIFFUSE mesh) and the
+    Cornell kernel with a thin lens and with camera_is_moving equal their
+    plain versions bit for bit.  The plain run shows each branch the case
+    claims: every PBR class, emissive terminations and lobe draws with a
+    roughness above 0 (varying maps); with a normal map alone, normal-map
+    samples and no PBR hit; the lens is open; the moving flag changes the
+    sharpness flags."""
+    scene, cam, cfg = _textured_cases(cuda_device)[case]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    name = megakernel.configuration(scene, cfg)
+    assert name == ("cornell" if case in ("dof", "moving") else "textured")
+    before = megakernel.LAUNCHES[name]
+    got = megakernel.trace_image_fused(scene, cam, cfg, 64, 64, 2.0, RV, bn)
+    assert megakernel.LAUNCHES[name] == before + 1
+    counts = []
+    ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 64, 64, 2.0, RV, bn, lane_counts=counts)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if case.startswith("normal-only"):
+        samples = sum(c.texel_samples for c in counts).tolist()
+        assert samples[1] > 0 and sum(samples) == samples[1], samples
+        assert sum(sum(c.pbr_classes for c in counts).tolist()) == 0
+    elif name == "textured":
+        classes = sum(c.pbr_classes for c in counts).tolist()
+        assert sum(int(c.emissive_hits) for c in counts) > 0
+        if case != "gltf-glow":
+            assert min(classes) > 0 and sum(int(c.lobe_draws) for c in counts) > 0, classes
+    elif case == "dof":
+        assert float(cam.aperture_size) > 0.0
+    else:
+        still = megakernel.trace_image_fused(scene, cam, dataclasses.replace(cfg, camera_is_moving=False), 64, 64,
+                                             2.0, RV, bn)
+        assert not torch.equal(still.pixel_sharpness, got.pixel_sharpness)
+
+
+@pytest.mark.cuda
+def test_cuda_textured_scene_refuses_the_grads_mode(cuda_device):
+    """differentiable=True on a textured scene raises, naming ROADMAP's
+    K1-grad item, instead of launching."""
+    scene, cam, cfg = _textured_cases(cuda_device)["gltf-lobe"]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    with pytest.raises(NotImplementedError, match="K1-grad"):
+        megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn, differentiable=True)

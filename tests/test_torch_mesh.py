@@ -40,10 +40,11 @@ from bpt_tpu_torch.integrator import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.integrator.intersect import _empty_hit
 from bpt_tpu_torch.io.gltf import GLTFModel, load_gltf
+from bpt_tpu_torch.kernels import megakernel
 from bpt_tpu_torch.scenes import gltf_scene
 from bpt_tpu_torch.scenes.types import DIFFUSE, TRANSPARENT, mesh_tables
 from test_torch_apps import write_glb
-from test_torch_kernels import blob_model
+from test_torch_kernels import blob_model, textured_model
 
 torch.set_num_threads(2)
 jgltf = importlib.import_module("bpt_tpu.scenes.gltf_scene")  # bpt_tpu.scenes exports a function of that name
@@ -248,8 +249,10 @@ def test_mesh_from_model_and_gltf_scene_match_jax():
 
 def test_convert_carries_the_mesh():
     """JAX gltf_scene -> port -> numpy -> a JAX scene again: every carried
-    field (the soup, the BVH, the transform, the material) exact; the TPU
-    packs stay behind."""
+    field (the soup, the BVH, the transform, the material) exact, the four
+    maps None on both sides for this untextured mesh
+    (tests/test_torch_textures.py carries a textured one); the TPU packs
+    stay behind."""
     src = _np(jgltf.gltf_scene(jgltf.mesh_from_model(blob(cls=JGLTFModel), mat_type=TRANSPARENT, **PLACE)))
     port = convert.scene_from_numpy(src)
     assert set(port.mesh._fields) >= set(convert.MESH_FIELDS) and port.mesh.albedo is None
@@ -260,6 +263,9 @@ def test_convert_carries_the_mesh():
         fields = convert.MESH_FIELDS if group == "mesh" else getattr(src, group)._fields
         for name in fields:
             a, b = getattr(getattr(rebuilt, group), name), getattr(getattr(src, group), name)
+            if b is None:  # a map this mesh does not have
+                assert a is None, (group, name)
+                continue
             np.testing.assert_array_equal(np.asarray(a), b, err_msg=f"{group}.{name}")
             assert np.asarray(a).dtype == b.dtype, (group, name)
 
@@ -281,14 +287,16 @@ def test_load_gltf_matches_jax(tmp_path):
 
 
 def test_textured_models_and_meshes_are_refused():
-    """Textured PBR is not ported: mesh_from_model, the integrator and the
-    conversion raise NotImplementedError naming it."""
+    """Textured models were refused until textured PBR was ported; now
+    mesh_from_model carries the albedo (the mesh is PBR_MATERIAL to the
+    walk) and the conversion carries a JAX mesh's albedo, so neither
+    raises.  (tests/test_torch_textures.py holds the textured family to JAX.)"""
     textured = blob(8)._replace(albedo=np.ones((4, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="textured PBR"):
-        gltf_scene.mesh_from_model(textured)
+    mesh = gltf_scene.mesh_from_model(textured)
+    assert mesh.albedo.shape == (4, 4, 3) and mesh.albedo.dtype == torch.float32
     jmesh = jgltf.mesh_from_model(blob(8, cls=JGLTFModel))._replace(albedo=jnp.ones((4, 4, 3)))
-    with pytest.raises(NotImplementedError, match="textured"):
-        convert.scene_from_numpy(_np(JScene(mesh=jmesh)))
+    port = convert.scene_from_numpy(_np(JScene(mesh=jmesh))).mesh
+    np.testing.assert_array_equal(port.albedo.numpy(), np.ones((4, 4, 3), np.float32))
 
 
 # ---- the glTF demo's render ------------------------------------------------------
@@ -326,6 +334,38 @@ def test_gltf_trace_image_matches_jax(gltf_renders, mat):
     np.testing.assert_array_equal(got.object_id.numpy(), ref.object_id)
     assert (got.pixel_sharpness.numpy() == ref.pixel_sharpness).mean() > 0.99
     assert got.color.numpy().max() > 0.0
+
+
+def test_normal_map_only_trace_image_matches_jax():
+    """A normal map without an albedo on the TRANSPARENT blob (with random
+    UVs, test_torch_kernels.textured_model): the kernel's textured
+    configuration with the mesh's own material (double-sided) and no PBR
+    decode.  The glTF demo's configuration against JAX's wavefront by the
+    textured renders' bars (tests/test_torch_textures.py): fewer than 2% of
+    lanes off by more than 1e-3 and the 95th percentile below 1e-3
+    (measured 0% and 0), first-hit ids equal, fewer than 1% of first-hit
+    normals off by more than 2e-3 (the bump map amplifies the walk's uv
+    difference; measured 0%, the largest 5.2e-4); the lane counts show
+    normal-map samples only and no PBR hit."""
+    model = textured_model(normal=True, albedo=False)
+    jscene = jgltf.gltf_scene(jgltf.mesh_from_model(JGLTFModel(*model), mat_type=TRANSPARENT, **PLACE))
+    ref = _np(j_trace_image(jscene, jgltf.gltf_camera(), JConfig(bounces=2), 128, 32, 2.0, jnp.asarray(RV),
+                            jnp.asarray(BN)))
+    scene, cfg = convert.scene_from_numpy(_np(jscene)), IntegratorConfig(bounces=2)
+    assert scene.mesh.albedo is None and scene.mesh.normal_map is not None
+    assert megakernel.configuration(scene, cfg) == "textured"
+    counts = []
+    got = trace_image(scene, convert.camera_from_numpy(_np(jgltf.gltf_camera())), cfg, 128, 32, 2.0, RV,
+                      torch.as_tensor(BN), lane_counts=counts)
+    d = np.abs(got.color.numpy() - ref.color).max(-1)
+    assert (d > 1e-3).mean() < 0.02 and np.quantile(d, 0.95) < 1e-3, (float((d > 1e-3).mean()), np.quantile(d, 0.95))
+    np.testing.assert_array_equal(got.object_id.numpy(), ref.object_id)
+    assert (got.object_id.numpy() == MESH_ID).mean() >= 0.10
+    dn = np.abs(got.object_normal.numpy() - ref.object_normal).max(-1)
+    assert (dn > 2e-3).mean() < 0.01, float((dn > 2e-3).mean())
+    samples = sum(c.texel_samples for c in counts).tolist()
+    assert samples[1] > 0 and sum(samples) == samples[1], samples
+    assert sum(sum(c.pbr_classes for c in counts).tolist()) == 0
 
 
 def test_lane_counts_report_the_walk():

@@ -173,3 +173,38 @@ def test_progressive_render_matches_jax():
     got = r.render(cornell_camera(), spp=4)
     assert got.shape == (RES, RES, 3) and r.state.sample_counter == 4.0
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=2e-3)
+
+
+def test_camera_edited_in_place_resets_and_is_rendered(monkeypatch):
+    """A camera edited in place (the same object, cam.position.add_) counts
+    as moving, as the reference's 16-float comparison sees it: the third
+    sample resets sample_counter to 1 and its rays start from the new
+    position.  A camera on another device than the renderer's is copied
+    once per distinct set of values, so the edit makes a new copy."""
+    import bpt_tpu_torch.renderer as renderer_module
+
+    seen = []
+    real = renderer_module.trace_image_fused
+
+    def spy(scene, camera, *args, **kwargs):
+        seen.append(camera.position.clone())
+        return real(scene, camera, *args, **kwargs)
+
+    monkeypatch.setattr(renderer_module, "trace_image_fused", spy)
+    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=2), 16, 16, blue_noise=BN, device="cpu")
+    cam = cornell_camera()
+    r.render_sample(cam)
+    r.render_sample(cam)
+    assert r.state.sample_counter == 2.0
+    cam.position.add_(torch.tensor([5.0, 0.0, 0.0]))
+    r.render_sample(cam)
+    assert r.state.sample_counter == 1.0 and r.state.frame_counter == 1.0
+    torch.testing.assert_close(seen[-1], seen[0] + torch.tensor([5.0, 0.0, 0.0]), rtol=0, atol=0)
+    r.render_sample(cam)
+    assert r.state.sample_counter == 2.0  # still again
+
+    r.device, r.blue_noise = torch.device("meta"), r.blue_noise.to("meta")  # a stand-in for the card
+    first = r._device_camera(cam)
+    assert first.position.device.type == "meta" and r._device_camera(cam) is first
+    cam.position.add_(torch.tensor([1.0, 0.0, 0.0]))
+    assert r._device_camera(cam) is not first

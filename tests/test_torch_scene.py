@@ -202,13 +202,18 @@ def test_quadric_and_sky_scenes_round_trip():
 
 
 def test_convert_refuses_meshes_and_hdri():
-    """A textured mesh is still refused (textured PBR is not ported); the
-    HDRI fields of the environment are now carried."""
+    """Meshes and HDRI fields were refused once; now a textured mesh is
+    carried with its albedo (textured PBR is ported) and so are the HDRI
+    fields of the environment."""
     src = _np(jsky_scene.physical_sky_scene())
-    textured = SimpleNamespace(**{name: None for name in ("normal_map", "metallic_roughness", "emissive")},
-                               albedo=np.ones((4, 4, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="textured"):
-        convert.scene_from_numpy(src._replace(mesh=textured))
+    soup = np.random.default_rng(0).normal(0, 5, (3, 8, 3)).astype(np.float32)
+    model = SimpleNamespace(p0=soup[0], p1=soup[1], p2=soup[2], n0=soup[0], n1=soup[0], n2=soup[0],
+                            uv0=soup[0, :, :2], uv1=soup[1, :, :2], uv2=soup[2, :, :2], normal_map=None,
+                            metallic_roughness=None, emissive=None, albedo=np.ones((4, 4, 3), np.float32))
+    textured = convert.to_numpy(gltf_scene.mesh_from_model(model))
+    carried = convert.scene_from_numpy(src._replace(mesh=textured)).mesh
+    assert carried.albedo.shape == (4, 4, 3) and carried.normal_map is None
+    assert megakernel.configuration(Scene(mesh=carried), IntegratorConfig()) == "textured"
     hdri = src._replace(env=src.env._replace(hdr_image=np.zeros((4, 8, 3), np.float32), hdr_exposure=np.float32(2)))
     env = convert.scene_from_numpy(hdri).env
     assert env.hdr_image.shape == (4, 8, 3) and env.hdr_exposure.item() == 2.0 and env.env_cdf is None
