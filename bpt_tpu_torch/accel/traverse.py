@@ -11,8 +11,10 @@ lanes are compacted, so the tail of long walks costs little.
 
 The ray enters model space through the inverse model matrix with an
 unnormalized direction, so the returned t is comparable with the world-space
-t of the other primitive groups.  The packet walks of the TPU (K3, K4) are
-not ported here; they are other kernels (ROADMAP).
+t of the other primitive groups.  ``intersect_mesh_bvh`` runs its walk
+through ``kernels.traverse.closest_hit`` (the port of the TPU's packet
+walks K3 and K4: the CUDA closest-hit kernel on CUDA tensors, with the
+recompute VJP) unless the caller asks for this plain walk.
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ def _aabb_t(node_min, node_max, ro, inv_dir, t_best):
     return torch.where(hit, t0, torch.full_like(t0, INFINITY))
 
 
-def _tri_t_uv(p0, p1, p2, ro, rd, cull_backface: bool):
-    """Möller–Trumbore with a backface-cull flag: (t or INFINITY, u, v)."""
+def tri_t_uv(p0, p1, p2, ro, rd):
+    """Möller–Trumbore without the miss test: (t, u, v, det), the walk's
+    expressions in its order (the closest-hit VJP recomputes the winner's t,
+    u, v with them)."""
     edge1 = p1 - p0
     edge2 = p2 - p0
     pvec = cross(rd, edge2)
@@ -53,6 +57,12 @@ def _tri_t_uv(p0, p1, p2, ro, rd, cull_backface: bool):
     qvec = cross(tvec, edge1)
     v = dot(rd, qvec) * inv_det
     t = dot(edge2, qvec) * inv_det
+    return t, u, v, raw_det
+
+
+def _tri_t_uv(p0, p1, p2, ro, rd, cull_backface: bool):
+    """Möller–Trumbore with a backface-cull flag: (t or INFINITY, u, v)."""
+    t, u, v, raw_det = tri_t_uv(p0, p1, p2, ro, rd)
     miss = (u < 0.0) | (u > 1.0) | (v < 0.0) | (u + v > 1.0) | (t <= 0.0)
     if cull_backface:
         miss = miss | (raw_det < 0.0)
@@ -171,10 +181,14 @@ def traverse_bvh(node_tri, node_right, node_min, node_max, p0, p1, p2, ro, rd, c
 
 
 def intersect_mesh_bvh(mesh: TriangleMesh, ro: torch.Tensor, rd: torch.Tensor, best: Hit, id_base: int,
-                       active=None, steps_out: list | None = None) -> Hit:
+                       active=None, steps_out: list | None = None, plain_walk: bool = False) -> Hit:
     """The model section of the closest hit: the ray to object space, the
     walk, then one barycentric normal (w·n0 + u·n1 + v·n2, normalized) and
     uv for the winning triangle, merged into ``best`` with a strict ``<``.
+    The walk is ``kernels.traverse.closest_hit`` (the CUDA kernel on CUDA
+    tensors); ``plain_walk=True``, and ``steps_out`` (the counts exist only
+    in the plain walk), run ``traverse_bvh`` instead.  The normal and uv
+    gathers are torch either way, differentiable through u and v.
     With a normal map the object-space normal is perturbed per texel before
     the world transform.  The hit colour is 1; the material is PBR_MATERIAL
     when the mesh has an albedo, else the mesh's own; the object id is
@@ -186,8 +200,13 @@ def intersect_mesh_bvh(mesh: TriangleMesh, ro: torch.Tensor, rd: torch.Tensor, b
     rd_o = transform_dir(mesh.inv_matrix, rd)  # not normalized: t stays a world-space distance
     pbr = mesh.albedo is not None
     cull = pbr or int(mesh.mat_type) != TRANSPARENT
-    t, tri, u, v = traverse_bvh(mesh.node_tri, mesh.node_right, mesh.node_min, mesh.node_max, mesh.p0, mesh.p1,
-                                mesh.p2, ro_o, rd_o, cull, MAX_STACK_DEPTH, active=active, steps_out=steps_out)
+    if plain_walk or steps_out is not None:
+        t, tri, u, v = traverse_bvh(mesh.node_tri, mesh.node_right, mesh.node_min, mesh.node_max, mesh.p0, mesh.p1,
+                                    mesh.p2, ro_o, rd_o, cull, MAX_STACK_DEPTH, active=active, steps_out=steps_out)
+    else:
+        from bpt_tpu_torch.kernels.traverse import closest_hit  # kernels.traverse imports this module
+
+        t, tri, u, v = closest_hit(ro_o, rd_o, cull, active, mesh)
     hit_ok = tri >= 0
     tid = torch.clamp(tri, min=0)
     w = 1.0 - u - v

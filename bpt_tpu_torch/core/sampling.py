@@ -27,9 +27,14 @@ def cos_hemisphere_from_uniforms(nl: torch.Tensor, r_: torch.Tensor, p_: torch.T
 def lobe_exponent(roughness) -> torch.Tensor:
     """1 / (exp(mix(7, 0, sqrt(roughness))) + 1), float32, with the
     roughness clamped to [0, 1]: the power that maps a uniform to the lobe's
-    cos(theta).  A host number becomes a 0-d tensor on the CPU."""
+    cos(theta).  A host number becomes a 0-d tensor on the CPU.  sqrt(r) is
+    a select around sqrt where r > 0 (the same values): at a roughness of 0
+    the backward meets no infinite derivative, which 0 * inf would turn into
+    a NaN gradient."""
     r = torch.clamp(torch.as_tensor(roughness, dtype=torch.float32), 0.0, 1.0)
-    return 1.0 / (torch.exp(mix(7.0, 0.0, torch.sqrt(r))) + 1.0)
+    positive = r > 0.0
+    root = torch.where(positive, torch.sqrt(torch.where(positive, r, torch.ones_like(r))), torch.zeros_like(r))
+    return 1.0 / (torch.exp(mix(7.0, 0.0, root)) + 1.0)
 
 
 def specular_lobe_from_uniforms(reflection_dir: torch.Tensor, roughness, c_: torch.Tensor,

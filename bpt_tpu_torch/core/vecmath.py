@@ -53,11 +53,18 @@ def reflect(incident: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 
 
 def refract(incident: torch.Tensor, n: torch.Tensor, eta: torch.Tensor) -> torch.Tensor:
-    """GLSL refract; 0 on total internal reflection.  eta: (...,) per lane."""
+    """GLSL refract; 0 on total internal reflection.  eta: (...,) per lane.
+
+    sqrt(max(k, 0)) is taken as a select around sqrt(k) where k > 0: the
+    same values, but a lane at k = 0 (or a discarded one) sends no infinite
+    derivative into the backward, where 0 * inf would make the whole
+    gradient NaN."""
     eta = eta[..., None]
     cosi = dot(n, incident)[..., None]
     k = 1.0 - eta * eta * (1.0 - cosi * cosi)
-    refr = eta * incident - (eta * cosi + torch.sqrt(torch.clamp(k, min=0.0))) * n
+    positive = k > 0.0
+    root = torch.where(positive, torch.sqrt(torch.where(positive, k, torch.ones_like(k))), torch.zeros_like(k))
+    refr = eta * incident - (eta * cosi + root) * n
     return torch.where(k < 0.0, torch.zeros_like(refr), refr)
 
 

@@ -1,6 +1,6 @@
 // Path-tracing megakernel for Hopper (sm_90a): the Cornell, transformed-
 // quadric, physical-sky, glTF-mesh (untextured and textured PBR) and HDRI
-// configurations; forward mode for all, grads mode for the first three.
+// configurations, each in forward and in grads mode.
 //
 // Replaces: bpt_tpu/kernels/megakernel.py::_make_kernel, launched through
 // _pallas_forward (monolithic mode), in these configurations:
@@ -22,8 +22,8 @@
 //     class, and with metal_roughness_lobe the METAL bounce's lobe.
 // Template arguments select each at compile time: kEnv (none, sky, hdri),
 // kNee (quad, sun, env), kMesh, kTextured (only with kMesh) and kGrads for
-// param_grads (entry bpt_trace, argument grads; grads mode for env none and
-// sky without a mesh).  It computes what the plain PyTorch integrator
+// param_grads (entry bpt_trace, argument grads: 12 forward and 12 grads
+// instantiations).  It computes what the plain PyTorch integrator
 // (bpt_tpu_torch/integrator/radiance.py, a mirror of the JAX wavefront)
 // computes, draw for draw: ray generation with tent AA and thin-lens DoF (4
 // hash draws), then up to `bounces` bounces with the fixed per-bounce
@@ -42,8 +42,20 @@
 // over the refractions that leave glass object j, in bounce order (the
 // Beer-Lambert exponent).  The gate is the kernel's own absorption test
 // dot(n, rd) >= 0, so plane and absorption agree even at 0.  A sky miss adds
-// nothing.  The backward (kernels/megakernel.py, _PathReplay) turns the
-// planes into gradients.
+// nothing, nor does a mesh hit (its hit color is 1).  The backward
+// (kernels/megakernel.py, _PathReplay) turns the planes into gradients.
+//
+// The grads mode also writes the deferred planes out_def, (n_def, H, W),
+// what the TPU kernel hands to its outside composition (_compose_result)
+// so that autograd reaches the HDR map, its exposure and a textured mesh's
+// albedo and emissive maps (integrator/radiance.py deferred_layout): under
+// env hdri the miss throughput mw (3) and the miss direction (3), the
+// lookup left out of the color; with a textured mesh, per bounce the
+// albedo uv (2; -kInf where the bounce applied no albedo factor), then the
+// emissive-terminal weight (3) and uv (2), the albedo factors and the
+// emission left out of the color (every path ends at one terminal event,
+// after all of its albedo factors, so they factor out exactly).  The
+// wrapper composes the color in torch.
 //
 // What bounds it on this card: per-thread arithmetic and latency, with warp
 // divergence.  Cornell: the intersection of every ray with 6 quads as 12
@@ -143,6 +155,7 @@ struct TraceArgs {
   float* out_sharp;
   float* out_sg;
   const float2* mesh_uvs;  // textured: uv0, uv1, uv2 per triangle
+  float* out_def;  // grads mode: the deferred planes (n_def, H, W), or null
   const float* tex[4];  // textured: albedo, normal, metallic-roughness, emissive (h, w, 3) maps (or null)
   int nq, ns, nqd;
   int bn_ox, bn_oy, width, height, bounces;
@@ -319,14 +332,39 @@ __global__ void trace_kernel(const TraceArgs a) {
   const bool lobe = kTextured && a.metal_roughness_lobe;
 
   // ---- grads mode: zero this pixel's path-replay entries -----------------
+  constexpr bool kDeferMiss = kGrads && kEnv == kEnvHdri;  // the environment's radiance composed outside
+  constexpr bool kDeferTex = kGrads && kTextured;  // the albedo factors and the emission composed outside
   const size_t plane = (size_t)width * (size_t)height;
   const int n_obj = ns + nqd + nq;
+  const int def_tex = kDeferMiss ? 6 : 0;  // the first textured deferred plane
+  float* __restrict__ out_def = a.out_def;
+  auto put_def = [&](int j, float v) { out_def[j * plane + pix] = v; };
+  auto put_def3 = [&](int j, V3 v) {
+    put_def(j, v.x);
+    put_def(j + 1, v.y);
+    put_def(j + 2, v.z);
+  };
   if constexpr (kGrads) {
     const int n_sg = transparent_tint ? n_obj : 2 * n_obj;
     for (int j = 0; j < n_sg; ++j) out_sg[j * plane + pix] = 0.0f;
+    if constexpr (kDeferMiss) {
+      for (int j = 0; j < 6; ++j) put_def(j, 0.0f);
+    }
+    if constexpr (kDeferTex) {
+      for (int j = 0; j < 2 * bounces; ++j) put_def(def_tex + j, -kInf);
+      for (int j = 0; j < 5; ++j) put_def(def_tex + 2 * bounces + j, 0.0f);
+    }
   }
-  auto add_sg = [&](int j, float v) {
-    if constexpr (kGrads) out_sg[j * plane + pix] += v;
+  // the entry of the object hit (a mesh hit, id n_obj, has no plane)
+  auto add_sg = [&](int obj, float v) {
+    if constexpr (kGrads) {
+      if (obj < n_obj) out_sg[obj * plane + pix] += v;
+    }
+  };
+  auto add_beer = [&](int obj, float v) {
+    if constexpr (kGrads) {
+      if (obj < n_obj) out_sg[(n_obj + obj) * plane + pix] += v;
+    }
   };
 
   // ---- RNG seeds from absolute pixel coordinates -------------------------
@@ -431,14 +469,19 @@ __global__ void trace_kernel(const TraceArgs a) {
     }
     if (t_best >= kInf) {  // a miss ends the path; env "none" leaves it black
       if constexpr (kEnv != kEnvNone) {
-        V3 env;
+        V3 env = v3(0.0f, 0.0f, 0.0f);
         if constexpr (kSky) {
           env = sky_color(rd, P);
-        } else {
+        } else if constexpr (!kDeferMiss) {
           env = hdr_color(a.hdr, (int)P[kPHdrH], (int)P[kPHdrW], rd, P[kPExposure]);
         }
         if (bounce == 0) {  // a primary ray sees the environment
-          acc = env;
+          if constexpr (kDeferMiss) {
+            put_def3(0, mask);
+            put_def3(3, rd);
+          } else {
+            acc = env;
+          }
           sharp = 1.01f;
         } else {  // first-match case chain c2 > c3 > c4 > c5
           const float sun_cos = dot(rd, load3(P + kPSun));
@@ -446,14 +489,20 @@ __global__ void trace_kernel(const TraceArgs a) {
           bool c3 = sample_light;
           bool c4 = d_count == 1 && prev_mat == kTransparent && spec && (kSky || bounce < 3);
           bool c5 = d_count > 0;
-          V3 lit = mul3(mask, env);
-          if (c2 || c3 || c4) {
-            acc = lit;
-          } else if (c5) {
-            // clip the sun disc; env NEE already covers the whole map at a diffuse vertex
-            acc = mul(lit, kNee == kNeeEnv ? 0.0f : (sun_cos < 0.99f ? 1.0f : 0.0f));
+          // clip the sun disc; env NEE already covers the whole map at a diffuse vertex
+          const float sun_clip = kNee == kNeeEnv ? 0.0f : (sun_cos < 0.99f ? 1.0f : 0.0f);
+          if constexpr (kDeferMiss) {  // the miss throughput: the weight the environment's radiance takes
+            put_def3(0, (c2 || c3 || c4) ? mask : c5 ? mul(mask, sun_clip) : v3(0.0f, 0.0f, 0.0f));
+            put_def3(3, rd);
           } else {
-            acc = v3(0.0f, 0.0f, 0.0f);
+            V3 lit = mul3(mask, env);
+            if (c2 || c3 || c4) {
+              acc = lit;
+            } else if (c5) {
+              acc = mul(lit, sun_clip);
+            } else {
+              acc = v3(0.0f, 0.0f, 0.0f);
+            }
           }
           if (c2) sharp = 1.01f;
           if (!kSky && !c2 && !c3 && c4 && sun_cos > 0.99f) sharp = 1.01f;
@@ -492,14 +541,26 @@ __global__ void trace_kernel(const TraceArgs a) {
 
     // ---- a textured mesh's PBR texels: albedo, emission, class, roughness
     float mr_g = 0.0f;  // the METAL lobe's roughness
+    bool pbr_hit = false;
     if constexpr (kTextured) {
       if (mat == kPbr) {
-        hc = sample_linear(a.tex[kTexAlbedo], a.tex_h[kTexAlbedo], a.tex_w[kTexAlbedo], hu, hv);
+        pbr_hit = true;
+        if constexpr (kDeferTex) {
+          hc = v3(1.0f, 1.0f, 1.0f);  // the albedo factor is composed outside
+        } else {
+          hc = sample_linear(a.tex[kTexAlbedo], a.tex_h[kTexAlbedo], a.tex_w[kTexAlbedo], hu, hv);
+        }
         if (a.tex[kTexEmissive]) {  // an emissive texel ends a specular path, tested before the class
           const V3 em = sample_linear(a.tex[kTexEmissive], a.tex_h[kTexEmissive], a.tex_w[kTexEmissive], hu, hv);
           if (spec && fmaxf(fmaxf(em.x, em.y), em.z) > 0.01f) {
             sharp = 1.01f;
-            acc = mul3(mask, em);
+            if constexpr (kDeferTex) {  // the emission is composed outside: its weight and uv
+              put_def3(def_tex + 2 * bounces, mask);
+              put_def(def_tex + 2 * bounces + 3, hu);
+              put_def(def_tex + 2 * bounces + 4, hv);
+            } else {
+              acc = mul3(mask, em);
+            }
             break;
           }
         }
@@ -528,6 +589,15 @@ __global__ void trace_kernel(const TraceArgs a) {
       lc = rng_next(sx, sy);
       lp = rng_next(sx, sy);
     }
+    // a bounce whose throughput takes the albedo factor (DIFFUSE, METAL, CLEARCOAT's base) records its uv
+    auto albedo_factor = [&]() {
+      if constexpr (kDeferTex) {
+        if (pbr_hit) {
+          put_def(def_tex + 2 * bounce, hu);
+          put_def(def_tex + 2 * bounce + 1, hv);
+        }
+      }
+    };
     auto nee = [&](float* w) {
       if constexpr (kNee == kNeeSun) {
         return sun_nee(P, nl, lc, lp, w);
@@ -555,9 +625,11 @@ __global__ void trace_kernel(const TraceArgs a) {
       sample_light = !go_indirect;
       d_count = dc;
       add_sg(hobj, 1.0f);
+      albedo_factor();
     } else if (mat == kMetal) {
       mask = mul3(mask, hc);
       add_sg(hobj, 1.0f);
+      albedo_factor();
       rd = reflect(rd, nl);
       if (lobe) rd = roughness_lobe(rd, mr_g, lc, lp);
       ro = add(x, mul(nl, eps));
@@ -580,7 +652,7 @@ __global__ void trace_kernel(const TraceArgs a) {
           absorb = v3(expf(logf(clampf(hc.x, 0.01f, 0.99f)) * 0.01f * t_best),
                       expf(logf(clampf(hc.y, 0.01f, 0.99f)) * 0.01f * t_best),
                       expf(logf(clampf(hc.z, 0.01f, 0.99f)) * 0.01f * t_best));
-          add_sg(n_obj + hobj, 0.01f * t_best);
+          add_beer(hobj, 0.01f * t_best);
         }
         float f = tr / (1.0f - p);
         mask = v3((mask.x * absorb.x) * f, (mask.y * absorb.y) * f, (mask.z * absorb.z) * f);
@@ -623,6 +695,7 @@ __global__ void trace_kernel(const TraceArgs a) {
         d_count = dc;
         sharp = 0.0f;
         add_sg(hobj, 1.0f);
+        albedo_factor();
       }
       ro = add(x, mul(nl, eps));
       coat_hit = true;
@@ -655,10 +728,19 @@ int launch_cfg(const TraceArgs& a, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kEnv, int kNee>
-int launch_forward(const TraceArgs& a, int mesh, void* stream) {
-  if (mesh == 2) return launch_cfg<false, kEnv, kNee, true, true>(a, stream);
-  return mesh ? launch_cfg<false, kEnv, kNee, true>(a, stream) : launch_cfg<false, kEnv, kNee, false>(a, stream);
+template <bool kGrads, int kEnv, int kNee>
+int launch_mesh(const TraceArgs& a, int mesh, void* stream) {
+  if (mesh == 2) return launch_cfg<kGrads, kEnv, kNee, true, true>(a, stream);
+  return mesh ? launch_cfg<kGrads, kEnv, kNee, true>(a, stream) : launch_cfg<kGrads, kEnv, kNee, false>(a, stream);
+}
+
+template <bool kGrads>
+int launch_mode(const TraceArgs& a, int env, int nee, int mesh, void* stream) {
+  if (env == kEnvNone && nee == kNeeQuad) return launch_mesh<kGrads, kEnvNone, kNeeQuad>(a, mesh, stream);
+  if (env == kEnvSky && nee == kNeeSun) return launch_mesh<kGrads, kEnvSky, kNeeSun>(a, mesh, stream);
+  if (env == kEnvHdri && nee == kNeeSun) return launch_mesh<kGrads, kEnvHdri, kNeeSun>(a, mesh, stream);
+  if (env == kEnvHdri && nee == kNeeEnv) return launch_mesh<kGrads, kEnvHdri, kNeeEnv>(a, mesh, stream);
+  return -1;
 }
 
 }  // namespace
@@ -669,21 +751,13 @@ extern "C" int bpt_trace_args_size() { return static_cast<int>(sizeof(bpt::Trace
 // 2 hdri; nee 0 quad, 1 sun, 2 env (the pairs none + quad, sky + sun,
 // hdri + sun and hdri + env); mesh 0 none, 1 untextured, 2 textured (PBR
 // maps).  grads != 0 adds the (n_sg, H, W) path-replay planes out_sg
-// (n_sg = ns + nqd + nq with transparent_tint, twice that without), for env
-// none and sky without a mesh.  Returns the CUDA error of the launch, or -1
-// for a combination that is not built.
+// (n_sg = ns + nqd + nq with transparent_tint, twice that without) and,
+// under env hdri or with a textured mesh, the (n_def, H, W) deferred planes
+// out_def (6 under env hdri, then 2 * bounces + 5 with a textured mesh),
+// every configuration.  Returns the CUDA error of the launch, or -1 for a
+// combination that is not built.
 extern "C" int bpt_trace(const bpt::TraceArgs* args, int grads, int env, int nee, int mesh, void* stream) {
   const bpt::TraceArgs& a = *args;
   if (mesh < 0 || mesh > 2) return -1;
-  if (grads) {
-    if (mesh) return -1;
-    if (env == kEnvNone && nee == kNeeQuad) return launch_cfg<true, kEnvNone, kNeeQuad, false>(a, stream);
-    if (env == kEnvSky && nee == kNeeSun) return launch_cfg<true, kEnvSky, kNeeSun, false>(a, stream);
-    return -1;
-  }
-  if (env == kEnvNone && nee == kNeeQuad) return launch_forward<kEnvNone, kNeeQuad>(a, mesh, stream);
-  if (env == kEnvSky && nee == kNeeSun) return launch_forward<kEnvSky, kNeeSun>(a, mesh, stream);
-  if (env == kEnvHdri && nee == kNeeSun) return launch_forward<kEnvHdri, kNeeSun>(a, mesh, stream);
-  if (env == kEnvHdri && nee == kNeeEnv) return launch_forward<kEnvHdri, kNeeEnv>(a, mesh, stream);
-  return -1;
+  return grads ? launch_mode<true>(a, env, nee, mesh, stream) : launch_mode<false>(a, env, nee, mesh, stream);
 }

@@ -36,10 +36,12 @@ def render_avg(scene, camera, cfg: IntegratorConfig, size: int, frames: Sequence
 
     ``fused=True`` runs ``trace_image_fused(differentiable=True)``: the CUDA
     kernel and its path-replay VJP on a CUDA device (gradients of material
-    and emission colors), its plain version on the CPU; a geometry or camera
-    tensor that requires a gradient raises ``NotImplementedError`` there.
-    ``fused=False`` is autograd through the wavefront ``trace_image`` (every
-    parameter).
+    and emission colors, the HDR map and its exposure, a textured mesh's
+    albedo and emissive maps), its plain version on the CPU; a geometry or
+    camera tensor that requires a gradient raises ``NotImplementedError``
+    there.  ``fused=False`` is autograd through the wavefront ``trace_image``
+    (every parameter; a mesh is walked by the closest-hit kernel on the card,
+    with its recompute VJP).
     ``reorder=True`` (the staged path) is not ported yet.
     """
     if reorder:
@@ -73,7 +75,10 @@ def optimize(
 
     ``build_scene(params) -> (scene, camera)``; the scene and camera are moved
     to ``device`` (None means ``"cuda"``, and raises without a card), as are
-    the parameters and the target.  ``param_clip(params) -> params``
+    the parameters and the target.  A mesh built on the device keeps its
+    kernel tables from step to step (``Scene.to`` keeps resident tables), so
+    a ``build_scene`` that swaps maps or colors into a resident scene
+    (``mesh._replace(albedo=params["albedo"])``) moves nothing per step.  ``param_clip(params) -> params``
     optionally maps the parameters back to a valid domain after each step
     (applied in place, without gradient).  ``losses`` holds each step's loss
     before its update.

@@ -15,6 +15,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from bpt_tpu_torch.textures import gather_texels
+
 ONE_OVER_TWO_PI = 0.15915494309
 ONE_OVER_PI = 0.31830988618379067
 
@@ -35,10 +37,10 @@ def get_hdr_color(hdr_image: torch.Tensor, ray_dir: torch.Tensor, exposure) -> t
     x1i = torch.remainder(x0i + 1, w)
     y0i = torch.clamp(y0.to(torch.int64), 0, h - 1)
     y1i = torch.clamp(y0i + 1, 0, h - 1)
-    c00 = hdr_image[y0i, x0i]
-    c01 = hdr_image[y0i, x1i]
-    c10 = hdr_image[y1i, x0i]
-    c11 = hdr_image[y1i, x1i]
+    c00 = gather_texels(hdr_image, y0i, x0i)  # index_select: a cheap backward into the map
+    c01 = gather_texels(hdr_image, y0i, x1i)
+    c10 = gather_texels(hdr_image, y1i, x0i)
+    c11 = gather_texels(hdr_image, y1i, x1i)
     color = (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
     return color * exposure
 

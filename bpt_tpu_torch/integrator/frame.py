@@ -76,21 +76,24 @@ def trace_image(
     blue_noise: torch.Tensor,
     param_grads: bool = False,
     lane_counts: list | None = None,
+    plain_walk: bool = False,
 ):
     """Trace one 1-sample-per-pixel frame; returns the raw per-pixel result.
 
     Runs on the device of ``blue_noise``; ``frame_counter`` is a host number
     and ``rand_vec2`` a host pair in [0, 1).  With ``param_grads=True`` it
-    returns ``(result, sg)``, sg the (n_sg, H, W) path-replay planes of
-    ``calculate_radiance`` (which also explains ``lane_counts``).
+    returns ``(result, sg, deferred)``, sg the (n_sg, H, W) path-replay
+    planes and deferred the (n_def, H, W) deferred planes of
+    ``calculate_radiance`` (which also explains ``lane_counts``).  A mesh is
+    walked by the closest-hit kernel on the card unless ``plain_walk``.
     """
     px, py = pixel_grid(height, width, blue_noise.device)
     rng = rng_seed(frame_counter, px, py)
     bn = blue_noise_fetch(blue_noise, px, py, rand_vec2)
     ro, rd, rng = generate_rays(camera, px, py, width, height, rng)
     out = calculate_radiance(scene, cfg, ro, rd, rng, bn, frame_counter, param_grads=param_grads,
-                             lane_counts=lane_counts)
-    return (out[0], out[3]) if param_grads else out[0]
+                             lane_counts=lane_counts, plain_walk=plain_walk)
+    return (out[0], out[3], out[4]) if param_grads else out[0]
 
 
 def render_frame(scene: Scene, camera: Camera, cfg: IntegratorConfig, previous: torch.Tensor,

@@ -91,7 +91,8 @@ def _intersect_quads(quads, ro, rd, best: Hit, id_base: int) -> Hit:
 
 
 def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_steps: list | None = None,
-                    active: torch.Tensor | None = None, mesh_steps: list | None = None) -> Hit:
+                    active: torch.Tensor | None = None, mesh_steps: list | None = None,
+                    plain_walk: bool = False) -> Hit:
     """Nearest hit over spheres, quadrics, quads and the mesh for (..., 3)
     rays of any batch shape.
 
@@ -101,7 +102,9 @@ def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_step
     ``torus_steps`` receives the torus march's per-lane step counts
     (``unit_torus_intersect``'s ``steps_out``) and ``mesh_steps`` the walk's
     per-lane inner-node visits and triangle tests and the masks of the mesh
-    records read (``intersect_mesh_bvh``'s)."""
+    records read (``intersect_mesh_bvh``'s).  The mesh walk is the
+    closest-hit kernel on CUDA tensors unless ``plain_walk`` (or
+    ``mesh_steps``) asks for the plain one."""
     best = _empty_hit(ro.shape[:-1], ro.device, ro.dtype)
     id_base = 0
     if scene.spheres is not None:
@@ -116,5 +119,6 @@ def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_step
     if scene.mesh is not None:
         from bpt_tpu_torch.accel.traverse import intersect_mesh_bvh  # accel.traverse imports this module
 
-        best = intersect_mesh_bvh(scene.mesh, ro, rd, best, id_base, active=active, steps_out=mesh_steps)
+        best = intersect_mesh_bvh(scene.mesh, ro, rd, best, id_base, active=active, steps_out=mesh_steps,
+                                  plain_walk=plain_walk)
     return best

@@ -32,8 +32,22 @@ factor is linear in object j's color (diffuse, metal, the clearcoat base,
 a contributing light hit, and tinted refraction when
 ``cfg.transparent_tint``); with the tint off, planes n_obj..2*n_obj-1 sum
 0.01*t over the refractions that leave glass object j (Beer-Lambert).
-Object ids are the ``Hit.object_id`` order: spheres, quadrics, quads.  A
-sky miss adds no plane: the sky radiance does not depend on any color.
+Object ids are the ``Hit.object_id`` order: spheres, quadrics, quads; a
+mesh hit adds no term (its hit color is 1).  A sky miss adds no plane: the
+sky radiance does not depend on any color.
+
+The grads mode also defers what the JAX kernel hands to its outside
+composition (``_compose_result``), so that autograd can reach the HDR map,
+its exposure and a textured mesh's albedo and emissive maps.  The deferred
+planes (``deferred_layout``) are: under env "hdri", the miss throughput
+``mw`` (3) and the miss direction (3), and the color then leaves out the
+environment's radiance (color + mw * get_hdr_color(mdir) restores it);
+with a textured mesh, per bounce the albedo uv (2; -INFINITY where that
+bounce applied no albedo factor: under REPEAT wrap -1 is a real uv), then
+the emissive-terminal weight (3) and its uv (2), and the color then leaves
+out the albedo factors and the emission (every path contributes at exactly
+one terminal event, after all of its albedo factors, so (color + mw * env
++ emw * emission) * Π albedo restores it).
 """
 
 from __future__ import annotations
@@ -69,6 +83,20 @@ class RadianceResult(NamedTuple):
     object_color: torch.Tensor  # (..., 3) first-hit material color
     object_id: torch.Tensor  # (...,) first-hit object id (-INFINITY on miss)
     pixel_sharpness: torch.Tensor  # (...,) denoiser flag (0 / -1 / 1.01)
+
+
+def deferred_layout(cfg: IntegratorConfig, textured: bool) -> dict:
+    """The grads mode's deferred planes: {name: (first plane, count)}, in
+    the order the kernel writes them (``mw``, ``mdir`` under env "hdri";
+    ``albedo_uv`` (2 per bounce), ``emw``, ``em_uv`` with a textured
+    mesh)."""
+    sizes = ([("mw", 3), ("mdir", 3)] if cfg.env == "hdri" else []) + (
+        [("albedo_uv", 2 * cfg.bounces), ("emw", 3), ("em_uv", 2)] if textured else [])
+    layout, first = {}, 0
+    for name, count in sizes:
+        layout[name] = (first, count)
+        first += count
+    return layout
 
 
 class LaneCounts(NamedTuple):
@@ -153,20 +181,22 @@ def calculate_radiance(
     frame_counter,
     param_grads: bool = False,
     lane_counts: list | None = None,
+    plain_walk: bool = False,
 ):
     """Trace one path per lane for up to cfg.bounces bounces.
 
     Returns ``(result, rng, bn)``, and with ``param_grads=True``
-    ``(result, rng, bn, sg)``: sg is (n_sg,) + lanes float32, detached,
-    n_sg = n_obj with ``cfg.transparent_tint`` and 2 * n_obj without.
+    ``(result, rng, bn, sg, deferred)``: sg is (n_sg,) + lanes float32,
+    detached, n_sg = n_obj with ``cfg.transparent_tint`` and 2 * n_obj
+    without; deferred is the (n_def,) + lanes planes of
+    ``deferred_layout`` (n_def may be 0), and the color leaves out what they
+    defer.
 
     ``lane_counts``, for measurement, receives one ``LaneCounts`` per
-    bounce.
+    bounce.  ``plain_walk`` keeps the mesh walk plain on CUDA tensors
+    (``scene_intersect``).
     """
     check_supported(scene, cfg)
-    if param_grads and (scene.mesh is not None or cfg.env == "hdri"):
-        raise NotImplementedError("the path-replay planes of mesh and HDRI scenes are not ported yet: ROADMAP, "
-                                  "K1-grad on mesh and HDRI")
     shape = ray_origin.shape[:-1]
     dev = ray_origin.device
     f32 = ray_origin.dtype
@@ -209,11 +239,22 @@ def calculate_radiance(
         obj_ids = torch.arange(n_obj, dtype=f32, device=dev).reshape((n_obj,) + (1,) * len(shape))
         sg_lin = torch.zeros((n_obj,) + shape, dtype=f32, device=dev)
         sg_beer = None if cfg.transparent_tint else torch.zeros_like(sg_lin)
+    defer_miss = param_grads and cfg.env == "hdri"
+    defer_tex = param_grads and textured
+    if defer_miss:
+        mw = torch.zeros(shape + (3,), dtype=f32, device=dev)
+        mdir = torch.zeros_like(mw)
+    if defer_tex:
+        albedo_uv = []
+        emw = torch.zeros(shape + (3,), dtype=f32, device=dev)
+        em_uv = torch.zeros(shape + (2,), dtype=f32, device=dev)
+        no_uv = torch.full(shape + (2,), -INFINITY, dtype=f32, device=dev)
 
     for bounce in range(cfg.bounces):
         torus_steps = [] if lane_counts is not None and scene.quadrics is not None else None
         mesh_steps = [] if lane_counts is not None and scene.mesh is not None else None
-        hit = scene_intersect(scene, ro, rd, torus_steps=torus_steps, active=alive, mesh_steps=mesh_steps)
+        hit = scene_intersect(scene, ro, rd, torus_steps=torus_steps, active=alive, mesh_steps=mesh_steps,
+                              plain_walk=plain_walk)
         miss = hit.t >= INFINITY
         if lane_counts is not None:
             none = torch.zeros((), dtype=torch.int64, device=dev)
@@ -232,12 +273,17 @@ def calculate_radiance(
 
         if cfg.env != "none":
             m = alive & miss
-            if cfg.env == "sky":
+            if defer_miss:
+                env_color = None  # the environment's radiance is composed outside (deferred planes)
+            elif cfg.env == "sky":
                 env_color = get_sky_color(rd, sun_dir)
             else:
                 env_color = get_hdr_color(scene.env.hdr_image, rd, scene.env.hdr_exposure)
             if bounce == 0:  # a primary ray sees the environment
-                accum = _where3(m, env_color, accum)
+                if defer_miss:
+                    mw, mdir = _where3(m, mask, mw), _where3(m, rd, mdir)
+                else:
+                    accum = _where3(m, env_color, accum)
                 sharp = torch.where(m, full(1.01), sharp)
             else:
                 # first-match case chain c2 > c3 > c4 > c5; c2 and c3 share a value
@@ -254,10 +300,15 @@ def calculate_radiance(
                     sun_clip = zero
                 else:
                     sun_clip = torch.where(sun_cos < 0.99, one, zero)
-                lit_env = mask * env_color
-                chosen = _where3(c2 | c3 | c4, lit_env,
-                                 _where3(c5, lit_env * sun_clip[..., None], torch.zeros_like(lit_env)))
-                accum = _where3(m, chosen, accum)
+                if defer_miss:  # the miss throughput: the weight the environment's radiance takes
+                    weight = _where3(c2 | c3 | c4, mask,
+                                     _where3(c5, mask * sun_clip[..., None], torch.zeros_like(mask)))
+                    mw, mdir = _where3(m, weight, mw), _where3(m, rd, mdir)
+                else:
+                    lit_env = mask * env_color
+                    chosen = _where3(c2 | c3 | c4, lit_env,
+                                     _where3(c5, lit_env * sun_clip[..., None], torch.zeros_like(lit_env)))
+                    accum = _where3(m, chosen, accum)
                 sharp = torch.where(m & c2, full(1.01), sharp)
                 if cfg.env == "hdri":
                     sharp = torch.where(m & ~c2 & ~c3 & c4 & (sun_cos > 0.99), full(1.01), sharp)
@@ -293,14 +344,20 @@ def calculate_radiance(
         if pbr_mesh is not None:
             is_pbr = lane & (mat == PBR_MATERIAL)
             pbr_hits = is_pbr
-            albedo = torch.pow(torch.clamp(sample_bilinear(pbr_mesh.albedo, hit.uv), min=0.0), 2.2)
+            if defer_tex:  # the albedo factor is composed outside: the throughput takes 1
+                albedo = torch.ones_like(hit_color)
+            else:
+                albedo = torch.pow(torch.clamp(sample_bilinear(pbr_mesh.albedo, hit.uv), min=0.0), 2.2)
             hit_color = _where3(is_pbr, albedo, hit_color)
             emissive_hit = torch.zeros_like(is_pbr)
             if pbr_mesh.emissive is not None:  # an emissive texel ends a specular path, tested before the class
                 emission = torch.pow(torch.clamp(sample_bilinear(pbr_mesh.emissive, hit.uv), min=0.0), 2.2)
                 emissive_hit = is_pbr & spec & (torch.amax(emission, dim=-1) > 0.01)
                 sharp = torch.where(emissive_hit, full(1.01), sharp)
-                accum = _where3(emissive_hit, mask * emission, accum)
+                if defer_tex:  # the emission is composed outside: its weight and uv
+                    emw, em_uv = _where3(emissive_hit, mask, emw), _where3(emissive_hit, hit.uv, em_uv)
+                else:
+                    accum = _where3(emissive_hit, mask * emission, accum)
                 alive = alive & ~emissive_hit
                 lane = alive
                 is_pbr = is_pbr & ~emissive_hit
@@ -455,6 +512,9 @@ def calculate_radiance(
         sharp = torch.where(lane, new_sharp, sharp)
         prev_mat = torch.where(lane, mat, prev_mat)
 
+        if defer_tex:  # the bounces whose throughput took the albedo factor: DIFFUSE, METAL, CLEARCOAT's base
+            factor = is_pbr & (b_diff | b_metal | (b_coat & ~go_reflect_c))
+            albedo_uv.append(_where3(factor, hit.uv, no_uv))
         if param_grads:
             # the hit object's color enters this bounce's throughput linearly
             # (d log f / d c = 1/c, applied in the backward) or, for a
@@ -478,5 +538,8 @@ def calculate_radiance(
     )
     if param_grads:
         sg = sg_lin if sg_beer is None else torch.cat([sg_lin, sg_beer])
-        return result, rng, bn, sg
+        planes = ([mw, mdir] if defer_miss else []) + (albedo_uv + [emw, em_uv] if defer_tex else [])
+        deferred = (torch.cat([torch.movedim(p, -1, 0) for p in planes]) if planes
+                    else torch.zeros((0,) + shape, dtype=f32, device=dev))
+        return result, rng, bn, sg, deferred.detach()
     return result, rng, bn

@@ -5,8 +5,11 @@ shared library (no PyTorch headers, so a build takes seconds), placed in
 ``bpt_tpu_torch/_build/`` under a name that carries a hash of the source,
 of every ``csrc/`` header it includes and of the flags, and loaded with
 ``ctypes``.  nvcc's report (``-Xptxas -v``: registers, spills) is kept
-beside the library as ``<library>.log``.  Nothing is built or loaded until a
-wrapper first launches on a CUDA tensor.  A failed build raises.
+beside the library as ``<library>.log``.  The kernels are
+``megakernel`` (the fused radiance pass) and ``closest_hit`` (the
+wavefront's closest-hit query).  Nothing is built or loaded until a
+wrapper first launches on a CUDA tensor; that first load builds every
+kernel of ``csrc/`` at once, one nvcc process each.  A failed build raises.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _loaded: dict = {}
+_built: dict = {}  # kernel name -> its library, once the first load has built them
 
 
 def nvcc_path() -> str:
@@ -82,8 +86,22 @@ def build(name: str) -> Path:
     return out
 
 
+def kernels(csrc: Path = CSRC) -> list[str]:
+    """The kernels of ``csrc``: one per ``.cu`` file."""
+    return sorted(path.stem for path in csrc.glob("*.cu"))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
+    """Load ``csrc/<name>.cu``; cached per process.  The first load builds
+    (where needed) every kernel of ``csrc/``, one nvcc process each, all
+    started together: a build is one compiler process, and a run of the
+    port launches every kernel."""
+    if not _built:
+        from concurrent.futures import ThreadPoolExecutor
+
+        names = kernels()
+        with ThreadPoolExecutor(max_workers=len(names)) as pool:
+            _built.update(zip(names, pool.map(build, names)))
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(str(build(name)))
+        _loaded[name] = ctypes.CDLL(str(_built[name]))
     return _loaded[name]

@@ -12,16 +12,19 @@ On CUDA tensors it launches the hand-written kernel in
 ``trace_image_fused_reference`` (the port's wavefront ``trace_image``).
 There is no fallback: a failed build or launch raises.
 
-``differentiable=True`` is the port of the path-replay VJP (``_prb_fn``):
-a ``torch.autograd.Function`` whose forward runs the kernel's grads mode
-(``trace_image_fused_grads``: the 11 planes plus the per-object
-∂log-throughput planes) and whose backward turns those planes into
-gradients of the sphere, quadric and quad colors in plain torch, as the JAX
-package leaves that part to XLA.  Geometry, the sun and the camera get no
-gradient through this route (as in JAX); ``diff.gradients.make_render_loss``
-(wavefront autograd) is the route for them.  The grads mode of mesh, HDRI
-and textured scenes is not ported yet (ROADMAP, K1-grad on mesh and HDRI):
-``differentiable=True`` on them raises.
+``differentiable=True`` is the port of the path-replay VJP (``_prb_fn``),
+in every configuration: a ``torch.autograd.Function`` whose forward runs
+the kernel's grads mode (``trace_image_fused_grads``: the 11 planes, the
+per-object ∂log-throughput planes and, under env "hdri" and with a
+textured mesh, the deferred planes) and whose backward turns those planes
+into gradients of the sphere, quadric and quad colors in plain torch, as
+the JAX package leaves that part to XLA; ``compose_deferred`` then composes
+the deferred environment lookup, emission and albedo factors in torch, so
+that autograd reaches the HDR map, its exposure and the albedo and emissive
+maps.  Geometry, the sun, the camera and the normal and metallic-roughness
+maps get no gradient through this route (JAX gives them zeros; here a
+tensor of theirs that requires a gradient raises); the wavefront route
+(``diff.gradients.make_render_loss``, ``fused=False``) is theirs.
 """
 
 from __future__ import annotations
@@ -35,12 +38,14 @@ from bpt_tpu_torch.camera import Camera, film_extents
 from bpt_tpu_torch import sky
 from bpt_tpu_torch.core.rng import blue_noise_offsets, frame_to_u32
 from bpt_tpu_torch.core.sampling import lobe_exponent
-from bpt_tpu_torch.core.vecmath import normalize
+from bpt_tpu_torch.core.vecmath import INFINITY, normalize
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
-from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported
+from bpt_tpu_torch.env import get_hdr_color
+from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported, deferred_layout
+from bpt_tpu_torch.textures import sample_bilinear
 from bpt_tpu_torch.kernels import build
-from bpt_tpu_torch.scenes.types import MAP_FIELDS, PBR_MATERIAL, Scene, is_textured, mesh_tables
+from bpt_tpu_torch.scenes.types import MAP_FIELDS, PBR_MATERIAL, Scene, is_textured, kernel_tables_of
 
 KERNEL = "megakernel"
 #: The kernel's configurations, as ``configuration`` names them.
@@ -71,13 +76,21 @@ def configuration(scene: Scene, cfg: IntegratorConfig) -> str:
         return "mesh"
     return "quadric" if scene.quadrics is not None else "cornell"
 
-#: The plain PyTorch version of the forward kernel.
-trace_image_fused_reference = trace_image
+def trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
+                                lane_counts=None):
+    """The plain PyTorch version of the forward kernel: ``trace_image`` with
+    the plain mesh walk (the kernel is held to it, not to the closest-hit
+    kernel)."""
+    return trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
+                       lane_counts=lane_counts, plain_walk=True)
 
 
-def trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise):
-    """The plain PyTorch version of the grads-mode kernel: (RadianceResult, sg)."""
-    return trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, param_grads=True)
+def trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
+                                      lane_counts=None):
+    """The plain PyTorch version of the grads-mode kernel: (RadianceResult,
+    sg, deferred)."""
+    return trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, param_grads=True,
+                       lane_counts=lane_counts, plain_walk=True)
 
 _MAX_QUADS = 256
 _MAX_SPHERES = 64
@@ -92,7 +105,7 @@ class _TraceArgs(ctypes.Structure):
 
     _POINTERS = ("cam", "params", "quads", "spheres", "quadrics", "mesh", "mesh_nodes", "mesh_tris", "mesh_normals",
                  "hdr", "row_cdf", "col_cdf", "env_pdf", "blue_noise", "out_color", "out_normal", "out_ocolor",
-                 "out_oid", "out_sharp", "out_sg", "mesh_uvs")
+                 "out_oid", "out_sharp", "out_sg", "mesh_uvs", "out_def")
     _fields_ = ([(name, ctypes.c_void_p) for name in _POINTERS]
                 + [("tex", ctypes.c_void_p * 4)]
                 + [(name, ctypes.c_int) for name in ("nq", "ns", "nqd", "bn_ox", "bn_oy", "width", "height", "bounces")]
@@ -199,10 +212,11 @@ def pack_mesh(mesh):
     Constants: the inverse model matrix row-major and the material
     (PBR_MATERIAL for a mesh with an albedo), made on every call.  The
     tables are the mesh's ``kernel_tables``, made once by ``Scene.to``; a
-    mesh that did not pass through it gets them made for this call."""
+    mesh that did not pass through it, or whose soup or BVH was replaced
+    since, gets them made for this call."""
     mat = torch.full_like(mesh.mat_type, PBR_MATERIAL) if mesh.albedo is not None else mesh.mat_type
     consts = torch.cat([mesh.inv_matrix.reshape(16).to(torch.float32), mat.reshape(1).to(torch.float32)])
-    return consts, mesh.kernel_tables if mesh.kernel_tables is not None else mesh_tables(mesh)
+    return consts, kernel_tables_of(mesh)
 
 
 def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
@@ -249,15 +263,13 @@ def _check_call(scene: Scene, cfg: IntegratorConfig, width: int, height: int, bl
 def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int, frame_counter,
             rand_vec2, blue_noise: torch.Tensor, grads: bool):
     """Pack, check and launch one kernel configuration on the current
-    stream: (RadianceResult, sg or None).  CUDA tensors only."""
+    stream: (RadianceResult, sg or None, deferred or None).  CUDA tensors
+    only."""
     device = blue_noise.device
     if scene.quads is None:
         raise ValueError("the kernel needs at least one quad; a scene without quads runs on the wavefront "
                          "(trace_image)")
     name = configuration(scene, cfg)
-    if grads and (scene.mesh is not None or cfg.env == "hdri"):
-        raise NotImplementedError(f"the grads mode of the {name} configuration is not ported yet: ROADMAP, "
-                                  "K1-grad on mesh and HDRI (textured meshes included)")
     quads, sph, qdr = pack_scene(scene)
     cam = pack_camera(camera, width, height)
     params = pack_params(scene, cfg, device)
@@ -275,8 +287,6 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
     mesh_consts, tables = pack_mesh(scene.mesh) if scene.mesh is not None else (None, None)
     textured = is_textured(scene.mesh)
     maps = [getattr(scene.mesh, m) if textured else None for m in MAP_FIELDS]
-    if textured and tables.uvs is None:
-        raise ValueError("the mesh's kernel_tables lack its UV records: pass it through Scene.to again")
     env = scene.env if cfg.env == "hdri" else None
     hdr = (None,) * 4 if env is None else (env.hdr_image,) + tuple(env.env_cdf or (None,) * 3)
     if cfg.nee != "env":
@@ -303,8 +313,10 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
     oid, sharp = empty(height, width), empty(height, width)
     n_obj = nq + ns + nqd
     sg = empty(n_obj if cfg.transparent_tint else 2 * n_obj, height, width) if grads else None
+    n_def = sum(n for _, n in deferred_layout(cfg, textured).values())
+    deferred = empty(n_def, height, width) if grads else None
     outputs = {"out_color": color, "out_normal": normal, "out_ocolor": ocolor, "out_oid": oid, "out_sharp": sharp,
-               "out_sg": sg}
+               "out_sg": sg, "out_def": deferred if n_def else None}
     ptrs = {key: (0 if t is None else t.data_ptr()) for key, t in (tensors | outputs).items()}
     ptrs["cam"] = ptrs.pop("camera")
     lib = _library()
@@ -324,13 +336,15 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
         raise RuntimeError(f"trace_kernel ({name}{', grads' if grads else ''}) launch failed: CUDA error {err}")
     (GRAD_LAUNCHES if grads else LAUNCHES)[name] += 1
     return RadianceResult(color=color, object_normal=normal, object_color=ocolor, object_id=oid,
-                          pixel_sharpness=sharp), sg
+                          pixel_sharpness=sharp), sg, deferred
 
 
 def trace_image_fused_grads(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
                             frame_counter, rand_vec2, blue_noise: torch.Tensor):
-    """The kernel's grads mode: ``(RadianceResult, sg)``, sg the (n_sg, H, W)
-    path-replay planes of ``integrator.radiance.calculate_radiance``.
+    """The kernel's grads mode: ``(RadianceResult, sg, deferred)``, sg the
+    (n_sg, H, W) path-replay planes and deferred the (n_def, H, W) deferred
+    planes of ``integrator.radiance.calculate_radiance`` (whose color leaves
+    out what they defer; ``compose_deferred`` restores it).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
     """
@@ -349,16 +363,59 @@ def _pixel_sum(planes: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return torch.bmm(planes.transpose(0, 1), values).sum(0)
 
 
+def compose_deferred(result: RadianceResult, deferred: torch.Tensor, scene: Scene,
+                     cfg: IntegratorConfig) -> RadianceResult:
+    """The grads mode's color with what it defers composed back in torch,
+    the port of ``_compose_result``: + mw * get_hdr_color(mdir) under env
+    "hdri" (the map and ``hdr_exposure`` differentiable), then with a
+    textured mesh + emw * emission(em_uv) and the product of the albedo
+    factors, each bilinear sample decoded as pow(max(x, 0), 2.2)
+    (differentiable in the albedo and emissive maps; a bounce whose uv is
+    -INFINITY applied no factor).  No albedo is divided by: a texel may be
+    0.  The environment's CDF tables stay constants, as in JAX."""
+    layout = deferred_layout(cfg, is_textured(scene.mesh))
+    if not layout:
+        return result
+
+    def planes(name):  # (H, W, count), laid out as the plain version's (H, W, 3) tensors
+        first, count = layout[name]
+        return torch.movedim(deferred[first:first + count], 0, -1).contiguous()
+
+    color = result.color
+    if "mw" in layout:
+        color = color + planes("mw") * get_hdr_color(scene.env.hdr_image, planes("mdir"), scene.env.hdr_exposure)
+    mesh = scene.mesh
+    if "emw" in layout:
+        if mesh.emissive is not None:
+            emission = torch.pow(torch.clamp(sample_bilinear(mesh.emissive, planes("em_uv")), min=0.0), 2.2)
+            color = color + planes("emw") * emission
+        if mesh.albedo is not None:
+            uvs = planes("albedo_uv")
+            prod = torch.ones_like(color)
+            for b in range(cfg.bounces):
+                uv = uvs[..., 2 * b:2 * b + 2]
+                applied = (uv[..., :1] > -INFINITY)
+                albedo = torch.pow(torch.clamp(sample_bilinear(mesh.albedo, torch.where(applied, uv, 0.0)),
+                                               min=0.0), 2.2)
+                prod = prod * torch.where(applied, albedo, 1.0)
+            color = color * prod
+    return result._replace(color=color)
+
+
 class _PathReplay(torch.autograd.Function):
     """Port of ``_prb_fn``: differentiable in the sphere, quadric and quad
-    colors.
+    colors, and through its deferred planes in what ``compose_deferred``
+    composes (the HDR map and exposure, the albedo and emissive maps).
 
     The forward runs the grads mode (kernel or plain version, by device) and
-    saves the clamped color, the first-hit ids, the sg planes and the colors
-    in object-id order.  The backward ports ``f_bwd`` term for term: the
-    hit counts carry d log f / d c = 1 / c, the Beer planes 0.01 t / c inside
-    the clamp's linear region, and the first-hit ``object_color`` record a
-    one-hot term.  An output the loss does not use gets no term.
+    saves the clamped color, the first-hit ids, the sg planes, the deferred
+    planes and the colors in object-id order.  The backward ports ``f_bwd``
+    term for term: the hit counts carry d log f / d c = 1 / c, the Beer
+    planes 0.01 t / c inside the clamp's linear region, and the first-hit
+    ``object_color`` record a one-hot term; the env-terminated and
+    emissive-terminated paths add their weights' terms (the cotangent of mw
+    and emw times mw and emw), since those weights carry the same
+    ∂log-throughput sum.  An output the loss does not use gets no term.
     """
 
     @staticmethod
@@ -367,23 +424,30 @@ class _PathReplay(torch.autograd.Function):
         spheres = None if scene.spheres is None else scene.spheres._replace(color=sphere_color)
         quadrics = None if scene.quadrics is None else scene.quadrics._replace(color=quadric_color)
         scene = scene._replace(quads=scene.quads._replace(color=quad_color), spheres=spheres, quadrics=quadrics)
-        result, sg = trace_image_fused_grads(scene, camera, cfg, width, height, frame_counter, rand_vec2,
-                                             blue_noise)
+        result, sg, deferred = trace_image_fused_grads(scene, camera, cfg, width, height, frame_counter, rand_vec2,
+                                                       blue_noise)
         groups = [c for c in (sphere_color, quadric_color, quad_color) if c is not None]
         colors = torch.cat(groups)
         ctx.sizes = [0 if c is None else c.shape[0] for c in (sphere_color, quadric_color, quad_color)]
-        ctx.save_for_backward(result.color, result.object_id, sg, colors)
+        layout = deferred_layout(cfg, is_textured(scene.mesh))
+        ctx.weights = [layout[k][0] for k in ("mw", "emw") if k in layout]  # the first plane of each weight
+        ctx.save_for_backward(result.color, result.object_id, sg, colors, deferred)
         ctx.mark_non_differentiable(result.object_normal, result.object_id, result.pixel_sharpness)
         ctx.set_materialize_grads(False)
-        return tuple(result)
+        return tuple(result) + (deferred,)
 
     @staticmethod
-    def backward(ctx, g_color, g_normal, g_ocolor, g_oid, g_sharp):
-        color, oid, sg, colors = ctx.saved_tensors
+    def backward(ctx, g_color, g_normal, g_ocolor, g_oid, g_sharp, g_deferred):
+        color, oid, sg, colors, deferred = ctx.saved_tensors
         n_obj = colors.shape[0]
         gcol = torch.zeros_like(colors)
-        if g_color is not None:
-            per_plane = _pixel_sum(sg, g_color * color)
+        weighted = None if g_color is None else g_color * color
+        if g_deferred is not None:
+            for first in ctx.weights:
+                term = torch.movedim(g_deferred[first:first + 3] * deferred[first:first + 3], 0, -1)
+                weighted = term if weighted is None else weighted + term
+        if weighted is not None:
+            per_plane = _pixel_sum(sg, weighted)
             inv_c = 1.0 / torch.clamp(colors, min=1e-8)
             gcol = per_plane[:n_obj] * inv_c
             if sg.shape[0] > n_obj:  # Beer-Lambert planes (tint off)
@@ -399,17 +463,32 @@ class _PathReplay(torch.autograd.Function):
         return (gcol[ns + nqd:], g_sph, g_qdr) + (None,) * 8
 
 
+#: The tensors the path-replay route differentiates, by group: the colors,
+#: the HDR map and exposure, and a textured mesh's albedo and emissive maps.
+#: Every other scene or camera tensor is held fixed.
+DIFFERENTIABLE = {"Quads": ("color",), "UnitSpheres": ("color",), "Quadrics": ("color",),
+                  "Environment": ("hdr_image", "hdr_exposure"), "TriangleMesh": ("albedo", "emissive")}
+
+
+def _tensors(scene: Scene, camera: Camera):
+    """(group.field, tensor) of every tensor of the scene and camera."""
+    groups = [g for g in (scene.quads, scene.spheres, scene.quadrics, scene.mesh, scene.env, camera) if g is not None]
+    return [(type(g).__name__, name, t) for g in groups for name, t in zip(g._fields, g) if isinstance(t, torch.Tensor)]
+
+
 def _check_fixed_inputs(scene: Scene, camera: Camera) -> None:
     """Raise if a tensor the path-replay VJP holds fixed requires a gradient:
-    every tensor of every group but the sphere, quadric and quad colors."""
-    groups = [g for g in (scene.quads, scene.spheres, scene.quadrics, scene.env, camera) if g is not None]
-    fixed = [f"{type(g).__name__}.{name}" for g in groups for name, t in zip(g._fields, g)
-             if name != "color" and isinstance(t, torch.Tensor) and t.requires_grad]
+    the geometry (the mesh's transform, vertices, normals and uvs, the
+    quads', spheres' and quadrics' shapes), the normal and
+    metallic-roughness maps, the sun and the camera.  JAX's custom VJP gives
+    them zero cotangents without a word."""
+    fixed = [f"{group}.{name}" for group, name, t in _tensors(scene, camera)
+             if t.requires_grad and name not in DIFFERENTIABLE.get(group, ())]
     if fixed:
         raise NotImplementedError(
-            f"the path-replay gradient reaches only the sphere, quadric and quad colors, not {', '.join(fixed)}; "
-            "use the wavefront route (fused=False, or diff.make_render_loss) for geometry, sun and camera "
-            "gradients")
+            f"the path-replay gradient reaches only the sphere, quadric and quad colors, the HDR map and its "
+            f"exposure and the albedo and emissive maps, not {', '.join(fixed)}; use the wavefront route "
+            "(fused=False, or diff.make_render_loss) for geometry, sun, camera and the other maps' gradients")
 
 
 def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
@@ -421,30 +500,32 @@ def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width
     The device is ``blue_noise``'s: CPU runs the plain version, CUDA launches
     the kernel on the current stream without synchronising.
 
-    ``differentiable=True`` carries the path-replay VJP: gradients flow to
-    ``scene.quads.color``, ``scene.spheres.color`` and
-    ``scene.quadrics.color`` (the light's emission included).  When neither requires a gradient, or grad mode is off, the
-    call is the plain forward, as JAX's custom_vjp runs its primal.  Any
-    other scene or camera tensor that requires a gradient raises
-    ``NotImplementedError``: this route would leave it without one.
-    ``reorder=True`` (the staged, reorderable path) and
-    ``differentiable=True`` on mesh, HDRI and textured scenes are not ported
-    yet and raise ``NotImplementedError``; ``metal_roughness_lobe`` without
-    a textured mesh raises ``ValueError``, as JAX's kernel entry refuses it.
+    ``differentiable=True`` carries the path-replay VJP, in every
+    configuration: gradients flow to ``scene.quads.color``,
+    ``scene.spheres.color`` and ``scene.quadrics.color`` (the light's
+    emission included) and, through ``compose_deferred``, to
+    ``scene.env.hdr_image`` and ``hdr_exposure`` and the mesh's ``albedo``
+    and ``emissive`` maps.  When none of them requires a gradient, or grad
+    mode is off, the call is the plain forward, as JAX's custom_vjp runs its
+    primal.  Any other scene or camera tensor that requires a gradient
+    raises ``NotImplementedError``: this route would leave it without one.
+    Under env "hdri" the color then equals the forward's bit for bit; with a
+    textured mesh the albedo factors are multiplied in another order
+    (within float rounding of the forward).  ``reorder=True`` (the staged,
+    reorderable path) is not ported yet and raises ``NotImplementedError``;
+    ``metal_roughness_lobe`` without a textured mesh raises ``ValueError``,
+    as JAX's kernel entry refuses it.
     """
     if reorder:
         raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
     _check_call(scene, cfg, width, height, blue_noise)
-    if differentiable and (scene.mesh is not None or cfg.env == "hdri"):
-        raise NotImplementedError("differentiable=True on mesh, HDRI and textured scenes (K1-grad on mesh and "
-                                  "HDRI) is not ported yet: ROADMAP; use the wavefront route (fused=False, or "
-                                  "diff.make_render_loss)")
     if differentiable and torch.is_grad_enabled():
         _check_fixed_inputs(scene, camera)
-        colors = [None if g is None else g.color for g in (scene.quads, scene.spheres, scene.quadrics)]
-        if any(c is not None and c.requires_grad for c in colors):
-            return RadianceResult(*_PathReplay.apply(*colors, scene, camera, cfg, width, height, frame_counter,
-                                                     rand_vec2, blue_noise))
+        if any(t.requires_grad for _, _, t in _tensors(scene, camera)):
+            colors = [None if g is None else g.color for g in (scene.quads, scene.spheres, scene.quadrics)]
+            *outs, deferred = _PathReplay.apply(*colors, scene, camera, cfg, width, height, frame_counter,
+                                                rand_vec2, blue_noise)
+            return compose_deferred(RadianceResult(*outs), deferred, scene, cfg)
     if blue_noise.device.type == "cpu":
         return trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
     return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=False)[0]

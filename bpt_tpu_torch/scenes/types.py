@@ -60,18 +60,22 @@ class Quadrics(NamedTuple):
 
 
 class MeshTables(NamedTuple):
-    """A mesh's tables in the layout of the CUDA kernel (csrc/bvh.cuh,
+    """A mesh's tables in the layout of the CUDA kernels (csrc/bvh.cuh,
     csrc/textures.cuh), float32, 16-byte records: a node is (min.xyz,
     node_tri) and (max.xyz, node_right), the ids' int32 bits in the fourth
     lane; a triangle its three vertices, a normal record its three vertex
     normals, one per record.  A textured mesh (an albedo or a normal map)
     adds its 24-byte UV record (uv0, uv1, uv2); the kernel reads the maps
-    themselves from the mesh, (H, W, 3) float32."""
+    themselves from the mesh, (H, W, 3) float32.  ``source`` holds the soup
+    and BVH tensors the tables were made from (references, no copy), each
+    with its version counter then, so that tables that no longer match their
+    mesh, replaced or edited in place, are never used."""
 
     nodes: torch.Tensor  # (M, 2, 4)
     tris: torch.Tensor  # (T, 3, 4)
     normals: torch.Tensor  # (T, 3, 4)
     uvs: Optional[torch.Tensor] = None  # (T, 3, 2)
+    source: tuple = ()
 
 
 class TriangleMesh(NamedTuple):
@@ -84,9 +88,9 @@ class TriangleMesh(NamedTuple):
     mesh with an albedo is PBR_MATERIAL, decided per texel.
     ``kernel_tables`` holds ``mesh_tables(mesh)`` once ``Scene.to`` has put
     the mesh on a CUDA device, else None; it is made from the soup and the
-    BVH, so a mesh whose soup or BVH is replaced goes through ``Scene.to``
-    again (the transform and the material are read on
-    every call)."""
+    BVH, and a mesh whose soup or BVH tensors were replaced or edited in
+    place since then gets new tables (``kernel_tables_of``; the transform, the material and the
+    maps are read on every call)."""
 
     p0: torch.Tensor  # (T, 3) float32
     p1: torch.Tensor
@@ -120,8 +124,13 @@ def is_textured(mesh) -> bool:
     return mesh is not None and (mesh.albedo is not None or mesh.normal_map is not None)
 
 
+#: The TriangleMesh fields the kernel tables are made from.
+TABLE_SOURCE_FIELDS = ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2", "node_tri", "node_right", "node_min",
+                       "node_max")
+
+
 def mesh_tables(mesh: TriangleMesh) -> MeshTables:
-    """The CUDA kernel's tables of ``mesh``, on the mesh's device (84 MB for
+    """The CUDA kernels' tables of ``mesh``, on the mesh's device (84 MB for
     a 524,288-triangle mesh; a textured one adds 12.6 MB of UV records)."""
     def rows(xyz, w):  # built as int32 bits, so the ids' bit patterns never pass through float arithmetic
         return torch.cat([xyz.to(torch.float32).contiguous().view(torch.int32), w.to(torch.int32)[:, None]], dim=1)
@@ -130,11 +139,30 @@ def mesh_tables(mesh: TriangleMesh) -> MeshTables:
     nodes = torch.stack([rows(mesh.node_min, mesh.node_tri), rows(mesh.node_max, mesh.node_right)], dim=1)
     tris = torch.stack([rows(p, zeros) for p in (mesh.p0, mesh.p1, mesh.p2)], dim=1)
     normals = torch.stack([rows(n, zeros) for n in (mesh.n0, mesh.n1, mesh.n2)], dim=1)
-    tables = MeshTables(*(t.contiguous().view(torch.float32) for t in (nodes, tris, normals)))
+    tables = MeshTables(*(t.contiguous().view(torch.float32) for t in (nodes, tris, normals)),
+                        source=tuple((t, t._version) for t in (getattr(mesh, f) for f in TABLE_SOURCE_FIELDS)))
     if not is_textured(mesh):
         return tables
     uvs = torch.stack([mesh.uv0, mesh.uv1, mesh.uv2], dim=1).to(torch.float32).contiguous()
     return tables._replace(uvs=uvs)
+
+
+def resident_tables(mesh: TriangleMesh) -> Optional[MeshTables]:
+    """The mesh's ``kernel_tables`` if they were made from the soup and BVH
+    tensors it holds now, unedited since (and carry the UV records a
+    textured mesh needs), else None."""
+    tables = mesh.kernel_tables
+    if tables is None or len(tables.source) != len(TABLE_SOURCE_FIELDS):
+        return None
+    if not all(t is getattr(mesh, f) and v == t._version for (t, v), f in zip(tables.source, TABLE_SOURCE_FIELDS)):
+        return None
+    return None if is_textured(mesh) and tables.uvs is None else tables
+
+
+def kernel_tables_of(mesh: TriangleMesh) -> MeshTables:
+    """The mesh's resident tables, or tables made for this call."""
+    tables = resident_tables(mesh)
+    return mesh_tables(mesh) if tables is None else tables
 
 
 class Environment(NamedTuple):
@@ -161,8 +189,11 @@ class Scene(NamedTuple):
         """Every family that is set, on ``device``, field by field and into
         nested tuples (the environment's CDF tables); a host number in a 0-d
         field becomes a float32 tensor (``shape_k``, ``sun_power``,
-        ``hdr_exposure``), or int32 for ``mat_type``.  A mesh's kernel tables
-        are made anew on a CUDA device and dropped elsewhere."""
+        ``hdr_exposure``), or int32 for ``mat_type``.  On a CUDA device a mesh
+        keeps its kernel tables where its soup and BVH were already there and
+        the tables were made from them (an inverse-rendering step moves the
+        scene every step: 84 MB of tables for a 524,288-triangle mesh), and
+        gets new ones otherwise; elsewhere they are dropped."""
 
         def field(t, name):
             if t is None or name == "kernel_tables":
@@ -180,7 +211,9 @@ class Scene(NamedTuple):
 
         scene = Scene(*(move(group) for group in self))
         if scene.mesh is not None and torch.device(device).type == "cuda":
-            scene = scene._replace(mesh=scene.mesh._replace(kernel_tables=mesh_tables(scene.mesh)))
+            tables = resident_tables(scene.mesh._replace(kernel_tables=self.mesh.kernel_tables))
+            scene = scene._replace(mesh=scene.mesh._replace(
+                kernel_tables=mesh_tables(scene.mesh) if tables is None else tables))
         return scene
 
 

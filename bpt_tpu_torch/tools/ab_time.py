@@ -14,8 +14,12 @@ demo scenes, 50 launches each), the mesh and HDRI ones' (bench.py's
 with sun and env NEE, 20 launches each), the textured ones' (the checkout's
 chip_smoke.textured_stand_in, that mesh with four 2048² maps, from
 chip_smoke.py's raised camera: the glTF demo's configuration and the HDRI
-demo's with sun and env NEE, the lobe on, 20 launches each), and the
-registers and stack nvcc reported for its build.  Device times compare only within one call; put each version
+demo's with sun and env NEE, the lobe on, 20 launches each), the grads
+mode of each mesh, HDRI and textured configuration (20 launches each), the
+closest-hit kernel on the capacity mesh's 1024² primary rays from the glTF
+camera (50 launches), and the registers and stack nvcc reported for its
+builds.  A checkout that lacks a kernel or a grads configuration prints no
+number for it.  Device times compare only within one call; put each version
 more than once, in turns.
 """
 
@@ -60,7 +64,7 @@ def measure(checkout: str) -> None:
     def grads():
         return megakernel.trace_image_fused_grads(scene, cam, cfg, size, size, 2.0, rv, bn)
 
-    def device_ms(fn, iters=50):
+    def device_ms(fn, iters=50, kernel="trace_kernel"):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -68,7 +72,7 @@ def measure(checkout: str) -> None:
                 fn()
             torch.cuda.synchronize()
         rows = [(getattr(ev, "self_device_time_total", 0.0), ev.count) for ev in prof.key_averages()
-                if ev.device_type == DeviceType.CUDA and "trace_kernel" in ev.key]
+                if ev.device_type == DeviceType.CUDA and kernel in ev.key]
         return sum(us for us, _ in rows) / 1e3 / max(sum(n for _, n in rows), 1)
 
     def event_ms(fn, iters):
@@ -113,6 +117,24 @@ def measure(checkout: str) -> None:
         numbers[f"{name}_fwd_device_ms"] = device_ms(
             lambda: megakernel.trace_image_fused(fscene, fcam, fcfg, size, size, 2.0, rv, bn),
             20 if fscene.mesh is not None else 50)
+    if hasattr(megakernel, "compose_deferred"):  # the grads mode of mesh, HDRI and textured scenes came with it
+        for name, (fscene, fcam, fcfg) in families.items():
+            if fscene.mesh is not None:
+                numbers[f"{name}_grads_device_ms"] = device_ms(
+                    lambda: megakernel.trace_image_fused_grads(fscene, fcam, fcfg, size, size, 2.0, rv, bn), 20)
+    if (Path(checkout) / "bpt_tpu_torch" / "kernels" / "traverse.py").exists():  # the closest-hit kernel
+        from bpt_tpu_torch.core.rng import rng_seed
+        from bpt_tpu_torch.camera import generate_rays
+        from bpt_tpu_torch.core.vecmath import transform_dir, transform_point
+        from bpt_tpu_torch.integrator.frame import pixel_grid
+        from bpt_tpu_torch.kernels import traverse
+
+        mesh = families["mesh"][0].mesh
+        px, py = pixel_grid(size, size, dev)
+        ro, rd, _ = generate_rays(gltf_camera(device=dev), px, py, size, size, rng_seed(2.0, px, py))
+        ro, rd = transform_point(mesh.inv_matrix, ro), transform_dir(mesh.inv_matrix, rd)
+        numbers["closest_hit_device_ms"] = device_ms(lambda: traverse.closest_hit(ro, rd, True, None, mesh), 50,
+                                                     "closest_hit_kernel")
     build = []
     for log in glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log")):
         build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]

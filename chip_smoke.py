@@ -6,7 +6,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 1. device       — a CUDA device must exist; prints its name and power limit
                   (nvidia-smi) and the torch, CUDA and nvcc versions.
-2. build        — builds the kernels from bpt_tpu_torch/csrc with nvcc.
+2. build        — builds the kernels from bpt_tpu_torch/csrc with nvcc, one
+                  process per source, all at once (the megakernel and the
+                  closest-hit kernel).
 3. parity       — the forward kernel against its plain PyTorch version at
                   1024², 4 bounces, frame 2, for both right-sphere materials.
 4. main         — the serving path: ProgressiveRenderer (on the card by
@@ -70,9 +72,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
 17. timing-mesh / timing-hdri — device time (torch.profiler), time through
                   the wrapper (CUDA events), the plain version's time, the
                   bound and its share, peak device memory.
-18. refusals    — differentiable=True and the grads mode on mesh, HDRI and
-                  textured scenes raise NotImplementedError,
-                  metal_roughness_lobe without a textured mesh ValueError.
+18. refusals    — differentiable=True runs on mesh, HDRI and textured
+                  scenes (a quad color, hdr_exposure, the albedo map get
+                  gradients); reorder=True and a mesh transform, vertices or
+                  normal map that requires a gradient raise
+                  NotImplementedError, metal_roughness_lobe without a
+                  textured mesh ValueError.
 19. parity-textured — the textured configuration against its plain version
                   at 1024², 4 bounces, frame 2, bit for bit, on a stand-in at
                   the reference's capacity (the 524,288-triangle heightfield
@@ -97,6 +102,45 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   UV records read added) and its share, peak device memory.
 22. parity-camera — the Cornell kernel with a thin lens (aperture 1, focus
                   100) and with camera_is_moving, bit for bit at 1024².
+23. parity-closest-hit — the closest-hit kernel against the plain walk, bit
+                  for bit in t, tri, u and v, at 1024²: the capacity mesh's
+                  primary rays from the glTF and the raised camera, bounce
+                  1's rays of a plain wavefront pass with its lane mask, the
+                  blob METAL and TRANSPARENT (cull off), the textured
+                  stand-in; its recompute VJP on the card against the same
+                  backward on CPU copies (rtol 1e-5).
+24. wavefront-mesh — trace_image at 1024², 4 bounces, on the capacity scene
+                  and the textured stand-in: the kernel walk against the
+                  plain walk bit for bit, one closest-hit launch per bounce.
+25. grad-parity-mesh — the grads mode of the mesh, HDRI sun and env (the sun
+                  above the horizon), sky-with-a-mesh and textured (glTF
+                  quad NEE with the lobe, HDRI sun, HDRI env) configurations
+                  against its plain version on every plane, bit for bit;
+                  the color composed from the deferred planes against the
+                  forward kernel's (bit for bit without a textured mesh);
+                  env-terminated and emissive-terminated lanes and albedo
+                  factors at every bounce must occur.
+26. grad-mesh   — at 256², the fused gradient of mean(color·[1,2,3]) on the
+                  textured stand-in under the HDRI (sun NEE) in a quad
+                  color, hdr_exposure and the 8 albedo and 8 emissive texels
+                  with the largest gradients, against autograd through the
+                  plain version (rtol 1e-4) and central differences of the
+                  kernel's forward (rtol 2e-2); the mesh translation
+                  gradient of the wavefront with the kernel walk against the
+                  plain walk (rtol 1e-5).
+27. train-textured / train-mesh — apps.inverse_rendering.recover_albedo on
+                  the stand-in at 1024², 4 bounces, a 64² albedo: 10 Adam
+                  steps of the fused route (loss and albedo error fall) and
+                  3 of the wavefront route (loss falls), each route's
+                  launches counted; 3 Adam steps of each other new grads
+                  configuration.
+28. timing-closest-hit / timing-grads-mesh / timing-inverse-rendering —
+                  device time (torch.profiler), time through the wrapper
+                  (CUDA events), plain time, bound and share of the
+                  closest-hit kernel and of each new grads configuration;
+                  the wavefront pass with either walk; the textured
+                  inverse-rendering fwd+bwd step of both routes (ms,
+                  Mrays/s, peak device memory).
 
 It ends with a JSON line of per-kernel results (one entry per mode and
 configuration, each with its bound, the least time the card could take for
@@ -159,6 +203,9 @@ TEX_DECODE_FLOP = 3
 NORMAL_MAP_FLOP = 75
 MESH_UV_FLOP = 12
 LOBE_FLOP = 70
+CH_RAY_FLOP = 15  # the closest-hit kernel, per live lane: the inverse direction (3) and the root slab test (12)
+CH_RAY_BYTES = 24  # the closest-hit kernel reads a live lane's ro and rd
+CH_RESULT_BYTES = 20  # and writes every lane's t, u, v and int64 triangle id
 ENV = {"none": 0, "sky": 1, "hdri": 2}
 NEE = {"quad": 0, "sun": 1, "env": 2}
 
@@ -229,8 +276,8 @@ def mesh_records_read(lane_counts) -> list[int]:
 
 def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadrics: int = 0,
                 sky: bool = False, mesh: bool = False, hdri=None, env_nee: bool = False,
-                textured: bool = False) -> tuple[float, float]:
-    """(FP32 operations, bytes) the forward kernel needs for one frame whose
+                textured: bool = False, deferred: bool = False) -> tuple[float, float]:
+    """(FP32 operations, bytes) the kernel needs for one frame whose
     plain run reported ``lane_counts`` (per bounce: live, hit and missed
     lanes, the torus march's steps, the mesh walk's inner-node visits and
     triangle tests on live lanes and the mesh records it read).  Each input
@@ -247,14 +294,18 @@ def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadri
     UV of each PBR hit and the lobe draws add their operations, and each
     distinct texel the samples read (12 bytes, RGB; 8 of the
     metallic-roughness map, whose G and B are all the decode reads) and the
-    24-byte UV record of each winning triangle their bytes."""
+    24-byte UV record of each winning triangle their bytes.  With
+    ``deferred`` (the grads mode, whose own planes the caller adds) the
+    kernel leaves the environment's radiance on a miss under ``hdri`` and
+    the albedo's samples to the composition outside it: neither map is read
+    and neither lookup is counted; the CDF tables of env NEE still are."""
     live = sum(int(c.live) for c in lane_counts)
     hits = sum(int(c.hits) for c in lane_counts)
     misses = sum(int(c.misses) for c in lane_counts)
     flop = (pixels * RAYGEN_FLOP + live * (n_spheres * SPHERE_FLOP + n_quads * QUAD_FLOP) + hits * HIT_FLOP
             + (live * QUADRIC_SET_FLOP if n_quadrics else 0)
             + sum(int(c.torus_steps) for c in lane_counts) * TORUS_STEP_FLOP
-            + (misses * SKY_FLOP if sky else 0) + (misses * HDRI_FLOP if hdri is not None else 0))
+            + (misses * SKY_FLOP if sky else 0) + (misses * HDRI_FLOP if hdri is not None and not deferred else 0))
     nbytes = (256 * 256 * 4 * 4 + 4 * (16 + 22 + 20 * n_quads + 21 * n_spheres + 20 * n_quadrics)
               + 11 * 4 * pixels)
     if mesh:
@@ -263,14 +314,17 @@ def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadri
         nodes, tris, normals = mesh_records_read(lane_counts)
         nbytes += 4 * 17 + 32 * nodes + 48 * tris + 48 * normals
     if hdri is not None:
-        nbytes += 4 * sum(t.numel() for t in (hdri.hdr_image, *(hdri.env_cdf if env_nee else ())))
+        tables = (() if deferred else (hdri.hdr_image,)) + (tuple(hdri.env_cdf) if env_nee else ())
+        nbytes += 4 * sum(t.numel() for t in tables)
     if textured:
         albedo, normal, metal_rough, emissive = (int(x) for x in sum(c.texel_samples for c in lane_counts))
-        flop += ((albedo + normal + metal_rough + emissive) * TEX_SAMPLE_FLOP
-                 + (albedo + metal_rough + emissive) * TEX_DECODE_FLOP + normal * NORMAL_MAP_FLOP
+        sampled = 0 if deferred else albedo  # the albedo samples the kernel makes itself
+        flop += ((sampled + normal + metal_rough + emissive) * TEX_SAMPLE_FLOP
+                 + (sampled + metal_rough + emissive) * TEX_DECODE_FLOP + normal * NORMAL_MAP_FLOP
                  + albedo * MESH_UV_FLOP + sum(int(c.lobe_draws) for c in lane_counts) * LOBE_FLOP)
         albedo_t, normal_t, metal_rough_t, emissive_t = texels_read(lane_counts)
-        nbytes += 12 * (albedo_t + normal_t + emissive_t) + 8 * metal_rough_t + 24 * mesh_records_read(lane_counts)[2]
+        nbytes += (12 * ((0 if deferred else albedo_t) + normal_t + emissive_t) + 8 * metal_rough_t
+                   + 24 * mesh_records_read(lane_counts)[2])
     return flop, nbytes
 
 
@@ -310,12 +364,18 @@ def profiled_step(fn, iters: int) -> tuple[float, float, list]:
     return host_ms, sum(r[1] for r in rows), rows
 
 
-def kernel_device_ms(fn, iters: int, name: str) -> float | None:
+def kernel_device_ms(fn, iters: int, name: str, tries: int = 3) -> float | None:
     """Mean device time per launch of the CUDA kernels whose name contains
     ``name`` (spaces ignored) while ``fn`` runs; None when the profiler
-    reports none."""
+    reports none.  A profiler session that recorded no device activity at
+    all (it happens now and then on the card) is run again, up to
+    ``tries`` sessions."""
     name = name.replace(" ", "")
-    rows = [(ms, n) for key, ms, n in profiled_step(fn, iters)[2] if name in key.replace(" ", "")]
+    for _ in range(tries):
+        device_rows = profiled_step(fn, iters)[2]
+        if device_rows:
+            break
+    rows = [(ms, n) for key, ms, n in device_rows if name in key.replace(" ", "")]
     return sum(ms for ms, _ in rows) / sum(n for _, n in rows) if rows else None
 
 
@@ -333,9 +393,9 @@ def blob_model(T=128, seed=0):
                      albedo=None, normal_map=None, metallic_roughness=None, emissive=None)
 
 
-def mesh_and_hdri(card: str, bn: torch.Tensor) -> list:
+def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
     """Phases 15-18: the mesh and HDRI configurations.  Returns their
-    entries of the kernels line."""
+    entries of the kernels line and the capacity mesh (host tensors)."""
     import dataclasses
 
     from bpt_tpu_torch.accel.builder import build_bvh_sah, triangle_aabbs
@@ -478,18 +538,35 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> list:
                         "device_ms": dev_ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                         "library_ms": None})
 
-    # ---- 18. what the slice leaves out raises --------------------------------
-    refused = []
-    textured = gltf_scene(mesh_from_model(blob_model(8))._replace(albedo=torch.ones(4, 4, 3)), device=dev)
+    # ---- 18. the fused route runs on these scenes; what it cannot carry raises --------
+    refused, ran = [], []
+    textured = gltf_scene(mesh_from_model(blob_model(8))._replace(albedo=torch.ones(4, 4, 3),
+                                                                  normal_map=torch.full((4, 4, 3), 0.5)), device=dev)
+
+    def with_grad(scene, group, field):
+        leaf = getattr(getattr(scene, group), field).clone().requires_grad_(True)
+        return scene._replace(**{group: getattr(scene, group)._replace(**{field: leaf})}), leaf
+
+    for label, scene, cam, cfg, group, field in (
+            ("mesh, a quad color", cap_scene, gltf_camera(dev), mesh_cfg, "quads", "color"),
+            ("hdri, hdr_exposure", hdri_cap, hdri_camera(dev), env_cfg, "env", "hdr_exposure"),
+            ("textured mesh, the albedo map", textured, gltf_camera(dev), mesh_cfg, "mesh", "albedo")):
+        s, leaf = with_grad(scene, group, field)
+        out = megakernel.trace_image_fused(s, cam, cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)
+        torch.autograd.grad(out.color.sum(), [leaf])
+        ran.append(label)
     for label, error, fn in (
-            ("differentiable=True, mesh", NotImplementedError, lambda: megakernel.trace_image_fused(
-                cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
-            ("differentiable=True, hdri", NotImplementedError, lambda: megakernel.trace_image_fused(
-                hdri_cap, hdri_camera(dev), env_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
-            ("grads mode, mesh", NotImplementedError, lambda: megakernel.trace_image_fused_grads(
-                cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn)),
-            ("differentiable=True, textured mesh", NotImplementedError, lambda: megakernel.trace_image_fused(
-                textured, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
+            ("reorder=True", NotImplementedError, lambda: megakernel.trace_image_fused(
+                cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True, reorder=True)),
+            ("a mesh transform that requires a gradient, fused", NotImplementedError,
+             lambda: megakernel.trace_image_fused(with_grad(cap_scene, "mesh", "inv_matrix")[0], gltf_camera(dev),
+                                                  mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
+            ("vertices that require a gradient, fused", NotImplementedError,
+             lambda: megakernel.trace_image_fused(with_grad(cap_scene, "mesh", "p0")[0], gltf_camera(dev),
+                                                  mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
+            ("a normal map that requires a gradient, fused", NotImplementedError,
+             lambda: megakernel.trace_image_fused(with_grad(textured, "mesh", "normal_map")[0], gltf_camera(dev),
+                                                  mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
             ("metal_roughness_lobe without a textured mesh", ValueError, lambda: megakernel.trace_image_fused(
                 cap_scene, gltf_camera(dev), dataclasses.replace(mesh_cfg, metal_roughness_lobe=True), 8, 8, 1.0,
                 RAND_VEC2, bn))):
@@ -499,8 +576,8 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> list:
             refused.append(f"{error.__name__} for {label}")
         else:
             raise AssertionError(f"{label} did not raise {error.__name__}")
-    phase("refusals", ", ".join(refused))
-    return entries
+    phase("refusals", f"differentiable=True ran with gradients on: {', '.join(ran)}; raised: {', '.join(refused)}")
+    return entries, capacity
 
 
 def textured_stand_in(model, size: int = 2048, seed: int = 6):
@@ -539,9 +616,10 @@ def textured_stand_in(model, size: int = 2048, seed: int = 6):
     return model._replace(uv0=uv(model.p0), uv1=uv(model.p1), uv2=uv(model.p2), **maps)
 
 
-def textured_and_camera(card: str, bn: torch.Tensor) -> list:
+def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
     """Phases 19-22: the textured configuration and the camera cases.
-    Returns the textured entry of the kernels line."""
+    Returns the textured entry of the kernels line, the textured stand-in's
+    model and its mesh (host tensors)."""
     from bpt_tpu_torch.camera import Camera
     from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
     from bpt_tpu_torch.integrator import IntegratorConfig
@@ -558,7 +636,7 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> list:
     mesh = mesh_from_model(model, mat_type=DIFFUSE, use_native="require")  # host tensors: the renderer moves them
     gltf = gltf_scene(mesh, device=dev)
     hdri = hdri_scene(mesh, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev)  # the sun above the horizon
-    table_mb = sum(t.numel() * 4 for t in megakernel.pack_mesh(gltf.mesh)[1] if t is not None) / 1e6
+    table_mb = sum(t.numel() * 4 for t in megakernel.pack_mesh(gltf.mesh)[1][:4] if t is not None) / 1e6
     map_mb = sum(getattr(gltf.mesh, m).numel() * 4 for m in MAP_FIELDS) / 1e6
     shapes = [tuple(getattr(model, m).shape) for m in MAP_FIELDS]
     phase("parity-textured", f"stand-in: {model.p0.shape[0]} triangles, maps {shapes}, u in "
@@ -710,6 +788,414 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> list:
         phase("parity-camera", f"{label}: " + json.dumps(stats))
         if not stats["ok"]:
             raise AssertionError(f"the Cornell kernel disagrees with its plain version ({label})")
+    return entries, model, mesh
+
+
+def closest_hit_work(ro, rd, cull: bool, active, mesh) -> tuple[float, float, list]:
+    """(FP32 operations, bytes, [inner-node visits, triangle tests]) of one
+    closest-hit launch on these rays, from the plain walk's counts: the
+    walk's operations per lane, visit and test (as ``kernel_work`` counts
+    them for the megakernel), each live lane's ray and the lane mask (when
+    there is one) read once, each lane's result written once, and each
+    distinct 32-byte node and 48-byte triangle record read."""
+    from bpt_tpu_torch.accel.traverse import MAX_STACK_DEPTH, traverse_bvh
+
+    steps = []
+    traverse_bvh(mesh.node_tri, mesh.node_right, mesh.node_min, mesh.node_max, mesh.p0, mesh.p1, mesh.p2, ro, rd,
+                 cull, MAX_STACK_DEPTH, active=active, steps_out=steps)
+    visits, tests = int(steps[0].sum()), int(steps[1].sum())
+    lanes = ro[..., 0].numel()
+    live = lanes if active is None else int(active.sum())
+    flop = live * CH_RAY_FLOP + visits * NODE_VISIT_FLOP + tests * TRI_TEST_FLOP
+    nbytes = (live * CH_RAY_BYTES + (0 if active is None else lanes) + lanes * CH_RESULT_BYTES
+              + 32 * int(steps[2].sum()) + 48 * int(steps[3].sum()))
+    return flop, nbytes, [visits, tests]
+
+
+def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_model) -> list:
+    """Phases 23-28: the wavefront closest-hit kernel, the grads mode of the
+    mesh, HDRI and textured configurations, their gradients and the textured
+    inverse-rendering cell.  ``capacity`` and ``stand_in`` are the capacity
+    mesh and the textured stand-in (host tensors), ``stand_in_model`` the
+    stand-in's model.  Returns their entries of the kernels line."""
+    import dataclasses
+
+    from bpt_tpu_torch.accel import traverse as accel_traverse
+    from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
+    from bpt_tpu_torch.apps.inverse_rendering import recover_albedo
+    from bpt_tpu_torch.camera import Camera, generate_rays
+    from bpt_tpu_torch.core.rng import rng_seed
+    from bpt_tpu_torch.core.vecmath import transform_dir, transform_point
+    from bpt_tpu_torch.diff.inverse import optimize, render_avg
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.integrator.frame import pixel_grid, trace_image
+    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.kernels import traverse as closest_hit
+    from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, hdri_camera, hdri_scene, mesh_from_model
+    from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene
+    from bpt_tpu_torch.scenes.types import METAL, TRANSPARENT
+
+    dev = torch.device("cuda")
+    raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0).to(dev)
+    place = dict(rotation=(0.3, 0.5, 0.0), scale=(1.5, 1.5, 1.5), translation=(0.0, -20.0, -85.0))
+    cap = gltf_scene(capacity, device=dev)
+    tex = gltf_scene(stand_in, device=dev)
+    pixels = SIZE * SIZE
+
+    def primary(mesh, cam):
+        """1024² primary rays of frame 2 in the mesh's object space."""
+        px, py = pixel_grid(SIZE, SIZE, dev)
+        ro, rd, _ = generate_rays(cam, px, py, SIZE, SIZE, rng_seed(2.0, px, py))
+        return transform_point(mesh.inv_matrix, ro), transform_dir(mesh.inv_matrix, rd)
+
+    def bounce_rays(scene, cam, cfg, bounce):
+        """A bounce's object-space rays and live lanes in a plain wavefront
+        pass (the plain walk's own arguments)."""
+        seen = []
+        walk = accel_traverse.traverse_bvh
+
+        def spy(*args, **kw):
+            seen.append((args[7], args[8], kw.get("active")))
+            return walk(*args, **kw)
+
+        accel_traverse.traverse_bvh = spy
+        try:
+            trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, plain_walk=True)
+        finally:
+            accel_traverse.traverse_bvh = walk
+        return seen[bounce]
+
+    # ---- 23. the closest-hit kernel against the plain walk ---------------------------
+    blobs = {mat: gltf_scene(mesh_from_model(blob_model(), mat_type=mat, **place), device=dev).mesh
+             for mat in (METAL, TRANSPARENT)}
+    # bounce 2: the lanes whose shadow ray failed at bounce 1 are off the mask (from the glTF camera no
+    # primary ray ends on the light)
+    ro_b, rd_b, act_b = bounce_rays(cap, gltf_camera(dev), IntegratorConfig(bounces=BOUNCES), 2)
+    cases = [("capacity, primary rays, glTF camera", cap.mesh, *primary(cap.mesh, gltf_camera(dev)), None),
+             ("capacity, primary rays, raised camera", cap.mesh, *primary(cap.mesh, raised), None),
+             ("capacity, bounce 2 of a plain pass, its live lanes only", cap.mesh, ro_b, rd_b, act_b),
+             ("blob METAL, primary rays", blobs[METAL], *primary(blobs[METAL], gltf_camera(dev)), None),
+             ("blob TRANSPARENT (cull off), primary rays", blobs[TRANSPARENT],
+              *primary(blobs[TRANSPARENT], gltf_camera(dev)), None),
+             ("textured stand-in, primary rays, raised camera", tex.mesh, *primary(tex.mesh, raised), None)]
+    ch_err, plain_times, ch_timing = 0.0, {}, {}
+    for label, mesh, ro, rd, act in cases:
+        cull = mesh.albedo is not None or int(mesh.mat_type) != TRANSPARENT
+        got = closest_hit.closest_hit(ro, rd, cull, act, mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = closest_hit.closest_hit_reference(ro, rd, cull, act, mesh)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_times[label] = plain_s * 1e3
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref))
+        ch_err = max(ch_err, max((a.double() - b.double()).abs().max().item() for a, b in zip(got, ref)))
+        hits = int((got[1] >= 0).sum())
+        masked = ("" if act is None else
+                  f", {int((~act).sum())} lanes masked, all missing: {bool((got[1][~act] < 0).all())}")
+        phase("parity-closest-hit", f"{label}: {hits} of {got[1].numel()} lanes hit{masked}, t/tri/u/v bit-equal "
+                                    f"{equal}, plain walk {plain_s:.2f} s")
+        if not equal or hits == 0 or (act is not None and not (bool((got[1][~act] < 0).all()) and (~act).any())):
+            raise AssertionError(f"the closest-hit kernel disagrees with the plain walk ({label})")
+        if label in (cases[0][0], cases[2][0]):  # timed here, next to the parity run (phase 28 reports)
+            def call(mesh=mesh, ro=ro, rd=rd, act=act, cull=cull):
+                return closest_hit.closest_hit(ro, rd, cull, act, mesh)
+
+            ch_timing[label] = (cuda_ms(call, iters=20, warmup=3), kernel_device_ms(call, 10, "closest_hit_kernel"))
+    # the recompute VJP on the card against the same backward on CPU copies
+    ro, rd = primary(cap.mesh, raised)
+    ro, rd = ro.clone().requires_grad_(True), rd.clone().requires_grad_(True)
+    t, tri, u, v = closest_hit.closest_hit(ro, rd, True, None, cap.mesh)
+    w = torch.randn(3, *t.shape, device=dev, generator=torch.Generator(dev).manual_seed(3))
+    g_card = torch.autograd.grad((torch.where(tri >= 0, t, 0.0) * w[0] + u * w[1] + v * w[2]).sum(), [ro, rd])
+    cpu = [x.detach().cpu() for x in (ro, rd, cap.mesh.p0, cap.mesh.p1, cap.mesh.p2, tri)]
+    g_cpu = closest_hit.recompute_vjp(cpu[0], cpu[1], cpu[2:5], cpu[5],
+                                      (torch.where(cpu[5] >= 0, w[0].cpu(), 0.0), w[1].cpu(), w[2].cpu()),
+                                      (True, True, False, False, False))
+    vjp_err = max(((a.cpu() - b).abs() / b.abs().clamp_min(1e-6)).max().item() for a, b in zip(g_card, g_cpu))
+    phase("parity-closest-hit", f"recompute VJP, {int((tri >= 0).sum())} hit lanes: (g_ro, g_rd) on the card vs the "
+                                f"CPU backward, max relative difference {vjp_err:.3e}")
+    if not vjp_err <= 1e-5:
+        raise AssertionError("the closest-hit VJP on the card disagrees with the CPU backward")
+
+    # ---- 24. the wavefront pass with the kernel walk against the plain walk ----------
+    wf_cfg = IntegratorConfig(bounces=BOUNCES)
+    lobe_cfg = IntegratorConfig(bounces=BOUNCES, metal_roughness_lobe=True)
+    wavefront = {}
+    for key, scene, cam, cfg in (("capacity", cap, gltf_camera(dev), wf_cfg), ("textured", tex, raised, lobe_cfg)):
+        closest_hit.reset_launches()
+        megakernel.reset_launches()
+        got = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        torch.cuda.synchronize()
+        per_pass = closest_hit.LAUNCHES["closest_hit"]
+        others = sum(megakernel.LAUNCHES.values()) + sum(megakernel.GRAD_LAUNCHES.values())
+        t0 = time.perf_counter()
+        ref = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, plain_walk=True)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        stats = compare(got, ref)
+        kernel_ms = cuda_ms(lambda: trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn), iters=3, warmup=1)
+        wavefront[key] = (kernel_ms, plain_ms)
+        phase("wavefront-mesh", f"{card}: {key} {SIZE}x{SIZE}, {BOUNCES} bounces: trace_image with the kernel walk "
+                                f"{kernel_ms:.3f} ms, with the plain walk {plain_ms:.3f} ms; closest-hit launches per "
+                                f"pass {per_pass}, megakernel launches {others}; " + json.dumps(stats))
+        if not stats["ok"] or per_pass != BOUNCES or others != 0:
+            raise AssertionError(f"the wavefront pass with the kernel walk disagrees ({key}: {per_pass} launches)")
+
+    # ---- 25. the grads mode of the new configurations against its plain version ------
+    hdri_base = dict(bounces=BOUNCES, env="hdri", diffuse_indirect_max=2)
+    sun_cfg = IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **hdri_base)
+    env_cfg = IntegratorConfig(nee="env", **hdri_base)
+    sun_up = synthetic_hdr(sun_uv=(0.7, 0.7))  # the sun above the horizon
+    hdri_cap = hdri_scene(capacity, sun_up, device=dev)
+    hdri_tex = hdri_scene(stand_in, sun_up, device=dev)
+    sky_mesh = physical_sky_scene(device=dev)._replace(mesh=cap.mesh)
+    lobe = dict(metal_roughness_lobe=True)
+    grads_cases = [  # (key, scene, camera, cfg)
+        ("mesh", cap, gltf_camera(dev), wf_cfg),
+        ("hdri_sun", hdri_cap, hdri_camera(dev), sun_cfg),
+        ("hdri_env", hdri_cap, hdri_camera(dev), env_cfg),
+        ("sky_mesh", sky_mesh, raised, IntegratorConfig(bounces=BOUNCES, env="sky", nee="sun")),
+        ("textured", tex, raised, lobe_cfg),
+        ("textured_hdri_sun", hdri_tex, raised, dataclasses.replace(sun_cfg, **lobe)),
+        ("textured_hdri_env", hdri_tex, raised, dataclasses.replace(env_cfg, **lobe)),
+    ]
+    grads_info = {}
+    for key, scene, cam, cfg in grads_cases:
+        got, sg, deferred = megakernel.trace_image_fused_grads(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        lanes = []
+        t0 = time.perf_counter()
+        ref, sg_ref, deferred_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, SIZE, SIZE, 2.0,
+                                                                                 RAND_VEC2, bn, lane_counts=lanes)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        fwd = megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        composed = megakernel.compose_deferred(got, deferred, scene, cfg).color
+        torch.cuda.synchronize()
+        stats = compare(got, ref)
+        plane_err = max((sg - sg_ref).abs().max().item(), (deferred - deferred_ref).abs().max().item()
+                        if deferred.numel() else 0.0)
+        color_abs = (composed - fwd.color).abs().max().item()
+        color_rel = ((composed - fwd.color).abs() / fwd.color.abs().clamp_min(1e-6)).max().item()
+        others_equal = all(torch.equal(a, b) for a, b in zip(tuple(got)[1:], tuple(fwd)[1:]))
+        layout = megakernel.deferred_layout(cfg, scene.mesh.albedo is not None or scene.mesh.normal_map is not None)
+        reached = {}
+        if "mw" in layout:
+            reached["env-terminated lanes"] = int((deferred[0:3].amax(0) > 0).sum())
+        if "emw" in layout:
+            first = layout["emw"][0]
+            reached["emissive-terminated lanes"] = int((deferred[first:first + 3].amax(0) > 0).sum())
+            first = layout["albedo_uv"][0]
+            reached["albedo factors per bounce"] = [int((deferred[first + 2 * b] > -1e5).sum()) for b in range(BOUNCES)]
+        textured_cfg = "emw" in layout
+        ok = (stats["ok"] and plane_err == 0.0 and tuple(sg.shape) == tuple(sg_ref.shape) and others_equal
+              and (color_abs <= 1e-6 + 1e-5 * fwd.color.abs().max().item() if textured_cfg else color_abs == 0.0))
+        counted = all(v > 0 for v in reached.values() if isinstance(v, int)) and all(
+            min(v) > 0 for v in reached.values() if isinstance(v, list))
+        phase("grad-parity-mesh", f"{key}: sg {tuple(sg.shape)}, deferred {tuple(deferred.shape)}, planes vs plain "
+                                  f"max_abs_err {plane_err}, 11 planes " + json.dumps(stats) + f"; composed color vs "
+                                  f"the forward kernel's max abs {color_abs:.3e}, max rel {color_rel:.3e}; {reached}; "
+                                  f"plain grads {plain_ms:.1f} ms")
+        if not ok or not counted:
+            raise AssertionError(f"the grads kernel disagrees or a branch did not fire ({key})")
+        grads_info[key] = dict(scene=scene, cam=cam, cfg=cfg, lanes=lanes, sg=sg_ref, deferred=deferred_ref,
+                               plain_ms=plain_ms, err=max(stats["max_abs_err"], plane_err))
+
+    # ---- 26. the fused gradient on a textured HDRI scene at 256² ---------------------
+    gscene, gcam, gcfg = hdri_tex, raised, grads_info["textured_hdri_sun"]["cfg"]
+    wvec = torch.tensor([1.0, 2.0, 3.0], device=dev, dtype=torch.float64)
+    probe = megakernel.trace_image_fused(gscene, gcam, gcfg, GRAD_SIZE, GRAD_SIZE, 2.0, RAND_VEC2, bn)
+    n_s = gscene.spheres.color.shape[0]
+    qi = int(np.argmax([int((probe.object_id == n_s + q).sum()) for q in range(gscene.quads.v0.shape[0])]))
+
+    def build(qc, exposure, albedo, emissive):
+        colors = torch.cat([gscene.quads.color[:qi], qc[None], gscene.quads.color[qi + 1:]])
+        return gscene._replace(quads=gscene.quads._replace(color=colors),
+                               env=gscene.env._replace(hdr_exposure=exposure),
+                               mesh=gscene.mesh._replace(albedo=albedo, emissive=emissive))
+
+    def grad_loss(leaves, trace, **kw):
+        out = trace(build(*leaves), gcam, gcfg, GRAD_SIZE, GRAD_SIZE, 2.0, RAND_VEC2, bn, **kw)
+        return (out.color.double() * wvec).mean()
+
+    base = [gscene.quads.color[qi].clone(), gscene.env.hdr_exposure.clone(), gscene.mesh.albedo, gscene.mesh.emissive]
+    grads = {}
+    for route, trace, kw in (("fused", megakernel.trace_image_fused, dict(differentiable=True)),
+                             ("plain", megakernel.trace_image_fused_reference, {})):
+        leaves = [x.clone().requires_grad_(True) for x in base]
+        grads[route] = [g.detach() for g in torch.autograd.grad(grad_loss(leaves, trace, **kw), leaves)]
+    picks = [("quad %d color" % qi, 0, int(grads["fused"][0].abs().argmax()), 1e-2),
+             ("hdr_exposure", 1, 0, 1e-3)]
+    for name, which, h in (("albedo", 2, 1e-2), ("emissive", 3, 1e-3)):
+        top = torch.topk(grads["fused"][which].abs().reshape(-1), 8).indices.tolist()
+        picks += [(f"{name} texel {np.unravel_index(i, tuple(base[which].shape))}", which, i, h) for i in top]
+    rows, worst_plain, worst_fd = [], 0.0, 0.0
+    for name, which, index, h in picks:
+        g = grads["fused"][which].reshape(-1)[index].item()
+        p = grads["plain"][which].reshape(-1)[index].item()
+        vals = []
+        with torch.no_grad():
+            for step in (h, -h):
+                leaves = [x.clone() for x in base]
+                leaves[which].reshape(-1)[index] += step
+                vals.append(grad_loss(leaves, megakernel.trace_image_fused).item())
+        f = (vals[0] - vals[1]) / (2 * h)
+        rel_plain, rel_fd = abs(g - p) / max(abs(p), 1e-12), abs(g - f) / max(abs(f), 1e-12)
+        worst_plain, worst_fd = max(worst_plain, rel_plain), max(worst_fd, rel_fd)
+        rows.append(f"{name} {g:.6e} (plain rel {rel_plain:.1e}, FD {f:.6e} rel {rel_fd:.1e})")
+        if not (rel_plain <= 1e-4 and rel_fd <= 2e-2 and g != 0.0):
+            raise AssertionError(f"the fused gradient of {name} disagrees: " + rows[-1])
+    phase("grad-mesh", f"{GRAD_SIZE}x{GRAD_SIZE}, textured stand-in under the HDRI (sun NEE), raised camera, "
+                       f"mean(color*[1,2,3]): " + "; ".join(rows) + f"; worst vs autograd {worst_plain:.2e}, vs "
+                       f"central differences {worst_fd:.2e}")
+    inv0 = tex.mesh.inv_matrix
+    eye = torch.eye(4, device=dev)
+
+    def moved(t):
+        return tex._replace(mesh=tex.mesh._replace(
+            inv_matrix=inv0 @ torch.cat([torch.cat([eye[:3, :3], -t.reshape(3, 1)], 1), eye[3:]])))
+
+    tgrads = {}
+    for plain in (False, True):
+        t = torch.zeros(3, device=dev, requires_grad=True)
+        out = trace_image(moved(t), raised, lobe_cfg, GRAD_SIZE, GRAD_SIZE, 2.0, RAND_VEC2, bn, plain_walk=plain)
+        tgrads[plain] = torch.autograd.grad((out.color.double() * wvec).mean(), [t])[0]
+    rel_t = ((tgrads[False] - tgrads[True]).abs() / tgrads[True].abs().clamp_min(1e-12)).max().item()
+    phase("grad-mesh", f"mesh translation through the wavefront, kernel walk {tgrads[False].tolist()} vs plain walk "
+                       f"{tgrads[True].tolist()}: max rel {rel_t:.2e}")
+    if not (rel_t <= 1e-5 and tgrads[False].abs().min().item() > 0):
+        raise AssertionError("the wavefront's translation gradient through the closest-hit kernel disagrees")
+
+    # ---- 27. the inverse-rendering path: recover the stand-in's albedo --------------
+    train = {}
+    for route, fused, steps in (("fused", True, 10), ("wavefront", False, 3)):
+        closest_hit.reset_launches()
+        megakernel.reset_launches()
+        t0 = time.perf_counter()
+        out = recover_albedo(stand_in_model, bounces=BOUNCES, size=SIZE, steps=steps, lr=5e-2, tex_size=64,
+                             fused=fused, camera=raised, device=dev, frames=TRAIN_FRAMES)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = dict(closest_hit=closest_hit.LAUNCHES["closest_hit"], grads=megakernel.GRAD_LAUNCHES["textured"],
+                        forward=megakernel.LAUNCHES["textured"],
+                        other=sum(megakernel.LAUNCHES.values()) + sum(megakernel.GRAD_LAUNCHES.values())
+                        - megakernel.GRAD_LAUNCHES["textured"] - megakernel.LAUNCHES["textured"])
+        losses = out["losses"]
+        train[route] = launches
+        phase("train-textured", f"{route} route, {SIZE}x{SIZE}, {BOUNCES} bounces, {steps} Adam steps on a 64x64 "
+                                f"albedo in {train_s:.2f} s: loss {losses[0]:.6g} -> {losses[-1]:.6g}, albedo mean abs "
+                                f"error {out['err0']:.4f} -> {out['err1']:.4f}; launches {launches}")
+        want = (dict(closest_hit=0, grads=steps * len(TRAIN_FRAMES), forward=len(TRAIN_FRAMES), other=0) if fused
+                else dict(closest_hit=(steps + 1) * len(TRAIN_FRAMES) * BOUNCES, grads=0, forward=0, other=0))
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]) or launches != want:
+            raise AssertionError(f"the {route} route did not lower the loss through its kernels ({launches})")
+        if fused and not out["err1"] < out["err0"]:
+            raise AssertionError("the fused route did not move the albedo toward the truth")
+    # the other new grads configurations on the training path: 3 Adam steps each
+    for key, param, truth, start in (("mesh", "quads", 1.0, 0.5), ("hdri_sun", "exposure", 1.0, 0.5),
+                                     ("hdri_env", "exposure", 1.0, 0.5), ("sky_mesh", "quads", 1.0, 0.5),
+                                     ("textured_hdri_sun", "albedo", None, 0.5),
+                                     ("textured_hdri_env", "albedo", None, 0.5)):
+        info = grads_info[key]
+        tscene, tcam, tcfg = info["scene"], info["cam"], info["cfg"]
+
+        def build_t(params, tscene=tscene, param=param):
+            if param == "quads":  # every quad's color (the light's emission too) scaled by c
+                return tscene._replace(quads=tscene.quads._replace(color=tscene.quads.color * params["c"])), tcam
+            if param == "exposure":
+                return tscene._replace(env=tscene.env._replace(hdr_exposure=params["c"])), tcam
+            return tscene._replace(mesh=tscene.mesh._replace(albedo=params["c"])), tcam
+
+        small = torch.as_tensor(np.ascontiguousarray(stand_in_model.albedo[::32, ::32]), device=dev)
+        truth_t = small if truth is None else torch.tensor(truth, device=dev)
+        init = torch.full_like(small, start) if truth is None else torch.tensor(start, device=dev)
+        with torch.no_grad():
+            target = render_avg(build_t({"c": truth_t})[0], tcam, tcfg, SIZE, TRAIN_FRAMES, RAND_VEC2, bn)
+        megakernel.reset_launches()
+        res = optimize(build_t, {"c": init}, target, tcfg, SIZE, steps=3, lr=0.05, frames=TRAIN_FRAMES)
+        torch.cuda.synchronize()
+        name = megakernel.configuration(tscene, tcfg)
+        info["launches"] = megakernel.GRAD_LAUNCHES[name]
+        losses = res.losses.cpu().numpy()
+        phase("train-mesh", f"{key} ({param}): 3 Adam steps at {SIZE}x{SIZE}, loss {losses[0]:.6g} -> "
+                            f"{losses[-1]:.6g}, grads launches {info['launches']}")
+        if info["launches"] != 3 * len(TRAIN_FRAMES) or not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise AssertionError(f"{key}: the training path did not run through the grads kernel or the loss rose")
+    grads_info["textured"]["launches"] = train["fused"]["grads"]
+
+    # ---- 28. timing ----------------------------------------------------------------------
+    entries = []
+    ch_rows = []
+    for label, (case, mesh, ro, rd, act) in (("primary rays, glTF camera", cases[0]), ("bounce 2", cases[2])):
+        ms, dev_ms = ch_timing[case]
+        plain_ms = plain_times[case]
+        flop, nbytes, steps = closest_hit_work(ro, rd, True, act, mesh)
+        bound_ms, bound_by = bound(flop, nbytes)
+        share = 100 * bound_ms / dev_ms if dev_ms else None
+        ch_rows.append(dict(label=label, ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
+        phase("timing-closest-hit", f"{card}: capacity mesh, {label}, {ro[..., 0].numel()} lanes: kernel device "
+                                    f"{dev_ms} ms, through its wrapper {ms:.3f} ms, plain walk {plain_ms:.3f} ms; "
+                                    f"inner-node visits / triangle tests {steps}; {flop / 1e9:.4f} GFLOP + "
+                                    f"{nbytes / 1e6:.3f} MB -> "
+                                    f"bound {bound_ms:.4f} ms ({bound_by}), "
+                                    + (f"{share:.2f}% of it reached" if share else "not measured"))
+    phase("timing-closest-hit", f"{card}: the wavefront pass at {SIZE}x{SIZE}, {BOUNCES} bounces, kernel walk / plain "
+                                f"walk: " + "; ".join(f"{k} {a:.3f} / {b:.3f} ms" for k, (a, b) in wavefront.items()))
+    entries.append({"name": "closest_hit", "route": "cuda", "source": "bpt_tpu_torch/csrc/closest_hit.cu",
+                    "replaces": "bpt_tpu/kernels/traverse.py:181", "also_replaces": "bpt_tpu/kernels/traverse.py:444",
+                    "launches": train["wavefront"]["closest_hit"], "max_abs_err": ch_err, "ms": ch_rows[0]["ms"],
+                    "device_ms": ch_rows[0]["dev_ms"], "plain_ms": ch_rows[0]["plain_ms"],
+                    "bound_ms": ch_rows[0]["bound_ms"], "bound_by": ch_rows[0]["bound_by"], "library_ms": None,
+                    "bounce2_device_ms": ch_rows[1]["dev_ms"], "bounce2_bound_ms": ch_rows[1]["bound_ms"]})
+    for key, info in grads_info.items():
+        scene, cam, cfg, lanes = info["scene"], info["cam"], info["cfg"], info["lanes"]
+        textured = key.startswith("textured")
+
+        def call(scene=scene, cam=cam, cfg=cfg):
+            return megakernel.trace_image_fused_grads(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+
+        ms = cuda_ms(call, iters=10, warmup=2)
+        dev_ms = kernel_device_ms(call, 10, instance(True, cfg.env, cfg.nee, True, textured))
+        flop, nbytes = kernel_work(lanes, scene.quads.v0.shape[0], scene.spheres.color.shape[0], pixels,
+                                   sky=cfg.env == "sky", mesh=True, hdri=scene.env if cfg.env == "hdri" else None,
+                                   env_nee=cfg.nee == "env", textured=textured, deferred=True)
+        n_obj = sum(0 if g is None else g.color.shape[0] for g in (scene.spheres, scene.quadrics, scene.quads))
+        flop += info["sg"][:n_obj].sum().item() + 2 * (info["sg"][n_obj:] > 0).sum().item()
+        nbytes += 4 * pixels * (info["sg"].shape[0] + info["deferred"].shape[0])
+        bound_ms, bound_by = bound(flop, nbytes)
+        share = 100 * bound_ms / dev_ms if dev_ms else None
+        phase("timing-grads-mesh", f"{card}: {key} grads {SIZE}x{SIZE}, {BOUNCES} bounces: kernel device {dev_ms} ms, "
+                                   f"through its wrapper {ms:.3f} ms, plain {info['plain_ms']:.1f} ms; "
+                                   f"{flop / 1e9:.4f} GFLOP + {nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms "
+                                   f"({bound_by}), " + (f"{share:.2f}% of it reached" if share else "not measured"))
+        entries.append({"name": f"megakernel_{key}_grads", "route": "cuda",
+                        "source": "bpt_tpu_torch/csrc/megakernel.cu",
+                        "replaces": "bpt_tpu/kernels/megakernel.py:2180", "launches": info["launches"],
+                        "max_abs_err": info["err"], "ms": ms, "device_ms": dev_ms, "plain_ms": info["plain_ms"],
+                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None})
+    # the textured inverse-rendering cell: one fwd+bwd step (2 frames) of each route
+    small = torch.as_tensor(np.ascontiguousarray(stand_in_model.albedo[::32, ::32]), device=dev)
+    with torch.no_grad():
+        target = render_avg(tex, raised, lobe_cfg, SIZE, TRAIN_FRAMES, RAND_VEC2, bn)
+    step_rays = SIZE * SIZE * BOUNCES * len(TRAIN_FRAMES)
+    for route, fused in (("fused", True), ("wavefront", False)):
+        def step(fused=fused):
+            albedo = torch.full_like(small, 0.5).requires_grad_(True)
+            scene = tex._replace(mesh=tex.mesh._replace(albedo=albedo)).to(dev)
+            img = render_avg(scene, raised, lobe_cfg, SIZE, TRAIN_FRAMES, RAND_VEC2, bn, fused=fused)
+            torch.autograd.grad(((img - target) ** 2).mean(), [albedo])
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(step, iters=5 if fused else 2, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        host_ms, busy_ms, rows = profiled_step(step, iters=2 if fused else 1)
+        top = "; ".join(f"{k[:50]} {t:.3f} ms x{n:g}" for k, t, n in rows[:6])
+        phase("timing-inverse-rendering", f"{card}: textured stand-in, {SIZE}x{SIZE}, {BOUNCES} bounces, "
+                                          f"{len(TRAIN_FRAMES)} frames, 64x64 albedo: {route} fwd+bwd step {ms:.3f} ms "
+                                          f"({step_rays / ms / 1e3:.1f} Mrays/s), peak device memory {peak:.3f} GB; "
+                                          f"under torch.profiler host {host_ms:.3f} ms, device busy {busy_ms:.3f} ms; "
+                                          f"largest: {top}")
     return entries
 
 
@@ -724,6 +1210,7 @@ def main() -> int:
     from bpt_tpu_torch.integrator import IntegratorConfig
     from bpt_tpu_torch.integrator.frame import trace_image
     from bpt_tpu_torch.kernels import build, megakernel
+    from bpt_tpu_torch.kernels import traverse as closest_hit
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
     from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
@@ -736,15 +1223,18 @@ def main() -> int:
                                   check=True, timeout=60).stdout.strip().splitlines()[-1]
     phase("device", f"{card} | torch {torch.__version__} | CUDA {torch.version.cuda} | nvcc {nvcc_version}")
 
-    # ---- 2. build -----------------------------------------------------------
+    # ---- 2. build: every kernel at once, one nvcc each --------------------------
     t0 = time.perf_counter()
-    megakernel._library()
-    phase("build", f"{megakernel.KERNEL} ready in {time.perf_counter() - t0:.2f} s "
+    megakernel._library()  # the first load builds every kernel of csrc/
+    closest_hit._library()
+    libraries = [build.build(name) for name in build.kernels()]  # already built: their paths
+    phase("build", f"{megakernel.KERNEL} and {closest_hit.KERNEL} ready in {time.perf_counter() - t0:.2f} s "
                    f"(flags {' '.join(build.NVCC_FLAGS)})")
-    log = build.build(megakernel.KERNEL).with_suffix(".so.log")
-    for line in (log.read_text().splitlines() if log.exists() else []):
-        if "Compiling entry" in line or "registers" in line or "spill" in line:
-            phase("build", line.strip())
+    for lib in libraries:
+        log = lib.with_suffix(".so.log")
+        for line in (log.read_text().splitlines() if log.exists() else []):
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                phase("build", line.strip())
 
     # ---- 3. kernel against its plain version -------------------------------
     cfg = IntegratorConfig(bounces=BOUNCES)
@@ -817,8 +1307,9 @@ def main() -> int:
     for mat, tint in ((METAL, False), (TRANSPARENT, False), (TRANSPARENT, True)):
         gscene = cornell_scene(right_sphere_mat=mat, device=dev)
         gcfg = IntegratorConfig(bounces=BOUNCES, transparent_tint=tint)
-        got, sg = megakernel.trace_image_fused_grads(gscene, cam, gcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
-        ref, sg_ref = megakernel.trace_image_fused_grads_reference(gscene, cam, gcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        got, sg, _ = megakernel.trace_image_fused_grads(gscene, cam, gcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        ref, sg_ref, _ = megakernel.trace_image_fused_grads_reference(gscene, cam, gcfg, SIZE, SIZE, 2.0, RAND_VEC2,
+                                                                      bn)
         fwd = megakernel.trace_image_fused(gscene, cam, gcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
         torch.cuda.synchronize()
         stats = compare(got, ref)
@@ -961,7 +1452,7 @@ def main() -> int:
                           f"{busy_ms:.3f} ms ({100 * (1 - busy_ms / host_ms):.1f}% idle), {len(rows)} kernels; "
                           f"largest per step: {top}")
     glanes = []
-    _, gsg = trace_image(bscene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True, lane_counts=glanes)
+    _, gsg, _ = trace_image(bscene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True, lane_counts=glanes)
     gflop, gbytes = kernel_work(glanes, nq, ns, SIZE * SIZE)
     n_obj = nq + ns
     gflop += gsg[:n_obj].sum().item() + 2 * (gsg[n_obj:] > 0).sum().item()  # the planes' adds
@@ -1035,8 +1526,9 @@ def main() -> int:
                 raise AssertionError(f"{fam} kernel disagrees with its plain version ({label})")
             fwd_err = max(fwd_err, stats["max_abs_err"])
         pscene = spec["parity"][0][1]
-        got, sg = megakernel.trace_image_fused_grads(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
-        ref, sg_ref = megakernel.trace_image_fused_grads_reference(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        got, sg, _ = megakernel.trace_image_fused_grads(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        ref, sg_ref, _ = megakernel.trace_image_fused_grads_reference(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2,
+                                                                      bn)
         fwd = megakernel.trace_image_fused(pscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
         torch.cuda.synchronize()
         stats = compare(got, ref)
@@ -1136,8 +1628,8 @@ def main() -> int:
         g_dev = kernel_device_ms(grads_call, 10, instance(True, fcfg.env, fcfg.nee, False))
         f_frame = cuda_ms(lambda: frenderer.render_sample(mcam), iters=10, warmup=2)
         flanes = []
-        _, fsg = trace_image(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True,
-                             lane_counts=flanes)
+        _, fsg, _ = trace_image(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True,
+                                lane_counts=flanes)
         n_q = tscene.quads.v0.shape[0]
         n_s = 0 if tscene.spheres is None else tscene.spheres.color.shape[0]
         n_qd = 0 if tscene.quadrics is None else tscene.quadrics.color.shape[0]
@@ -1220,8 +1712,11 @@ def main() -> int:
                 raise AssertionError(f"path-replay gradient of {name} disagrees: " + rows[-1])
     phase("grad-quadric", f"{GRAD_SIZE}x{GRAD_SIZE}, tint on: " + "; ".join(rows))
 
-    kernels += mesh_and_hdri(card, bn)
-    kernels += textured_and_camera(card, bn)
+    entries, capacity = mesh_and_hdri(card, bn)
+    kernels += entries
+    entries, stand_in_model, stand_in = textured_and_camera(card, bn)
+    kernels += entries
+    kernels += inverse_rendering(card, bn, capacity, stand_in, stand_in_model)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

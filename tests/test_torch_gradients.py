@@ -107,8 +107,8 @@ def test_sg_planes_match_pallas_param_grads():
                                fast_quads=jmk._all_parallelograms(jscene.quads))
     ref = np.asarray(outs[-1])
     scene, tcam = _port_inputs()
-    _, sg = trace_image(scene, tcam, IntegratorConfig(bounces=BOUNCES), RES, RES, 2.0, RV, torch.as_tensor(BN),
-                        param_grads=True)
+    _, sg, _ = trace_image(scene, tcam, IntegratorConfig(bounces=BOUNCES), RES, RES, 2.0, RV, torch.as_tensor(BN),
+                           param_grads=True)
     sg = sg.numpy()
     n_obj = 8
     assert sg.shape == ref.shape == (2 * n_obj, RES, RES)
@@ -159,11 +159,11 @@ def test_differentiable_without_grad_is_the_forward():
     cfg, bn = IntegratorConfig(bounces=BOUNCES), torch.as_tensor(BN)
     plain = trace_image(scene, cam, cfg, RES, RES, 2.0, RV, bn)
     fused = megakernel.trace_image_fused(scene, cam, cfg, RES, RES, 2.0, RV, bn, differentiable=True)
-    result, sg = megakernel.trace_image_fused_grads(scene, cam, cfg, RES, RES, 2.0, RV, bn)
+    result, sg, deferred = megakernel.trace_image_fused_grads(scene, cam, cfg, RES, RES, 2.0, RV, bn)
     for a, b, c in zip(plain, fused, result):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         torch.testing.assert_close(a, c, rtol=0, atol=0)
-    assert not fused.color.requires_grad and sg.shape == (16, RES, RES)
+    assert not fused.color.requires_grad and sg.shape == (16, RES, RES) and deferred.shape == (0, RES, RES)
     with pytest.raises(NotImplementedError, match="reorder"):
         megakernel.trace_image_fused(scene, cam, cfg, RES, RES, 2.0, RV, bn, differentiable=True, reorder=True)
 

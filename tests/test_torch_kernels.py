@@ -51,7 +51,8 @@ SLICE_MODULES = [
     "bpt_tpu_torch.io", "bpt_tpu_torch.io.gltf", "bpt_tpu_torch.io.hdr", "bpt_tpu_torch.accel",
     "bpt_tpu_torch.accel.builder", "bpt_tpu_torch.accel.native", "bpt_tpu_torch.accel.traverse", "bpt_tpu_torch.env",
     "bpt_tpu_torch.scenes.gltf_scene", "bpt_tpu_torch.apps.gltf_model", "bpt_tpu_torch.apps.hdri_environment",
-    "bpt_tpu_torch.textures", "bpt_tpu_torch.apps.debug_gltf_loading",
+    "bpt_tpu_torch.textures", "bpt_tpu_torch.apps.debug_gltf_loading", "bpt_tpu_torch.kernels.traverse",
+    "bpt_tpu_torch.apps.inverse_rendering",
 ]
 
 
@@ -265,9 +266,9 @@ def test_cuda_grads_kernel_matches_plain_version(cuda_device, mat, tint):
     scene, cam = cornell_scene(right_sphere_mat=mat, device=cuda_device), cornell_camera(device=cuda_device)
     cfg = IntegratorConfig(bounces=4, transparent_tint=tint)
     before = megakernel.GRAD_LAUNCHES["cornell"]
-    got, sg = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    got, sg, _ = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
     assert megakernel.GRAD_LAUNCHES["cornell"] == before + 1
-    ref, sg_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    ref, sg_ref, _ = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
     fwd = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
     torch.cuda.synchronize()
     assert sg.shape == (8 if tint else 16, 64, 96)
@@ -344,8 +345,8 @@ def test_cuda_quadric_and_sky_grads_kernels_match_plain_version(cuda_device, cas
     version's, the 11 planes also to the forward kernel's."""
     scene, cam, cfg = _quadric_and_sky_cases(cuda_device)[case]
     bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
-    got, sg = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
-    ref, sg_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    got, sg, _ = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    ref, sg_ref, _ = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
     fwd = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
     torch.cuda.synchronize()
     assert sg.shape == ((18, 64, 96) if case == "quadric" else (12, 64, 96))
@@ -419,17 +420,126 @@ def test_cuda_mesh_and_hdri_kernels_match_plain_version(cuda_device, case):
         assert sum(int(c.shadow_misses) for c in counts) > 0
 
 
+def _grads_case_check(scene, cam, cfg, device, size=64):
+    """The grads kernel against its plain version at size², 4 bounces, frame
+    2: every plane bit for bit (the 11, sg, the deferred planes), one launch
+    of the scene's configuration; the composed color against the forward
+    kernel's (bit for bit without a textured mesh; within float rounding of
+    the albedo product's order with one).  Returns the plain run's lane
+    counts."""
+    bn = torch.as_tensor(blue_noise_table()).to(device)
+    name = megakernel.configuration(scene, cfg)
+    before = megakernel.GRAD_LAUNCHES[name]
+    got, sg, deferred = megakernel.trace_image_fused_grads(scene, cam, cfg, size, size, 2.0, RV, bn)
+    assert megakernel.GRAD_LAUNCHES[name] == before + 1
+    counts = []
+    ref, sg_ref, deferred_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, size, size, 2.0, RV, bn,
+                                                                             lane_counts=counts)
+    fwd = megakernel.trace_image_fused(scene, cam, cfg, size, size, 2.0, RV, bn)
+    torch.cuda.synchronize()
+    for a, b in zip(tuple(got) + (sg, deferred), tuple(ref) + (sg_ref, deferred_ref)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    composed = megakernel.compose_deferred(got, deferred, scene, cfg)
+    textured = name == "textured"
+    torch.testing.assert_close(composed.color, fwd.color, rtol=1e-5 if textured else 0, atol=1e-6 if textured else 0)
+    for a, b in zip(tuple(got)[1:], tuple(fwd)[1:]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    return counts
+
+
 @pytest.mark.cuda
-def test_cuda_mesh_and_hdri_refuse_the_grads_mode(cuda_device):
-    """The kernel's grads mode and the path-replay route are not ported for
-    mesh and HDRI scenes: both raise instead of launching."""
-    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
-    for case in ("mesh", "hdri-env"):
+@pytest.mark.parametrize("case", ["mesh", "mesh-glass", "hdri-sun", "hdri-env", "hdri-sun-up", "sky-mesh"])
+def test_cuda_mesh_and_hdri_grads_kernels_match_plain_version(cuda_device, case):
+    """The grads mode of the mesh and HDRI configurations (and the sky with
+    an untextured mesh): every plane equal to the plain version's, the
+    color composed from the deferred planes equal to the forward kernel's,
+    bit for bit; env misses are deferred under HDRI."""
+    if case == "sky-mesh":
+        place = dict(rotation=(0.3, 0.5, 0.0), scale=(1.5, 1.5, 1.5), translation=(0.0, 0.0, -165.0))
+        scene = physical_sky_scene(device=cuda_device)._replace(
+            mesh=gltf_scene(mesh_from_model(blob_model(), mat_type=DIFFUSE, **place), device=cuda_device).mesh)
+        cam, cfg = sky_camera(device=cuda_device), IntegratorConfig(bounces=4, env="sky", nee="sun")
+    else:
         scene, cam, cfg = _mesh_and_hdri_cases(cuda_device)[case]
-        with pytest.raises(NotImplementedError, match="K1-grad"):
-            megakernel.trace_image_fused_grads(scene, cam, cfg, 8, 8, 1.0, RV, bn)
-        with pytest.raises(NotImplementedError, match="K1-grad"):
-            megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn, differentiable=True)
+    counts = _grads_case_check(scene, cam, cfg, cuda_device)
+    assert sum(int(c.hits) for c in counts) > 0
+    if cfg.env == "hdri":
+        assert sum(int(c.misses) for c in counts) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_scene_to_keeps_resident_tables(cuda_device):
+    """Scene.to on the card keeps the kernel tables of a mesh whose soup and
+    BVH are already there (an inverse-rendering step moves its scene every
+    step) and makes new ones for a mesh whose soup was replaced."""
+    scene = gltf_scene(mesh_from_model(blob_model(), mat_type=DIFFUSE), device=cuda_device)
+    tables = scene.mesh.kernel_tables
+    assert scene.to(cuda_device).mesh.kernel_tables is tables
+    coloured = scene._replace(spheres=scene.spheres._replace(color=scene.spheres.color * 0.5))
+    assert coloured.to(cuda_device).mesh.kernel_tables is tables
+    moved = scene._replace(mesh=scene.mesh._replace(p0=scene.mesh.p0 + 1.0)).to(cuda_device)
+    assert moved.mesh.kernel_tables is not tables
+    torch.testing.assert_close(moved.mesh.kernel_tables.tris[:, 0, :3], moved.mesh.p0, rtol=0, atol=0)
+    assert scene.to("cpu").mesh.kernel_tables is None
+
+
+def _closest_hit_rays(device, n=4096, seed=5):
+    """Rays at the blob (placed as the mesh cases place it), a quarter of
+    them outside the lane mask."""
+    rng = np.random.default_rng(seed)
+    ro = rng.uniform(-40, 40, (n, 3)).astype(np.float32)
+    ro[:, 2] += 20.0
+    rd = rng.normal(0, 12, (n, 3)).astype(np.float32) - ro
+    active = rng.uniform(0, 1, n) < 0.75
+    return (torch.as_tensor(ro, device=device), torch.as_tensor(rd, device=device),
+            torch.as_tensor(active, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", [DIFFUSE, TRANSPARENT])
+def test_cuda_closest_hit_kernel_matches_plain_walk(cuda_device, mat):
+    """The closest-hit kernel against the plain walk on the card, bit for bit
+    in t, tri, u and v, with back faces culled (DIFFUSE) and not
+    (TRANSPARENT), with and without a lane mask; one launch per call."""
+    from bpt_tpu_torch.kernels import traverse
+
+    mesh = gltf_scene(mesh_from_model(blob_model(), mat_type=mat), device=cuda_device).mesh
+    ro, rd, active = _closest_hit_rays(cuda_device)
+    cull = mat != TRANSPARENT
+    for act in (None, active):
+        before = traverse.LAUNCHES["closest_hit"]
+        got = traverse.closest_hit(ro, rd, cull, act, mesh)
+        assert traverse.LAUNCHES["closest_hit"] == before + 1
+        ref = traverse.closest_hit_reference(ro, rd, cull, act, mesh)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert int((got[1] >= 0).sum()) > 100
+        if act is not None:
+            assert bool((got[1][~act] == -1).all())
+
+
+@pytest.mark.cuda
+def test_cuda_closest_hit_vjp_matches_cpu(cuda_device):
+    """The recompute VJP's (g_ro, g_rd) on the card against the same
+    backward on CPU copies (rtol 1e-5), for cotangents on t, u and v."""
+    from bpt_tpu_torch.kernels import traverse
+
+    mesh = gltf_scene(mesh_from_model(blob_model(), mat_type=DIFFUSE), device=cuda_device).mesh
+    ro, rd, active = _closest_hit_rays(cuda_device)
+    w = torch.as_tensor(np.random.default_rng(1).normal(size=(3, ro.shape[0])).astype(np.float32))
+    grads = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        m = mesh if dev.type == "cuda" else gltf_scene(mesh_from_model(blob_model(), mat_type=DIFFUSE)).mesh
+        o, d = ro.to(dev).requires_grad_(True), rd.to(dev).requires_grad_(True)
+        t, tri, u, v = traverse.closest_hit(o, d, True, active.to(dev), m)
+        hit = tri >= 0
+        wd = w.to(dev)
+        loss = (torch.where(hit, t, 0.0) * wd[0] + u * wd[1] + v * wd[2]).sum()
+        grads[dev.type] = [g.cpu() for g in torch.autograd.grad(loss, [o, d])]
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    assert float(grads["cuda"][0].abs().sum()) > 0
 
 
 def textured_model(mr=None, emissive=None, varying=False, normal=False, T=128, albedo=True) -> GLTFModel:
@@ -544,10 +654,16 @@ def test_cuda_textured_and_camera_cases_match_plain_version(cuda_device, case):
 
 
 @pytest.mark.cuda
-def test_cuda_textured_scene_refuses_the_grads_mode(cuda_device):
-    """differentiable=True on a textured scene raises, naming ROADMAP's
-    K1-grad item, instead of launching."""
-    scene, cam, cfg = _textured_cases(cuda_device)["gltf-lobe"]
-    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
-    with pytest.raises(NotImplementedError, match="K1-grad"):
-        megakernel.trace_image_fused(scene, cam, cfg, 8, 8, 1.0, RV, bn, differentiable=True)
+@pytest.mark.parametrize("case", ["gltf-lobe", "gltf-glow", "hdri-sun", "hdri-env", "sky", "normal-only-transparent",
+                                  "normal-only-diffuse"])
+def test_cuda_textured_grads_kernels_match_plain_version(cuda_device, case):
+    """The grads mode of the textured configuration under quad, sun and env
+    NEE: every plane equal to the plain version's bit for bit, the composed
+    color within float rounding of the forward kernel's; the plain run
+    shows albedo factors deferred (and emissive terminations where the maps
+    glow)."""
+    scene, cam, cfg = _textured_cases(cuda_device)[case]
+    counts = _grads_case_check(scene, cam, cfg, cuda_device)
+    if not case.startswith("normal-only"):
+        assert sum(int(c.emissive_hits) for c in counts) > 0
+        assert sum(sum(c.pbr_classes.tolist()) for c in counts) > 0

@@ -190,7 +190,7 @@ def test_textured_mesh_carries_its_maps():
     assert tables.uvs.shape == (128, 3, 2) and tables.uvs.is_contiguous()
     for i, uv in enumerate((mesh.uv0, mesh.uv1, mesh.uv2)):
         torch.testing.assert_close(tables.uvs[:, i], uv, rtol=0, atol=0)
-    assert tables._fields == ("nodes", "tris", "normals", "uvs")
+    assert tables._fields == ("nodes", "tris", "normals", "uvs", "source")
     for name in ("albedo", "normal_map", "metallic_roughness", "emissive"):
         assert getattr(mesh, name).is_contiguous(), name  # as the kernel reads it
     assert mesh_tables(mesh._replace(albedo=None)).uvs is not None  # a normal map alone is textured
