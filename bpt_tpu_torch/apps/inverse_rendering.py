@@ -10,8 +10,9 @@ takes the fused route, the CUDA megakernel's grads mode with its
 path-replay VJP and the deferred composition that carries the texel
 gradients (``trace_image_fused(differentiable=True)``); without it, the
 wavefront route, autograd through ``trace_image``, whose mesh walk is the
-CUDA closest-hit kernel with its recompute VJP.  ``--reorder`` (the staged
-path) is not ported and raises.  The glTF assets are not in the
+CUDA closest-hit kernel with its recompute VJP.  ``--reorder`` takes the
+fused route on the staged path: the frames of each render as one sorted
+pool of the staged kernel, with the same VJP.  The glTF assets are not in the
 repository: a missing file fails with its path.  ``recover_albedo`` takes
 any textured model (the chip smoke run drives it on a synthetic stand-in).
 """
@@ -81,13 +82,15 @@ def main(argv=None):
     p.add_argument("--pallas", action="store_true",
                    help="the fused route: the megakernel's grads mode, its path-replay VJP and the deferred "
                         "composition's texel gradients")
-    p.add_argument("--reorder", action="store_true", help="with --pallas: the staged path (not ported: raises)")
+    p.add_argument("--reorder", action="store_true",
+                   help="the fused route on the staged path: each render's frames as one sorted pool (implies "
+                        "--pallas)")
     args = p.parse_args(argv)
 
     name, scale, flip = PRESETS[args.model]
     model = load_gltf(os.path.join(args.models_dir, name), initial_scale=scale, flip_z=flip)
-    out = recover_albedo(model, args.bounces, args.size, args.steps, args.lr, args.tex_size, fused=args.pallas,
-                         reorder=args.reorder, device=args.device)
+    out = recover_albedo(model, args.bounces, args.size, args.steps, args.lr, args.tex_size,
+                         fused=args.pallas or args.reorder, reorder=args.reorder, device=args.device)
     losses = out["losses"]
     print(f"loss: {losses[0]:.6f} -> {losses[-1]:.6f} over {args.steps} steps")
     print(f"albedo mean abs error: {out['err0']:.4f} -> {out['err1']:.4f}")

@@ -19,7 +19,7 @@ from bpt_tpu_torch.core.rng import blue_noise_table
 from bpt_tpu_torch.device import default_device
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
-from bpt_tpu_torch.kernels.megakernel import trace_image_fused
+from bpt_tpu_torch.kernels.megakernel import trace_frames_fused, trace_image_fused
 
 _RAND_VEC2 = np.array([0.3, 0.7], np.float32)
 
@@ -42,18 +42,25 @@ def render_avg(scene, camera, cfg: IntegratorConfig, size: int, frames: Sequence
     there.  ``fused=False`` is autograd through the wavefront ``trace_image``
     (every parameter; a mesh is walked by the closest-hit kernel on the card,
     with its recompute VJP).
-    ``reorder=True`` (the staged path) is not ported yet.
+    ``reorder=True`` (fused only) traces all the frames as one
+    differentiable pool on the staged path (``trace_frames_fused``): the
+    same average, and gradients equal to the unsorted route's up to the
+    order of the backward's sums.
     """
-    if reorder:
-        raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
     bn = torch.as_tensor(blue_noise, dtype=torch.float32).to(camera.position.device)
+    if reorder:
+        if not fused:
+            raise ValueError("reorder=True is the fused route's staged pool; the wavefront route has none")
+        colors = trace_frames_fused(scene, camera, cfg, size, size, list(frames), [rand_vec2] * len(frames), bn,
+                                    differentiable=True).color.unbind(0)
+    elif fused:
+        colors = (trace_image_fused(scene, camera, cfg, size, size, f, rand_vec2, bn, differentiable=True).color
+                  for f in frames)
+    else:
+        colors = (trace_image(scene, camera, cfg, size, size, f, rand_vec2, bn).color for f in frames)
     acc = 0.0
-    for f in frames:
-        if fused:
-            r = trace_image_fused(scene, camera, cfg, size, size, f, rand_vec2, bn, differentiable=True)
-        else:
-            r = trace_image(scene, camera, cfg, size, size, f, rand_vec2, bn)
-        acc = acc + r.color
+    for color in colors:
+        acc = acc + color
     return acc / len(frames)
 
 
@@ -81,10 +88,9 @@ def optimize(
     (``mesh._replace(albedo=params["albedo"])``) moves nothing per step.  ``param_clip(params) -> params``
     optionally maps the parameters back to a valid domain after each step
     (applied in place, without gradient).  ``losses`` holds each step's loss
-    before its update.
+    before its update.  ``reorder=True`` renders on the staged path
+    (``render_avg``).
     """
-    if reorder:
-        raise NotImplementedError("reorder=True (the staged kernel K2 and its VJP) is not ported yet")
     device = default_device(device)
     bn = torch.as_tensor(blue_noise_table()).to(device)
     target = torch.as_tensor(target, dtype=torch.float32).to(device)
@@ -95,7 +101,8 @@ def optimize(
     for _ in range(steps):
         opt.zero_grad(set_to_none=True)
         scene, camera = build_scene(params)
-        img = render_avg(scene.to(device), camera.to(device), cfg, size, frames, _RAND_VEC2, bn, fused=fused)
+        img = render_avg(scene.to(device), camera.to(device), cfg, size, frames, _RAND_VEC2, bn, fused=fused,
+                         reorder=reorder)
         loss = torch.mean((img - target) ** 2)
         loss.backward()
         opt.step()

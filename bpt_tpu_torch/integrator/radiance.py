@@ -171,55 +171,108 @@ def _texel_counts(counts: LaneCounts, mesh, uv, mesh_won, pbr_hits, pbr_lanes, e
                            texel_samples=samples, texel_reads=reads)
 
 
-def calculate_radiance(
-    scene: Scene,
-    cfg: IntegratorConfig,
-    ray_origin: torch.Tensor,
-    ray_dir: torch.Tensor,
-    rng: RngState,
-    bn: BlueNoise,
-    frame_counter,
-    param_grads: bool = False,
-    lane_counts: list | None = None,
-    plain_walk: bool = False,
-):
-    """Trace one path per lane for up to cfg.bounces bounces.
+class PathState(NamedTuple):
+    """Everything a path carries from one bounce to the next, one entry per
+    lane (any lane shape): what ``run_bounces`` resumes from.
 
-    Returns ``(result, rng, bn)``, and with ``param_grads=True``
-    ``(result, rng, bn, sg, deferred)``: sg is (n_sg,) + lanes float32,
-    detached, n_sg = n_obj with ``cfg.transparent_tint`` and 2 * n_obj
-    without; deferred is the (n_def,) + lanes planes of
-    ``deferred_layout`` (n_def may be 0), and the color leaves out what they
-    defer.
+    ``frame`` is each lane's frame counter (float32): a pool of lanes may
+    mix frames.  The first-hit records, and with ``param_grads`` the sg
+    accumulators and the deferred planes' values, ride along, so that a
+    path traced in several bounce ranges ends where one traced at once
+    does.  ``sg_lin`` / ``sg_beer`` are (n_obj,) + lanes (``sg_beer`` None
+    with ``cfg.transparent_tint``); ``mw``, ``mdir`` (env "hdri") and
+    ``albedo_uv`` (a tuple of one (..., 2) tensor per bounce), ``emw``,
+    ``em_uv`` (a textured mesh) are None when the grads mode does not
+    defer them."""
 
-    ``lane_counts``, for measurement, receives one ``LaneCounts`` per
-    bounce.  ``plain_walk`` keeps the mesh walk plain on CUDA tensors
-    (``scene_intersect``).
-    """
+    ro: torch.Tensor
+    rd: torch.Tensor
+    mask: torch.Tensor
+    accum: torch.Tensor
+    alive: torch.Tensor
+    spec: torch.Tensor  # bounceIsSpecular
+    sample_light: torch.Tensor
+    coat_hit: torch.Tensor  # coatTypeIntersected
+    d_count: torch.Tensor  # diffuseCount, int32
+    prev_mat: torch.Tensor  # int32
+    sharp: torch.Tensor  # pixelSharpness
+    obj_normal: torch.Tensor
+    obj_color: torch.Tensor
+    obj_id: torch.Tensor
+    frame: torch.Tensor
+    rng: RngState
+    bn: BlueNoise
+    sg_lin: torch.Tensor | None = None
+    sg_beer: torch.Tensor | None = None
+    mw: torch.Tensor | None = None
+    mdir: torch.Tensor | None = None
+    albedo_uv: tuple | None = None
+    emw: torch.Tensor | None = None
+    em_uv: torch.Tensor | None = None
+
+
+def _n_objects(scene: Scene) -> int:
+    return sum(0 if g is None else g.color.shape[0] for g in (scene.spheres, scene.quadrics, scene.quads))
+
+
+def init_paths(scene: Scene, cfg: IntegratorConfig, ray_origin: torch.Tensor, ray_dir: torch.Tensor, rng: RngState,
+               bn: BlueNoise, frame_counter, param_grads: bool = False) -> PathState:
+    """The state of fresh paths, before bounce 0: one per lane of
+    ``ray_origin`` (..., 3).  ``frame_counter`` is a number or a per-lane
+    tensor."""
     check_supported(scene, cfg)
     shape = ray_origin.shape[:-1]
     dev = ray_origin.device
     f32 = ray_origin.dtype
+
+    def full(value, dtype=f32):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    zeros3 = torch.zeros(shape + (3,), dtype=f32, device=dev)
+    frame = (frame_counter.to(dtype=f32, device=dev).expand(shape) if isinstance(frame_counter, torch.Tensor)
+             else full(float(frame_counter)))
+    state = PathState(ro=ray_origin, rd=ray_dir, accum=zeros3, mask=torch.ones(shape + (3,), dtype=f32, device=dev),
+                      alive=full(True, torch.bool), spec=full(True, torch.bool),
+                      sample_light=full(False, torch.bool), coat_hit=full(False, torch.bool),
+                      d_count=full(0, torch.int32), prev_mat=full(-100, torch.int32), sharp=full(0.0),
+                      obj_normal=zeros3, obj_color=zeros3, obj_id=full(-INFINITY), frame=frame, rng=rng, bn=bn)
+    if not param_grads:
+        return state
+    sg_lin = torch.zeros((_n_objects(scene),) + shape, dtype=f32, device=dev)
+    state = state._replace(sg_lin=sg_lin, sg_beer=None if cfg.transparent_tint else torch.zeros_like(sg_lin))
+    if cfg.env == "hdri":
+        state = state._replace(mw=zeros3, mdir=zeros3)
+    if is_textured(scene.mesh):
+        no_uv = torch.full(shape + (2,), -INFINITY, dtype=f32, device=dev)
+        state = state._replace(albedo_uv=(no_uv,) * cfg.bounces, emw=zeros3,
+                               em_uv=torch.zeros(shape + (2,), dtype=f32, device=dev))
+    return state
+
+
+def run_bounces(scene: Scene, cfg: IntegratorConfig, state: PathState, lo: int, hi: int,
+                lane_counts: list | None = None, plain_walk: bool = False) -> PathState:
+    """Bounces [lo, hi) of every lane of ``state``; returns the state after
+    them.  Bounce indices are absolute (bounce 0 sees the environment
+    directly, bounce 1 after a mirror rewrites the first-hit records).
+    Every lane is evaluated, dead ones masked, so lanes may come in any
+    order.  ``lane_counts`` and ``plain_walk``: see ``calculate_radiance``.
+    """
+    ro, rd, mask, accum = state.ro, state.rd, state.mask, state.accum
+    alive, spec, sample_light, coat_hit = state.alive, state.spec, state.sample_light, state.coat_hit
+    d_count, prev_mat, sharp = state.d_count, state.prev_mat, state.sharp
+    obj_normal, obj_color, obj_id = state.obj_normal, state.obj_color, state.obj_id
+    rng, bn = state.rng, state.bn
+    shape = ro.shape[:-1]
+    dev = ro.device
+    f32 = ro.dtype
     eps = cfg.eps_intersect
 
     def full(value, dtype=f32):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    ro = ray_origin
-    rd = ray_dir
-    accum = torch.zeros(shape + (3,), dtype=f32, device=dev)
-    mask = torch.ones(shape + (3,), dtype=f32, device=dev)
-    alive = full(True, torch.bool)
-    spec = full(True, torch.bool)  # bounceIsSpecular
-    sample_light = full(False, torch.bool)
-    coat_hit = full(False, torch.bool)  # coatTypeIntersected
-    d_count = full(0, torch.int32)  # diffuseCount
-    prev_mat = full(-100, torch.int32)
-    sharp = full(0.0)  # pixelSharpness
-    obj_normal = torch.zeros(shape + (3,), dtype=f32, device=dev)
-    obj_color = torch.zeros(shape + (3,), dtype=f32, device=dev)
-    obj_id = full(-INFINITY)
     one, zero = full(1.0), full(0.0)
+    # the clearcoat reflection's sharpness flag on a first bounce, per lane's frame
+    fc_sharp = torch.where(state.frame > 500.0, full(1.01), -one)
 
     has_quad_light = cfg.nee == "quad"
     if has_quad_light:
@@ -230,27 +283,24 @@ def calculate_radiance(
     use_lobe = cfg.nee in ("sun", "env") or cfg.metal_roughness_lobe
     pbr_mesh = scene.mesh if scene.mesh is not None and scene.mesh.albedo is not None else None
     textured = is_textured(scene.mesh)  # an albedo or a normal map: the kernel's textured configuration
-    mesh_id = float(sum(0 if g is None else g.color.shape[0] for g in (scene.spheres, scene.quadrics, scene.quads)))
+    mesh_id = float(_n_objects(scene))
     sun_dir = None if scene.env is None else scene.env.sun_direction
     env_cdf = EnvCDF(*scene.env.env_cdf) if cfg.nee == "env" else None
-    lit = full(False, torch.bool)
+    param_grads = state.sg_lin is not None
     if param_grads:
-        n_obj = sum(0 if g is None else g.color.shape[0] for g in (scene.spheres, scene.quadrics, scene.quads))
-        obj_ids = torch.arange(n_obj, dtype=f32, device=dev).reshape((n_obj,) + (1,) * len(shape))
-        sg_lin = torch.zeros((n_obj,) + shape, dtype=f32, device=dev)
-        sg_beer = None if cfg.transparent_tint else torch.zeros_like(sg_lin)
-    defer_miss = param_grads and cfg.env == "hdri"
-    defer_tex = param_grads and textured
+        sg_lin, sg_beer = state.sg_lin, state.sg_beer
+        obj_ids = torch.arange(sg_lin.shape[0], dtype=f32, device=dev).reshape((-1,) + (1,) * len(shape))
+    defer_miss = state.mw is not None
+    defer_tex = state.emw is not None
     if defer_miss:
-        mw = torch.zeros(shape + (3,), dtype=f32, device=dev)
-        mdir = torch.zeros_like(mw)
+        mw, mdir = state.mw, state.mdir
     if defer_tex:
-        albedo_uv = []
-        emw = torch.zeros(shape + (3,), dtype=f32, device=dev)
-        em_uv = torch.zeros(shape + (2,), dtype=f32, device=dev)
+        albedo_uv = list(state.albedo_uv)
+        emw, em_uv = state.emw, state.em_uv
         no_uv = torch.full(shape + (2,), -INFINITY, dtype=f32, device=dev)
 
-    for bounce in range(cfg.bounces):
+    for bounce in range(lo, hi):
+        lit = full(False, torch.bool)
         torus_steps = [] if lane_counts is not None and scene.quadrics is not None else None
         mesh_steps = [] if lane_counts is not None and scene.mesh is not None else None
         hit = scene_intersect(scene, ro, rd, torus_steps=torus_steps, active=alive, mesh_steps=mesh_steps,
@@ -455,8 +505,7 @@ def calculate_radiance(
         p_c = 0.25 + 0.5 * re_c
         go_reflect_c = (gate1 < p_c).detach()
         mask_c_refl = mask * (re_c / p_c)[..., None]
-        fc_sharp = 1.01 if float(frame_counter) > 500.0 else -1.0
-        sharp_c_refl = torch.where(d_count == 0, full(fc_sharp), zero)
+        sharp_c_refl = torch.where(d_count == 0, fc_sharp, zero)
         d_count_coat = d_count + 1
         mask_c_base = mask * (tr_c / (1.0 - p_c))[..., None] * hit_color
         go_indirect_c = (d_count_coat <= cfg.diffuse_indirect_max) & (gate2 < 0.5)
@@ -514,7 +563,7 @@ def calculate_radiance(
 
         if defer_tex:  # the bounces whose throughput took the albedo factor: DIFFUSE, METAL, CLEARCOAT's base
             factor = is_pbr & (b_diff | b_metal | (b_coat & ~go_reflect_c))
-            albedo_uv.append(_where3(factor, hit.uv, no_uv))
+            albedo_uv[bounce] = _where3(factor, hit.uv, no_uv)
         if param_grads:
             # the hit object's color enters this bounce's throughput linearly
             # (d log f / d c = 1/c, applied in the backward) or, for a
@@ -529,17 +578,63 @@ def calculate_radiance(
                 beer = torch.where(refracted & inside, 0.01 * hit.t.detach(), zero)
                 sg_beer = sg_beer + torch.where(hit_j, beer[None], 0.0)
 
-    result = RadianceResult(
-        color=torch.clamp(accum, min=0.0),
-        object_normal=obj_normal,
-        object_color=obj_color,
-        object_id=obj_id,
-        pixel_sharpness=sharp,
-    )
+    state = state._replace(ro=ro, rd=rd, mask=mask, accum=accum, alive=alive, spec=spec, sample_light=sample_light,
+                           coat_hit=coat_hit, d_count=d_count, prev_mat=prev_mat, sharp=sharp, obj_normal=obj_normal,
+                           obj_color=obj_color, obj_id=obj_id, rng=rng, bn=bn)
     if param_grads:
-        sg = sg_lin if sg_beer is None else torch.cat([sg_lin, sg_beer])
-        planes = ([mw, mdir] if defer_miss else []) + (albedo_uv + [emw, em_uv] if defer_tex else [])
-        deferred = (torch.cat([torch.movedim(p, -1, 0) for p in planes]) if planes
-                    else torch.zeros((0,) + shape, dtype=f32, device=dev))
-        return result, rng, bn, sg, deferred.detach()
-    return result, rng, bn
+        state = state._replace(sg_lin=sg_lin, sg_beer=sg_beer)
+    if defer_miss:
+        state = state._replace(mw=mw, mdir=mdir)
+    if defer_tex:
+        state = state._replace(albedo_uv=tuple(albedo_uv), emw=emw, em_uv=em_uv)
+    return state
+
+
+def finish_paths(state: PathState):
+    """The per-pixel outputs of finished paths: the RadianceResult, and in
+    the grads mode ``(result, sg, deferred)`` (see ``calculate_radiance``)."""
+    result = RadianceResult(color=torch.clamp(state.accum, min=0.0), object_normal=state.obj_normal,
+                            object_color=state.obj_color, object_id=state.obj_id, pixel_sharpness=state.sharp)
+    if state.sg_lin is None:
+        return result
+    sg = state.sg_lin if state.sg_beer is None else torch.cat([state.sg_lin, state.sg_beer])
+    planes = (([state.mw, state.mdir] if state.mw is not None else [])
+              + (list(state.albedo_uv) + [state.emw, state.em_uv] if state.emw is not None else []))
+    shape = state.sharp.shape
+    deferred = (torch.cat([torch.movedim(p, -1, 0) for p in planes]) if planes
+                else torch.zeros((0,) + shape, dtype=state.sharp.dtype, device=state.sharp.device))
+    return result, sg, deferred.detach()
+
+
+def calculate_radiance(
+    scene: Scene,
+    cfg: IntegratorConfig,
+    ray_origin: torch.Tensor,
+    ray_dir: torch.Tensor,
+    rng: RngState,
+    bn: BlueNoise,
+    frame_counter,
+    param_grads: bool = False,
+    lane_counts: list | None = None,
+    plain_walk: bool = False,
+):
+    """Trace one path per lane for up to cfg.bounces bounces:
+    ``run_bounces(init_paths(...), 0, cfg.bounces)``, then ``finish_paths``.
+
+    Returns ``(result, rng, bn)``, and with ``param_grads=True``
+    ``(result, rng, bn, sg, deferred)``: sg is (n_sg,) + lanes float32,
+    detached, n_sg = n_obj with ``cfg.transparent_tint`` and 2 * n_obj
+    without; deferred is the (n_def,) + lanes planes of
+    ``deferred_layout`` (n_def may be 0), and the color leaves out what they
+    defer.
+
+    ``lane_counts``, for measurement, receives one ``LaneCounts`` per
+    bounce.  ``plain_walk`` keeps the mesh walk plain on CUDA tensors
+    (``scene_intersect``).
+    """
+    state = init_paths(scene, cfg, ray_origin, ray_dir, rng, bn, frame_counter, param_grads=param_grads)
+    state = run_bounces(scene, cfg, state, 0, cfg.bounces, lane_counts=lane_counts, plain_walk=plain_walk)
+    if param_grads:
+        result, sg, deferred = finish_paths(state)
+        return result, state.rng, state.bn, sg, deferred
+    return finish_paths(state), state.rng, state.bn

@@ -6,7 +6,8 @@ shared library (no PyTorch headers, so a build takes seconds), placed in
 of every ``csrc/`` header it includes and of the flags, and loaded with
 ``ctypes``.  nvcc's report (``-Xptxas -v``: registers, spills) is kept
 beside the library as ``<library>.log``.  The kernels are
-``megakernel`` (the fused radiance pass) and ``closest_hit`` (the
+``megakernel`` (the fused radiance pass), ``staged`` (its staged phase
+kernel; both include ``csrc/path.cuh``) and ``closest_hit`` (the
 wavefront's closest-hit query).  Nothing is built or loaded until a
 wrapper first launches on a CUDA tensor; that first load builds every
 kernel of ``csrc/`` at once, one nvcc process each.  A failed build raises.

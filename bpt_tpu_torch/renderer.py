@@ -70,6 +70,12 @@ class ProgressiveRenderer:
     there is none.  The radiance pass is ``trace_image_fused``: the CUDA
     kernel on a CUDA device, its plain version (``trace_image``) on
     ``device="cpu"``.
+
+    ``batch_step``, None unless installed (``kernels.integration``
+    ``attach_cuda_path(reorder=True)``), traces several still-camera frames
+    at once: ``batch_step(scene, camera, cfg, state, rand_vec2s,
+    blue_noise) -> RenderState`` for the (k, 2) float32 offsets of k frames,
+    equal to k single steps.
     """
 
     def __init__(self, scene: Scene, cfg: IntegratorConfig, height: int, width: int,
@@ -85,6 +91,7 @@ class ProgressiveRenderer:
         self._np_rng = np.random.default_rng(seed)
         self._last_cam_matrix: Optional[np.ndarray] = None
         self._cam_on_device: tuple = (None, None)
+        self.batch_step = None
 
     def camera_moved(self, camera: Camera) -> bool:
         """Whether the world matrix differs from the last frame's (always
@@ -119,15 +126,28 @@ class ProgressiveRenderer:
     def render(self, camera: Camera, spp: int, batch: int = 8) -> torch.Tensor:
         """Render spp progressive samples from scratch and return display rgb.
 
-        ``batch`` is accepted for the reference's signature and has no effect:
-        the reference fuses samples into batched dispatches, which draw the
-        same per-frame offsets as stepping one frame at a time, as done here.
+        The first sample goes through ``render_sample`` (the reset
+        protocol); the others are drawn ``batch`` at a time as
+        ``random((k, 2))`` of the renderer's numpy generator, the same
+        stream as k draws of ``random(2)``, and go through ``batch_step``
+        when one is installed (one staged pool of k frames), else one frame
+        at a time.  Either way the accumulation is bit-equal to
+        sample-at-a-time stepping.
         """
         self.state = init_state(self.height, self.width, self.device)
         self._last_cam_matrix = None
         self.render_sample(camera)  # the first sample handles the reset protocol
-        for _ in range(spp - 1):
-            self._step(camera, False, self._np_rng.random(2))
+        done = 1
+        while done < spp:
+            k = min(max(batch, 1), spp - done)
+            rand_vec2s = self._np_rng.random((k, 2)).astype(np.float32)
+            if self.batch_step is None:
+                for rand_vec2 in rand_vec2s:
+                    self._step(camera, False, rand_vec2)
+            else:
+                self.state = self.batch_step(self.scene, self._device_camera(camera), self.cfg, self.state,
+                                             rand_vec2s, self.blue_noise)
+            done += k
         return self.display()
 
     def display(self, apply_denoise: bool = True, exposure: float = 1.0) -> torch.Tensor:

@@ -18,9 +18,14 @@ demo's with sun and env NEE, the lobe on, 20 launches each), the grads
 mode of each mesh, HDRI and textured configuration (20 launches each), the
 closest-hit kernel on the capacity mesh's 1024² primary rays from the glTF
 camera (50 launches), and the registers and stack nvcc reported for its
-builds.  A checkout that lacks a kernel or a grads configuration prints no
-number for it.  Device times compare only within one call; put each version
-more than once, in turns.
+builds; with the staged kernel, the 8-frame pool on the capacity mesh
+against its 8 K1 launches, and in every configuration, forward and grads,
+the staged kernel as one phase of one frame (``trace_staged(...,
+splits=())``: no sort, no state) against K1 on the same frame, in turns (K1,
+K2, K2, K1; 25 launches each without a mesh, 10 with one).  A checkout that
+lacks a kernel or a grads configuration prints no number for it.  Device
+times compare only within one call; put each version more than once, in
+turns.
 """
 
 from __future__ import annotations
@@ -135,6 +140,39 @@ def measure(checkout: str) -> None:
         ro, rd = transform_point(mesh.inv_matrix, ro), transform_dir(mesh.inv_matrix, rd)
         numbers["closest_hit_device_ms"] = device_ms(lambda: traverse.closest_hit(ro, rd, True, None, mesh), 50,
                                                      "closest_hit_kernel")
+    if hasattr(megakernel, "trace_frames_fused"):  # the staged kernel
+        mscene, mcam, mcfg = families["mesh"]
+        fcs = [2.0 + i for i in range(8)]
+        rvs = [np.array([(i * 0.173) % 1.0, (i * 0.519) % 1.0], np.float32) for i in range(8)]
+
+        def pool():
+            return megakernel.trace_frames_fused(mscene, mcam, mcfg, size, size, fcs, rvs, bn)
+
+        def frames():
+            return [megakernel.trace_image_fused(mscene, mcam, mcfg, size, size, f, rv, bn) for f, rv in zip(fcs, rvs)]
+
+        numbers["staged_pool8_ms"] = event_ms(pool, 5)
+        numbers["staged_phases_device_ms"] = device_ms(pool, 2, "phase_kernel") * mcfg.bounces
+        numbers["k1_8_frames_ms"] = event_ms(frames, 5)
+        # K2 as one phase of one frame (no sort, no state) against K1 on the same frame, in turns
+        from bpt_tpu_torch.kernels import staged
+        for name, (fscene, fcam, fcfg) in {"cornell": (scene, cam, cfg), **families}.items():
+            iters = 10 if fscene.mesh is not None else 25
+            for grads in (False, True):
+                k1 = megakernel.trace_image_fused_grads if grads else megakernel.trace_image_fused
+
+                def one():
+                    return k1(fscene, fcam, fcfg, size, size, 2.0, rv, bn)
+
+                def one_phase():
+                    return staged.trace_staged(fscene, fcam, fcfg, size, size, [2.0], [rv], bn, splits=(),
+                                               grads=grads)
+
+                t = [device_ms(one, iters), device_ms(one_phase, iters, "phase_kernel"),
+                     device_ms(one_phase, iters, "phase_kernel"), device_ms(one, iters)]
+                mode = "grads" if grads else "fwd"
+                numbers[f"one_phase_{name}_{mode}_k1_device_ms"] = (t[0] + t[3]) / 2
+                numbers[f"one_phase_{name}_{mode}_k2_device_ms"] = (t[1] + t[2]) / 2
     build = []
     for log in glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log")):
         build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]

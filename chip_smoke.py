@@ -74,10 +74,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   bound and its share, peak device memory.
 18. refusals    — differentiable=True runs on mesh, HDRI and textured
                   scenes (a quad color, hdr_exposure, the albedo map get
-                  gradients); reorder=True and a mesh transform, vertices or
-                  normal map that requires a gradient raise
-                  NotImplementedError, metal_roughness_lobe without a
-                  textured mesh ValueError.
+                  gradients), with and without reorder=True; a mesh
+                  transform, vertices or normal map that requires a
+                  gradient raise NotImplementedError, metal_roughness_lobe
+                  without a textured mesh, a staged pool past 2^31 lanes and
+                  one on a device that is neither CPU nor CUDA ValueError.
 19. parity-textured — the textured configuration against its plain version
                   at 1024², 4 bounces, frame 2, bit for bit, on a stand-in at
                   the reference's capacity (the 524,288-triangle heightfield
@@ -141,6 +142,34 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   the wavefront pass with either walk; the textured
                   inverse-rendering fwd+bwd step of both routes (ms,
                   Mrays/s, peak device memory).
+29. parity-staged — the staged kernel (K2, csrc/staged.cu) in every K1
+                  configuration (Cornell METAL and TRANSPARENT, quadric,
+                  sky, the capacity mesh, HDRI sun and env NEE, the
+                  textured stand-in under the glTF and the HDRI sun
+                  configurations with the lobe): a pool of frames 2 and 3
+                  at 1024², 4 bounces, bit-equal frame by frame to two K1
+                  launches on every plane, forward and grads mode; the sort
+                  after phase 0 moves lanes; a plain 64² pool's LaneCounts
+                  show each configuration's branches; on Cornell and the
+                  stand-in, every phase bit-equal to trace_phase_reference
+                  from the same sorted state at 256².
+30. grad-parity-staged — at 256², render_avg(reorder=True)'s gradients (the
+                  Cornell light color; the stand-in's albedo map and a
+                  sphere color) within rtol 1e-4 of the monolithic VJP's
+                  and 2e-2 of central differences of the staged forward.
+31. main-staged — ProgressiveRenderer + attach_cuda_path(reorder=True):
+                  render(spp=8, batch=4) of the Cornell box and the
+                  capacity mesh bit-equal to sample-at-a-time stepping, one
+                  staged launch per phase and pool.
+32. train-staged — optimize(reorder=True) on phase 8's emission problem:
+                  the loss falls below 5% of its start, through K2 alone.
+33. timing-staged — 8 frames in one pool (1024², 4 bounces) against 8 K1
+                  launches on the Cornell box (forward and grads), the
+                  capacity mesh and its rugged variant: pool ms and
+                  Mrays/s, each phase, sort key and torch.sort (CUDA
+                  events), K2's device time (torch.profiler), its bound and
+                  share; the stand-in's fwd+bwd step w.r.t. its albedo map,
+                  staged against monolithic.
 
 It ends with a JSON line of per-kernel results (one entry per mode and
 configuration, each with its bound, the least time the card could take for
@@ -210,9 +239,12 @@ ENV = {"none": 0, "sky": 1, "hdri": 2}
 NEE = {"quad": 0, "sun": 1, "env": 2}
 
 
-def instance(grads: bool, env: str, nee: str, mesh: bool, textured: bool = False) -> str:
-    """The profiler's name of one template instantiation of the kernel."""
-    return f"trace_kernel<{str(grads).lower()}, {ENV[env]}, {NEE[nee]}, {str(mesh).lower()}, {str(textured).lower()}>"
+def instance(grads: bool, env: str, nee: str, mesh: bool, textured: bool = False, kernel: str = "trace_kernel") -> str:
+    """The profiler's name of one template instantiation of K1 (``kernel``
+    "trace_kernel") or K2 ("phase_kernel"): the kernels without a mesh take
+    (grads, env, nee), those with one (grads, env, nee, textured)."""
+    args = [str(grads).lower(), str(ENV[env]), str(NEE[nee])] + ([str(textured).lower()] if mesh else [])
+    return f"{kernel}<{', '.join(args)}>"
 
 
 def phase(name: str, msg: str) -> None:
@@ -403,7 +435,7 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
     from bpt_tpu_torch.camera import Camera
     from bpt_tpu_torch.integrator import IntegratorConfig
     from bpt_tpu_torch.integrator.frame import trace_image
-    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.kernels import megakernel, staged
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.gltf_scene import (gltf_camera, gltf_scene, hdri_camera, hdri_scene,
                                                  heightfield_model, mesh_from_model)
@@ -551,13 +583,18 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
             ("mesh, a quad color", cap_scene, gltf_camera(dev), mesh_cfg, "quads", "color"),
             ("hdri, hdr_exposure", hdri_cap, hdri_camera(dev), env_cfg, "env", "hdr_exposure"),
             ("textured mesh, the albedo map", textured, gltf_camera(dev), mesh_cfg, "mesh", "albedo")):
-        s, leaf = with_grad(scene, group, field)
-        out = megakernel.trace_image_fused(s, cam, cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)
-        torch.autograd.grad(out.color.sum(), [leaf])
-        ran.append(label)
+        for reorder in (False, True):
+            s, leaf = with_grad(scene, group, field)
+            out = megakernel.trace_image_fused(s, cam, cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True,
+                                               reorder=reorder)
+            torch.autograd.grad(out.color.sum(), [leaf])
+            ran.append(label + (" (reorder=True)" if reorder else ""))
     for label, error, fn in (
-            ("reorder=True", NotImplementedError, lambda: megakernel.trace_image_fused(
-                cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True, reorder=True)),
+            ("a staged pool whose lanes overflow a 32-bit index", ValueError, lambda: megakernel.trace_frames_fused(
+                cap_scene, gltf_camera(dev), mesh_cfg, 65536, 65536, [1.0], [RAND_VEC2], bn)),
+            ("a staged pool on a device that is neither CPU nor CUDA", ValueError,
+             lambda: staged.trace_staged(cap_scene, gltf_camera(dev), mesh_cfg, 8, 8, [1.0], [RAND_VEC2],
+                                         bn.to("meta"))),
             ("a mesh transform that requires a gradient, fused", NotImplementedError,
              lambda: megakernel.trace_image_fused(with_grad(cap_scene, "mesh", "inv_matrix")[0], gltf_camera(dev),
                                                   mesh_cfg, 8, 8, 1.0, RAND_VEC2, bn, differentiable=True)),
@@ -1199,6 +1236,364 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     return entries
 
 
+STATE_ROW_BYTES = 56  # the words of a live lane's staged state row that carry state (csrc/staged.cu: 14 of 16)
+PERM_BYTES = 4  # a lane's permutation index: a pool is under 2^31 lanes (torch.sort gives int64)
+
+
+def staged_work(lane_counts, frames: int, lanes: int, scale: int = 1, **kw) -> tuple[float, float]:
+    """(FP32 operations, bytes) of a pool of ``frames`` frames of SIZE² whose
+    plain run reported ``lane_counts`` (per bounce, over the pool): K1's
+    work for those frames (``kernel_work``: each input read once, the 11
+    planes of every frame written once), plus, at each boundary between
+    phases, the 56 bytes of state of each live lane written and read again
+    and a 4-byte permutation index of every lane: the least the function
+    must move (the kernel moves the row's 2 pad words and an int64 index
+    too).  With ``scale`` > 1 the counts are those of 1 frame of the
+    ``frames``: operations and live lanes are scaled by it, and the output
+    planes of the other frames added."""
+    flop, nbytes = kernel_work(lane_counts, pixels=SIZE * SIZE * frames // scale, **kw)
+    flop *= scale
+    nbytes += (scale - 1) * 11 * 4 * SIZE * SIZE
+    boundaries = lane_counts[1:]
+    nbytes += sum(2 * STATE_ROW_BYTES * scale * int(c.live) + PERM_BYTES * lanes for c in boundaries)
+    return flop, nbytes
+
+
+def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
+    """Phases 29-33: the staged multi-frame path (K2, csrc/staged.cu).
+    ``capacity`` and ``stand_in`` are the capacity mesh and the textured
+    stand-in's mesh (host tensors).  Returns K2's entries of the kernels
+    line."""
+    from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
+    from bpt_tpu_torch.camera import Camera
+    from bpt_tpu_torch.diff.inverse import optimize, render_avg
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.kernels import megakernel, staged
+    from bpt_tpu_torch.kernels.integration import attach_cuda_path
+    from bpt_tpu_torch.renderer import ProgressiveRenderer
+    from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+    from bpt_tpu_torch.scenes.gltf_scene import (gltf_camera, gltf_scene, hdri_camera, hdri_scene,
+                                                 heightfield_model, mesh_from_model)
+    from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
+    from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
+    from bpt_tpu_torch.scenes.types import DIFFUSE, METAL, TRANSPARENT
+
+    dev = torch.device("cuda")
+    raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0).to(dev)
+    cfg4 = IntegratorConfig(bounces=BOUNCES)
+    hdri_base = dict(bounces=BOUNCES, env="hdri", diffuse_indirect_max=2)
+    sun = dict(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03)
+    lobe_cfg = IntegratorConfig(bounces=BOUNCES, metal_roughness_lobe=True)
+    mesh_scene, tex_scene = gltf_scene(capacity, device=dev), gltf_scene(stand_in, device=dev)
+    configs = {  # every K1 configuration: (scene, camera, cfg)
+        "cornell_metal": (cornell_scene(right_sphere_mat=METAL, device=dev), cornell_camera(device=dev), cfg4),
+        "cornell_transparent": (cornell_scene(right_sphere_mat=TRANSPARENT, device=dev), cornell_camera(device=dev),
+                                cfg4),
+        "quadric": (quadric_geometry_scene(device=dev), quadric_camera(device=dev),
+                    IntegratorConfig(bounces=BOUNCES, transparent_tint=True)),
+        "sky": (physical_sky_scene(device=dev), sky_camera(device=dev),
+                IntegratorConfig(bounces=BOUNCES, env="sky", nee="sun")),
+        "mesh": (mesh_scene, gltf_camera(device=dev), cfg4),
+        "hdri_sun": (hdri_scene(capacity, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev), hdri_camera(device=dev),
+                     IntegratorConfig(**sun, **hdri_base)),
+        "hdri_env": (hdri_scene(capacity, synthetic_hdr(), device=dev), hdri_camera(device=dev),
+                     IntegratorConfig(nee="env", **hdri_base)),
+        "textured": (tex_scene, raised, lobe_cfg),
+        "textured_hdri_sun": (hdri_scene(stand_in, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev), raised,
+                              IntegratorConfig(**sun, **hdri_base, metal_roughness_lobe=True)),
+    }
+    frames, rvs = (2.0, 3.0), (RAND_VEC2, np.array([0.6, 0.1], np.float32))
+    lanes2 = 2 * SIZE * SIZE
+
+    # ---- 29. parity-staged: F = 2 pools against K1, frame by frame -------------------------
+    staged_err = 0.0
+    for key, (scene, cam, cfg) in configs.items():
+        name = megakernel.configuration(scene, cfg)
+        errs = []
+        for grads in (False, True):
+            counts = megakernel.STAGED_GRAD_LAUNCHES if grads else megakernel.STAGED_LAUNCHES
+            before = counts[name]
+            pool, sg, deferred = staged.trace_staged(scene, cam, cfg, SIZE, SIZE, frames, rvs, bn, grads=grads)
+            if counts[name] != before + cfg.bounces:
+                raise AssertionError(f"{key}: {counts[name] - before} staged launches for {cfg.bounces} phases")
+            for i, (frame, rv) in enumerate(zip(frames, rvs)):
+                if grads:
+                    one, sg1, def1 = megakernel.trace_image_fused_grads(scene, cam, cfg, SIZE, SIZE, frame, rv, bn)
+                    pairs = list(zip((t[i] for t in pool), one)) + [(sg[:, i], sg1), (deferred[:, i], def1)]
+                else:
+                    pairs = list(zip((t[i] for t in pool),
+                                     megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, frame, rv, bn)))
+                torch.cuda.synchronize()
+                errs.append(max((a - b).abs().max().item() if a.numel() else 0.0 for a, b in pairs))
+                if not all(torch.equal(a, b) for a, b in pairs):
+                    raise AssertionError(f"{key}: the staged pool's frame {frame} (grads {grads}) differs from K1's: "
+                                         f"max abs err {errs[-1]}")
+        pool_def = staged.make_pool(SIZE, SIZE, frames, rvs, dev)
+        outputs = megakernel.empty_outputs(scene, cfg, (2, SIZE, SIZE), False, dev)
+        state = staged.launch_phase(scene, cam, cfg, pool_def, bn, None, None, 0, 1, outputs)
+        perm = torch.sort(staged.sort_key(state), stable=True).indices
+        moved = (perm != torch.arange(lanes2, device=dev)).float().mean().item()
+        live1 = int(((state[:, 10] & 1) != 0).sum().item())
+        lanes = []  # the branches, counted by the plain pool at 64²
+        staged.trace_staged(scene, cam, cfg, 64, 64, frames, rvs, bn, lane_counts=lanes)
+        hits, misses = sum(int(c.hits) for c in lanes), sum(int(c.misses) for c in lanes)
+        fired = {"hits": hits > 0}
+        if cfg.env != "none":
+            fired["misses"] = misses > 0
+        if scene.quadrics is not None:
+            fired["torus steps"] = sum(int(c.torus_steps) for c in lanes) > 0
+        if scene.mesh is not None:
+            fired["node visits"] = sum(int(c.node_visits) for c in lanes) > 0
+        if key == "hdri_sun":
+            fired["shadow rays reaching the sky"] = sum(int(c.shadow_misses) for c in lanes) > 0
+        if name == "textured":
+            samples = sum(c.texel_samples for c in lanes).tolist()
+            fired["albedo, normal and metallic-roughness samples"] = min(samples[:3]) > 0
+            fired["emissive terminations"] = sum(int(c.emissive_hits) for c in lanes) > 0
+            fired["lobe draws"] = sum(int(c.lobe_draws) for c in lanes) > 0
+        staged_err = max(staged_err, *errs)
+        phase("parity-staged", f"{key}: F=2 pool at {SIZE}x{SIZE}, frames 2 and 3, forward and grads bit-equal to K1 "
+                               f"frame by frame (11 planes, sg, deferred), {cfg.bounces} launches each; after phase 0 "
+                               f"{live1} of {lanes2} lanes live, the sort moved {100 * moved:.1f}% of the lanes; "
+                               "plain 64x64 pool: " + ", ".join(f"{k} {'yes' if v else 'NO'}"
+                                                                for k, v in fired.items()))
+        if not (all(fired.values()) and moved > 0.0):
+            raise AssertionError(f"{key}: a branch did not fire or the sort moved no lane")
+
+    # one phase at a time against the plain phase, from the same state, at 256²
+    for key in ("cornell_transparent", "textured"):
+        scene, cam, cfg = configs[key]
+        pool_def = staged.make_pool(GRAD_SIZE, GRAD_SIZE, frames, rvs, dev)
+        for grads in (False, True):
+            outputs = megakernel.empty_outputs(scene, cfg, (2, GRAD_SIZE, GRAD_SIZE), grads, dev)
+            state, perm, rows = None, None, []
+            for lo in range(cfg.bounces):
+                plain = {k: None if v is None else v.clone() for k, v in outputs.items()}
+                if lo > 0:
+                    perm = torch.sort(staged.sort_key(state), stable=True).indices
+                got = staged.launch_phase(scene, cam, cfg, pool_def, bn, state, perm, lo, lo + 1, outputs)
+                ref = staged.trace_phase_reference(scene, cam, cfg, pool_def, bn, state, perm, lo, lo + 1, plain)
+                torch.cuda.synchronize()
+                ok = all(torch.allclose(outputs[k], plain[k], rtol=0, atol=0, equal_nan=True)  # unwritten: the same
+                         for k in outputs if outputs[k] is not None)
+                if got is not None:
+                    live = (ref[:, 10] & 1) != 0
+                    ok = ok and torch.equal(got[:, 10], ref[:, 10]) and torch.equal(got[live], ref[live])
+                    rows.append(int(live.sum().item()))
+                if not ok:
+                    raise AssertionError(f"{key}: staged phase [{lo}, {lo + 1}) (grads {grads}) differs from the "
+                                         "plain phase")
+                state = got
+            phase("parity-staged", f"{key} at {GRAD_SIZE}x{GRAD_SIZE}, grads {grads}: each of the {cfg.bounces} "
+                                   f"phases bit-equal to trace_phase_reference from the same sorted state (state "
+                                   f"rows of the live lanes {rows}, every dead lane's flags, every output plane)")
+
+    # ---- 30. grad-parity-staged: the staged VJP at 256² -----------------------------------
+    wvec = torch.tensor([1.0, 2.0, 3.0], device=dev, dtype=torch.float64)
+    cscene, ccam, _ = configs["cornell_transparent"]
+    tscene, tcam, tcfg = configs["textured"]
+
+    def cornell_build(lc):
+        return cscene._replace(quads=cscene.quads._replace(color=torch.cat([cscene.quads.color[:5], lc[None]])))
+
+    def textured_build(albedo, sc):
+        spheres = tscene.spheres._replace(color=torch.cat([sc[None], tscene.spheres.color[1:]]))
+        return tscene._replace(mesh=tscene.mesh._replace(albedo=albedo), spheres=spheres)
+
+    problems = {"cornell (light color)": (cornell_build, ccam, cfg4, [torch.tensor([10.0, 10.0, 10.0], device=dev)],
+                                          [(0, 1e-2)]),
+                "textured stand-in (albedo map, sphere 0 color)": (
+                    textured_build, tcam, tcfg, [tscene.mesh.albedo, torch.tensor([0.9, 0.9, 0.9], device=dev)],
+                    [(0, 1e-2), (1, 1e-2)])}
+    for label, (build_fn, cam, cfg, base, probes) in problems.items():
+        def loss(leaves, reorder, build_fn=build_fn, cam=cam, cfg=cfg):
+            img = render_avg(build_fn(*leaves), cam, cfg, GRAD_SIZE, frames, RAND_VEC2, bn, reorder=reorder)
+            return (img.double() * wvec).mean()
+
+        grads = {}
+        for reorder in (False, True):
+            leaves = [x.clone().requires_grad_(True) for x in base]
+            grads[reorder] = [g.detach() for g in torch.autograd.grad(loss(leaves, reorder), leaves)]
+        rows, worst_mono, worst_fd = [], 0.0, 0.0
+        for which, h in probes:
+            flat = grads[True][which].reshape(-1)
+            picks = torch.topk(flat.abs(), min(8, flat.numel())).indices.tolist() if flat.numel() > 3 else \
+                [int(flat.abs().argmax())]
+            for index in picks:
+                g, m = flat[index].item(), grads[False][which].reshape(-1)[index].item()
+                vals = []
+                with torch.no_grad():
+                    for step in (h, -h):
+                        leaves = [x.clone() for x in base]
+                        leaves[which].reshape(-1)[index] += step
+                        vals.append(loss(leaves, True).item())
+                f = (vals[0] - vals[1]) / (2 * h)
+                rel_mono, rel_fd = abs(g - m) / max(abs(m), 1e-12), abs(g - f) / max(abs(f), 1e-12)
+                worst_mono, worst_fd = max(worst_mono, rel_mono), max(worst_fd, rel_fd)
+                rows.append(f"leaf {which}[{index}] {g:.6e}")
+                if not (rel_mono <= 1e-4 and rel_fd <= 2e-2 and g != 0.0):
+                    raise AssertionError(f"the staged VJP of {label} disagrees at leaf {which}[{index}]: {g} vs "
+                                         f"monolithic {m}, central difference {f}")
+        phase("grad-parity-staged", f"{GRAD_SIZE}x{GRAD_SIZE}, frames 2 and 3 as one pool, {label}, "
+                                    f"mean(color*[1,2,3]): {len(rows)} probes ({'; '.join(rows[:3])}; ...), worst vs "
+                                    f"the monolithic VJP {worst_mono:.2e}, vs central differences {worst_fd:.2e}")
+
+    # ---- 31. main-staged: the batched renderer through the staged pool ---------------------
+    main_launches = {}
+    for key, scene_fn, camera in (("cornell", lambda: cornell_scene(), cornell_camera()),
+                                  ("mesh", lambda: gltf_scene(capacity), gltf_camera())):
+        attached, plain_r = (ProgressiveRenderer(scene_fn(), cfg4, SIZE, SIZE, seed=7) for _ in range(2))
+        attach_cuda_path(attached, reorder=True)
+        megakernel.reset_launches()
+        img = attached.render(camera, spp=SPP, batch=4)
+        torch.cuda.synchronize()
+        n_staged, n_k1 = sum(megakernel.STAGED_LAUNCHES.values()), sum(megakernel.LAUNCHES.values())
+        ref = plain_r.render(camera, spp=SPP)
+        torch.cuda.synchronize()
+        equal = torch.equal(attached.state.accum, plain_r.state.accum) and torch.equal(img, ref)
+        main_launches[key] = n_staged
+        phase("main-staged", f"{key} {SIZE}x{SIZE}, render(spp={SPP}, batch=4) through attach_cuda_path(reorder=True):"
+                             f" {n_staged} staged launches ({BOUNCES} phases x 2 pools), {n_k1} K1 launch (the first "
+                             f"sample); accum bit-equal to sample-at-a-time stepping: {equal}; display in "
+                             f"[{img.min().item():.4f}, {img.max().item():.4f}]")
+        if not (equal and n_staged == BOUNCES * 2 and n_k1 == 1 and bool(torch.isfinite(img).all())):
+            raise AssertionError(f"{key}: the batched staged render differs or did not go through K2")
+        attach_cuda_path(attached)
+        if attached.batch_step is not None:
+            raise AssertionError("attach_cuda_path(reorder=False) left the staged batch step installed")
+
+    # ---- 32. train-staged: optimize(reorder=True) on the Cornell emission problem ------------
+    tbase = cornell_scene(device=dev)
+    tcam2 = cornell_camera(device=dev)
+
+    def build_scene(params):
+        color = torch.cat([tbase.quads.color[:5], (params["emission"] * torch.ones(3, device=dev))[None]])
+        return tbase._replace(quads=tbase.quads._replace(color=color)), tcam2
+
+    target = render_avg(build_scene({"emission": torch.tensor(10.0, device=dev)})[0], tcam2, cfg4, SIZE,
+                        TRAIN_FRAMES, RAND_VEC2, bn)
+    megakernel.reset_launches()
+    t0 = time.perf_counter()
+    result = optimize(build_scene, {"emission": 4.0}, target, cfg4, SIZE, steps=TRAIN_STEPS, lr=0.5,
+                      frames=TRAIN_FRAMES, reorder=True)
+    losses = result.losses.cpu().numpy()
+    train_s = time.perf_counter() - t0
+    train_launches = megakernel.STAGED_GRAD_LAUNCHES["cornell"]
+    emission = float(result.params["emission"])
+    phase("train-staged", f"{SIZE}x{SIZE}, {BOUNCES} bounces, {TRAIN_STEPS} steps of optimize(reorder=True) in "
+                          f"{train_s:.3f} s: loss {losses[0]:.6g} -> {losses[-1]:.6g}, emission 4.0 -> {emission:.5f} "
+                          f"(truth 10.0); staged grads launches {train_launches}")
+    if not (losses[-1] < 0.05 * losses[0] and np.isfinite(losses).all()
+            and train_launches == TRAIN_STEPS * BOUNCES and sum(megakernel.GRAD_LAUNCHES.values()) == 0):
+        raise AssertionError("optimize(reorder=True) did not lower the loss below 5% of its start through K2")
+
+    # ---- 33. timing-staged: 8 frames in one pool against 8 K1 launches ----------------------
+    fcs = [2.0 + i for i in range(BENCH_FRAMES)]
+    rng = np.random.default_rng(11)
+    rv8 = [rng.random(2).astype(np.float32) for _ in fcs]
+    lanes8 = BENCH_FRAMES * SIZE * SIZE
+    rays8 = lanes8 * BOUNCES
+    rugged = mesh_from_model(heightfield_model(rugged=True), mat_type=DIFFUSE, use_native="require")
+    cells = {"cornell": (configs["cornell_transparent"][0], cornell_camera(device=dev)),
+             "mesh": (mesh_scene, gltf_camera(device=dev)),
+             "mesh_rugged": (gltf_scene(rugged, device=dev), gltf_camera(device=dev))}
+    timed = {}
+    for key, (scene, cam) in cells.items():
+        has_mesh = scene.mesh is not None
+        grads_modes = (False, True) if key == "cornell" else (False,)
+        for grads in grads_modes:
+            def pool(record=None, scene=scene, cam=cam, grads=grads):
+                return staged.trace_staged(scene, cam, cfg4, SIZE, SIZE, fcs, rv8, bn, record=record, grads=grads)
+
+            def mono(scene=scene, cam=cam, grads=grads):
+                trace = megakernel.trace_image_fused_grads if grads else megakernel.trace_image_fused
+                return [trace(scene, cam, cfg4, SIZE, SIZE, f, rv, bn) for f, rv in zip(fcs, rv8)]
+
+            pool_ms, mono_ms = cuda_ms(pool, iters=3, warmup=1), cuda_ms(mono, iters=3, warmup=1)
+            pool_ms2, mono_ms2 = cuda_ms(pool, iters=3, warmup=0), cuda_ms(mono, iters=3, warmup=0)
+            sums = {}
+            for _ in range(3):
+                rec = []
+                pool(rec)
+                torch.cuda.synchronize()
+                for (_, a), (label, b) in zip(rec, rec[1:]):
+                    sums[label] = sums.get(label, 0.0) + a.elapsed_time(b) / 3
+            phase_ms = [sums[f"phase {b}"] for b in range(BOUNCES)]
+            key_ms = [sums[f"key {b}"] for b in range(1, BOUNCES)]
+            sort_ms = [sums[f"sort {b}"] for b in range(1, BOUNCES)]
+            dev_k2 = kernel_device_ms(pool, 2, instance(grads, "none", "quad", has_mesh, kernel="phase_kernel"))
+            dev_k1 = kernel_device_ms(mono, 2, instance(grads, "none", "quad", has_mesh))
+            lanes = []
+            scale = BENCH_FRAMES if has_mesh else 1  # the plain walk takes seconds a frame: frame 2's counts, x 8
+            t0 = time.perf_counter()
+            plain_out = staged.trace_staged(scene, cam, cfg4, SIZE, SIZE, fcs[:BENCH_FRAMES // scale],
+                                            rv8[:BENCH_FRAMES // scale], bn, lane_counts=lanes,
+                                            grads=grads)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            n_q, n_s = scene.quads.v0.shape[0], 0 if scene.spheres is None else scene.spheres.color.shape[0]
+            flop, nbytes = staged_work(lanes, BENCH_FRAMES, lanes8, scale, n_quads=n_q, n_spheres=n_s, mesh=has_mesh)
+            if grads:  # the sg planes: one add per counted hit, each plane written once
+                sg, n_obj = plain_out[1], n_q + n_s
+                flop += sg[:n_obj].sum().item() + 2 * (sg[n_obj:] > 0).sum().item()
+                nbytes += 4 * lanes8 * sg.shape[0]
+            bound_ms, bound_by = bound(flop, nbytes)
+            k2_ms = sum(phase_ms)
+            dev_pool = None if dev_k2 is None else dev_k2 * BOUNCES
+            share = 100 * bound_ms / dev_pool if dev_pool else None
+            live = [int(c.live) * scale for c in lanes]
+            label = key + (" grads" if grads else "")
+            phase("timing-staged", f"{card}: {label} {SIZE}x{SIZE}, {BOUNCES} bounces, {BENCH_FRAMES} frames in one "
+                                   f"pool ({lanes8} lanes): pool {pool_ms:.3f} / {pool_ms2:.3f} ms "
+                                   f"({rays8 / pool_ms / 1e3:.1f} Mrays/s) against {BENCH_FRAMES} K1 launches "
+                                   f"{mono_ms:.3f} / {mono_ms2:.3f} ms ({rays8 / mono_ms / 1e3:.1f} Mrays/s); phases "
+                                   f"(CUDA events) {[round(x, 4) for x in phase_ms]} ms, sum {k2_ms:.4f}; sort keys "
+                                   f"{[round(x, 4) for x in key_ms]} ms, torch.sort {[round(x, 4) for x in sort_ms]} "
+                                   f"ms; K2 device {dev_pool} ms per pool (profiler), K1 device {dev_k1} ms per "
+                                   f"frame; live lanes per bounce {live}{' (frame 2 x 8)' if scale > 1 else ''}; "
+                                   f"{flop / 1e9:.4f} GFLOP + {nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms "
+                                   f"({bound_by}), " + (f"{share:.2f}% of it reached" if share else "not measured")
+                                   + f"; plain pool of {BENCH_FRAMES // scale} frame(s) {plain_ms:.1f} ms")
+            timed[label] = dict(ms=k2_ms, device_ms=dev_pool, pool_ms=pool_ms, k1_frames_ms=mono_ms,
+                                key_ms=sum(key_ms), sort_ms=sum(sort_ms), plain_ms=plain_ms,
+                                plain_frames=BENCH_FRAMES // scale, bound_ms=bound_ms, bound_by=bound_by)
+    common = {"route": "cuda", "source": "bpt_tpu_torch/csrc/staged.cu",
+              "replaces": "bpt_tpu/kernels/megakernel.py:2619",
+              "max_abs_err": staged_err, "library_ms": None}
+    entries = [dict(name="staged_cornell", launches=main_launches["cornell"], **common, **timed["cornell"]),
+               dict(name="staged_cornell_grads", launches=train_launches, **common, **timed["cornell grads"]),
+               dict(name="staged_mesh", launches=main_launches["mesh"], **common, **timed["mesh"],
+                    **{f"rugged_{k}": v for k, v in timed["mesh_rugged"].items()})]
+
+    # the textured stand-in's fwd+bwd step w.r.t. its albedo map (bench.py --reorder --backward's shape)
+    fwd_bwd = {}
+    for reorder in (False, True):
+        def step(reorder=reorder):
+            albedo = tscene.mesh.albedo.clone().requires_grad_(True)
+            scene = tscene._replace(mesh=tscene.mesh._replace(albedo=albedo))
+            if reorder:
+                out = megakernel.trace_frames_fused(scene, tcam, tcfg, SIZE, SIZE, fcs, [RAND_VEC2] * len(fcs), bn,
+                                                    differentiable=True).color.sum(0)
+            else:
+                out = sum(megakernel.trace_image_fused(scene, tcam, tcfg, SIZE, SIZE, f, RAND_VEC2, bn,
+                                                       differentiable=True).color for f in fcs)
+            return torch.autograd.grad(out.mean(), [albedo])[0]
+
+        torch.cuda.reset_peak_memory_stats()
+        fwd_bwd[reorder] = (cuda_ms(step, iters=3, warmup=1), torch.cuda.max_memory_allocated() / 1e9, step())
+    g_mono, g_staged = fwd_bwd[False][2], fwd_bwd[True][2]
+    rel = ((g_staged - g_mono).abs().max() / g_mono.abs().max()).item()
+    phase("timing-staged", f"{card}: textured stand-in fwd+bwd step w.r.t. its {tuple(tscene.mesh.albedo.shape)} "
+                           f"albedo map, {SIZE}x{SIZE}, {BOUNCES} bounces, {BENCH_FRAMES} frames: staged pool "
+                           f"{fwd_bwd[True][0]:.3f} ms ({rays8 / fwd_bwd[True][0] / 1e3:.1f} Mrays/s, peak "
+                           f"{fwd_bwd[True][1]:.3f} GB) against {BENCH_FRAMES} K1 grads launches "
+                           f"{fwd_bwd[False][0]:.3f} ms ({rays8 / fwd_bwd[False][0] / 1e3:.1f} Mrays/s, peak "
+                           f"{fwd_bwd[False][1]:.3f} GB); the map gradients agree to {rel:.2e} of their largest")
+    if not rel <= 1e-4:
+        raise AssertionError("the staged fwd+bwd step's albedo gradient differs from the monolithic one")
+    return entries
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1209,7 +1604,7 @@ def main() -> int:
     from bpt_tpu_torch.diff.inverse import optimize, render_avg
     from bpt_tpu_torch.integrator import IntegratorConfig
     from bpt_tpu_torch.integrator.frame import trace_image
-    from bpt_tpu_torch.kernels import build, megakernel
+    from bpt_tpu_torch.kernels import build, megakernel, staged
     from bpt_tpu_torch.kernels import traverse as closest_hit
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
@@ -1226,9 +1621,11 @@ def main() -> int:
     # ---- 2. build: every kernel at once, one nvcc each --------------------------
     t0 = time.perf_counter()
     megakernel._library()  # the first load builds every kernel of csrc/
+    staged._library()
     closest_hit._library()
     libraries = [build.build(name) for name in build.kernels()]  # already built: their paths
-    phase("build", f"{megakernel.KERNEL} and {closest_hit.KERNEL} ready in {time.perf_counter() - t0:.2f} s "
+    phase("build", f"{megakernel.KERNEL}, {staged.KERNEL} and {closest_hit.KERNEL} ready in "
+                   f"{time.perf_counter() - t0:.2f} s "
                    f"(flags {' '.join(build.NVCC_FLAGS)})")
     for lib in libraries:
         log = lib.with_suffix(".so.log")
@@ -1717,6 +2114,7 @@ def main() -> int:
     entries, stand_in_model, stand_in = textured_and_camera(card, bn)
     kernels += entries
     kernels += inverse_rendering(card, bn, capacity, stand_in, stand_in_model)
+    kernels += staged_path(card, bn, capacity, stand_in)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -154,7 +154,8 @@ def test_fused_gradient_matches_finite_differences(tint):
 def test_differentiable_without_grad_is_the_forward():
     """With nothing requiring a gradient the differentiable call is the plain
     forward (JAX's custom_vjp runs its primal), and the grads mode's 11
-    planes equal the forward's."""
+    planes equal the forward's; so is the staged pool of one frame
+    (reorder=True)."""
     scene, cam = _port_inputs()
     cfg, bn = IntegratorConfig(bounces=BOUNCES), torch.as_tensor(BN)
     plain = trace_image(scene, cam, cfg, RES, RES, 2.0, RV, bn)
@@ -164,8 +165,9 @@ def test_differentiable_without_grad_is_the_forward():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
         torch.testing.assert_close(a, c, rtol=0, atol=0)
     assert not fused.color.requires_grad and sg.shape == (16, RES, RES) and deferred.shape == (0, RES, RES)
-    with pytest.raises(NotImplementedError, match="reorder"):
-        megakernel.trace_image_fused(scene, cam, cfg, RES, RES, 2.0, RV, bn, differentiable=True, reorder=True)
+    staged = megakernel.trace_image_fused(scene, cam, cfg, RES, RES, 2.0, RV, bn, differentiable=True, reorder=True)
+    for a, b in zip(plain, staged):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_object_color_gradient_is_the_first_hit_one_hot():
@@ -243,13 +245,17 @@ def test_optimize_matches_jax(jax_five_steps, fused):
 
 
 def test_param_clip_and_reorder():
-    """param_clip is applied after every step; reorder=True is not ported."""
+    """param_clip is applied after every step; reorder=True (the staged pool
+    of the frames) takes the same steps, up to the order of the backward's
+    sums."""
     cfg, build, target = _emission_problem(2)
     result = optimize(build, {"emission": 4.0}, target, cfg, RES, steps=3, lr=0.5, device="cpu",
                       param_clip=lambda p: {"emission": torch.clamp(p["emission"], max=4.2)})
     assert float(result.params["emission"]) == pytest.approx(4.2)
-    with pytest.raises(NotImplementedError, match="reorder"):
-        optimize(build, {"emission": 4.0}, target, cfg, RES, steps=1, device="cpu", reorder=True)
+    staged = optimize(build, {"emission": 4.0}, target, cfg, RES, steps=3, lr=0.5, device="cpu",
+                      param_clip=lambda p: {"emission": torch.clamp(p["emission"], max=4.2)}, reorder=True)
+    assert float(staged.params["emission"]) == pytest.approx(4.2)
+    torch.testing.assert_close(staged.losses, result.losses, rtol=1e-5, atol=0)
 
 
 @pytest.mark.parametrize("where", ["quad_vertex", "sphere_matrix", "camera_position"])

@@ -52,7 +52,7 @@ SLICE_MODULES = [
     "bpt_tpu_torch.accel.builder", "bpt_tpu_torch.accel.native", "bpt_tpu_torch.accel.traverse", "bpt_tpu_torch.env",
     "bpt_tpu_torch.scenes.gltf_scene", "bpt_tpu_torch.apps.gltf_model", "bpt_tpu_torch.apps.hdri_environment",
     "bpt_tpu_torch.textures", "bpt_tpu_torch.apps.debug_gltf_loading", "bpt_tpu_torch.kernels.traverse",
-    "bpt_tpu_torch.apps.inverse_rendering",
+    "bpt_tpu_torch.apps.inverse_rendering", "bpt_tpu_torch.kernels.staged", "bpt_tpu_torch.kernels.launch_args",
 ]
 
 
@@ -667,3 +667,101 @@ def test_cuda_textured_grads_kernels_match_plain_version(cuda_device, case):
     if not case.startswith("normal-only"):
         assert sum(int(c.emissive_hits) for c in counts) > 0
         assert sum(sum(c.pbr_classes.tolist()) for c in counts) > 0
+
+
+def _staged_cases(device):
+    """Every configuration of K1 for the staged kernel: Cornell METAL and
+    TRANSPARENT, quadric, sky, the blob mesh, HDRI sun and env NEE, the
+    textured blob under the glTF demo's and the HDRI demo's sun
+    configuration, the lobe on."""
+    mesh_cases, textured = _mesh_and_hdri_cases(device), _textured_cases(device)
+    return {
+        "cornell-metal": (cornell_scene(right_sphere_mat=METAL, device=device), cornell_camera(device=device),
+                          IntegratorConfig(bounces=4)),
+        "cornell-glass": (cornell_scene(right_sphere_mat=TRANSPARENT, device=device), cornell_camera(device=device),
+                          IntegratorConfig(bounces=4)),
+        "quadric": (quadric_geometry_scene(device=device), quadric_camera(device=device),
+                    IntegratorConfig(bounces=4, transparent_tint=True)),
+        "sky": (physical_sky_scene(device=device), sky_camera(device=device),
+                IntegratorConfig(bounces=4, env="sky", nee="sun")),
+        "mesh": mesh_cases["mesh"], "hdri-sun": mesh_cases["hdri-sun-up"], "hdri-env": mesh_cases["hdri-env"],
+        "textured": textured["gltf-lobe"], "textured-hdri-sun": textured["hdri-sun"],
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cornell-metal", "cornell-glass", "quadric", "sky", "mesh", "hdri-sun", "hdri-env",
+                                  "textured", "textured-hdri-sun"])
+def test_cuda_staged_pool_matches_k1(cuda_device, case):
+    """64x64, 4 bounces: a pool of frames 2 and 3 through the staged kernel
+    equals two K1 launches bit for bit, forward (11 planes) and grads mode
+    (with the sg and deferred planes), one staged launch per phase."""
+    from bpt_tpu_torch.kernels import staged
+
+    scene, cam, cfg = _staged_cases(cuda_device)[case]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    frames, rvs = (2.0, 3.0), (RV, np.array([0.6, 0.1], np.float32))
+    name = megakernel.configuration(scene, cfg)
+    for grads in (False, True):
+        counts = megakernel.STAGED_GRAD_LAUNCHES if grads else megakernel.STAGED_LAUNCHES
+        before = counts[name]
+        pool, sg, deferred = staged.trace_staged(scene, cam, cfg, 64, 64, frames, rvs, bn, grads=grads)
+        assert counts[name] == before + cfg.bounces
+        for i, (frame, rv) in enumerate(zip(frames, rvs)):
+            one = (megakernel.trace_image_fused_grads(scene, cam, cfg, 64, 64, frame, rv, bn) if grads
+                   else (megakernel.trace_image_fused(scene, cam, cfg, 64, 64, frame, rv, bn), None, None))
+            torch.cuda.synchronize()
+            for a, b in zip(pool, one[0]):
+                torch.testing.assert_close(a[i], b, rtol=0, atol=0)
+            if grads:
+                torch.testing.assert_close(sg[:, i], one[1], rtol=0, atol=0)
+                torch.testing.assert_close(deferred[:, i], one[2], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["cornell-glass", "textured"])
+def test_cuda_staged_phase_matches_plain_phase(cuda_device, case):
+    """One staged launch from a sorted state against trace_phase_reference
+    from the same state: the live lanes' rows, every dead lane's flags and
+    every output plane bit for bit; the permutation moved lanes."""
+    from bpt_tpu_torch.kernels import staged
+
+    scene, cam, cfg = _staged_cases(cuda_device)[case]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    pool = staged.make_pool(64, 64, (2.0, 3.0), (RV, np.array([0.6, 0.1], np.float32)), cuda_device)
+    for grads in (False, True):
+        kernel = megakernel.empty_outputs(scene, cfg, (2, 64, 64), grads, cuda_device)
+        state = staged.launch_phase(scene, cam, cfg, pool, bn, None, None, 0, 1, kernel)
+        perm = torch.sort(staged.sort_key(state), stable=True).indices
+        assert not torch.equal(perm, torch.arange(pool.lanes, device=cuda_device))
+        plain = {k: None if v is None else v.clone() for k, v in kernel.items()}
+        got = staged.launch_phase(scene, cam, cfg, pool, bn, state, perm, 1, 2, kernel)
+        ref = staged.trace_phase_reference(scene, cam, cfg, pool, bn, state, perm, 1, 2, plain)
+        torch.cuda.synchronize()
+        live = (ref[:, 10] & 1) != 0
+        torch.testing.assert_close(got[:, 10], ref[:, 10], rtol=0, atol=0)
+        torch.testing.assert_close(got[live], ref[live], rtol=0, atol=0)
+        for k in kernel:
+            if kernel[k] is not None:
+                torch.testing.assert_close(kernel[k], plain[k], rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_cuda_staged_batched_render(cuda_device):
+    """attach_cuda_path(reorder=True): render(spp=5, batch=2) traces each
+    batch as one pool (a staged launch per bounce and batch, one K1 launch
+    for the first sample) and equals the unattached render bit for bit; a
+    second attach without reorder steps frame by frame again."""
+    renderers = [ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=4), 64, 64, seed=7, device=cuda_device)
+                 for _ in range(2)]
+    attach_cuda_path(renderers[1], reorder=True)
+    staged_before, k1_before = megakernel.STAGED_LAUNCHES["cornell"], megakernel.LAUNCHES["cornell"]
+    img = renderers[1].render(cornell_camera(), spp=5, batch=2)
+    assert megakernel.STAGED_LAUNCHES["cornell"] == staged_before + 4 * 2
+    assert megakernel.LAUNCHES["cornell"] == k1_before + 1
+    ref = renderers[0].render(cornell_camera(), spp=5, batch=2)
+    torch.testing.assert_close(renderers[1].state.accum, renderers[0].state.accum, rtol=0, atol=0)
+    torch.testing.assert_close(img, ref, rtol=0, atol=0)
+    attach_cuda_path(renderers[1])
+    assert renderers[1].batch_step is None
+

@@ -230,15 +230,22 @@ def test_fused_texel_gradients_match_finite_differences(textured, which):
 @pytest.mark.parametrize("fused", [True, False])
 def test_albedo_recovery_lowers_the_loss(fused):
     """apps.inverse_rendering's recovery on the CPU, 3 Adam steps on a 16x16
-    albedo at 32², both routes: the loss falls (tests/test_fused_gradients.py:249)."""
+    albedo at 32², both routes: the loss falls (tests/test_fused_gradients.py:249).
+    reorder=True (the staged pool) takes the same steps on the fused route
+    and is refused on the wavefront route, which has no pool."""
     cam = Camera.look(position=(0.0, 0.0, -40.0), fov=0.8, focus_distance=40.0)
     out = recover_albedo(textured_blob(GLTFModel), bounces=2, size=RES, steps=3, lr=0.1, tex_size=16, fused=fused,
                          camera=cam, device="cpu", frames=(2.0,))
     assert np.isfinite(out["losses"]).all() and out["losses"][-1] < out["losses"][0], out["losses"]
     assert tuple(out["albedo"].shape) == (16, 16, 3) and float(out["albedo"].min()) >= 0.0
-    with pytest.raises(NotImplementedError, match="reorder"):
-        recover_albedo(textured_blob(GLTFModel), bounces=1, size=8, steps=1, lr=0.1, tex_size=4, fused=fused,
-                       reorder=True, camera=cam, device="cpu")
+    if fused:
+        staged = recover_albedo(textured_blob(GLTFModel), bounces=2, size=RES, steps=3, lr=0.1, tex_size=16,
+                                reorder=True, camera=cam, device="cpu", frames=(2.0,))
+        np.testing.assert_allclose(staged["losses"], out["losses"], rtol=1e-5)
+    else:
+        with pytest.raises(ValueError, match="reorder"):
+            recover_albedo(textured_blob(GLTFModel), bounces=1, size=8, steps=1, lr=0.1, tex_size=4, fused=fused,
+                           reorder=True, camera=cam, device="cpu")
 
 
 def test_inverse_rendering_cli_names_a_missing_model(tmp_path):
