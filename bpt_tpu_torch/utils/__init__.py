@@ -1,1 +1,1 @@
-"""Transform helpers (port of ``bpt_tpu.utils``)."""
+"""Transform helpers and profiling (port of ``bpt_tpu.utils``)."""

@@ -7,8 +7,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. device       — a CUDA device must exist; prints its name and power limit
                   (nvidia-smi) and the torch, CUDA and nvcc versions.
 2. build        — builds the kernels from bpt_tpu_torch/csrc with nvcc, one
-                  process per source, all at once (the megakernel and the
-                  closest-hit kernel).
+                  process per source, all at once (the megakernel, the
+                  staged kernel, the closest-hit kernel and loop_cost).
 3. parity       — the forward kernel against its plain PyTorch version at
                   1024², 4 bounces, frame 2, for both right-sphere materials.
 4. main         — the serving path: ProgressiveRenderer (on the card by
@@ -170,6 +170,20 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   events), K2's device time (torch.profiler), its bound and
                   share; the stand-in's fwd+bwd step w.r.t. its albedo map,
                   staged against monolithic.
+34. parity-loop-cost — K5 (csrc/loop_cost.cu, the walk-loop cost
+                  microbenchmark) in its seven configurations against its
+                  plain version on the card, bit for bit, at 50 iterations:
+                  on the tool's inputs, and on a seeded table whose rows grow
+                  or shrink the tile (the any-reduce both set and clear).
+35. main-loop-cost — the tool's main path, `python -m
+                  bpt_tpu_torch.tools.loop_cost --iters 4000`: every
+                  configuration launched, the outputs what its data give.
+36. timing-loop-cost — per configuration: ns/iter (CUDA events), device
+                  time (torch.profiler), bound and share, the plain version's
+                  ns/iter, the SASS's instruction counts (cuobjdump; each
+                  instantiation must keep its loop); a utils.profiling
+                  section around a launch waits for the card, and
+                  device_trace writes a Chrome trace that holds the kernel.
 
 It ends with a JSON line of per-kernel results (one entry per mode and
 configuration, each with its bound, the least time the card could take for
@@ -399,16 +413,15 @@ def profiled_step(fn, iters: int) -> tuple[float, float, list]:
 def kernel_device_ms(fn, iters: int, name: str, tries: int = 3) -> float | None:
     """Mean device time per launch of the CUDA kernels whose name contains
     ``name`` (spaces ignored) while ``fn`` runs; None when the profiler
-    reports none.  A profiler session that recorded no device activity at
-    all (it happens now and then on the card) is run again, up to
-    ``tries`` sessions."""
+    reports none.  A profiler session that did not record the kernel (now
+    and then a session records no device activity on the card) is run
+    again, up to ``tries`` sessions."""
     name = name.replace(" ", "")
     for _ in range(tries):
-        device_rows = profiled_step(fn, iters)[2]
-        if device_rows:
-            break
-    rows = [(ms, n) for key, ms, n in device_rows if name in key.replace(" ", "")]
-    return sum(ms for ms, _ in rows) / sum(n for _, n in rows) if rows else None
+        rows = [(ms, n) for key, ms, n in profiled_step(fn, iters)[2] if name in key.replace(" ", "")]
+        if rows:
+            return sum(ms for ms, _ in rows) / sum(n for _, n in rows)
+    return None
 
 
 def blob_model(T=128, seed=0):
@@ -1594,6 +1607,195 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
     return entries
 
 
+LOOP_PARITY_ITERS = 50  # the plain version launches some two dozen torch ops per step: keep it short
+LOOP_ITERS = 4000  # the tool's default
+LOOP_SASS_OPS = ("FFMA", "FMUL", "FMNMX", "LDS", "BAR", "VOTE", "BRA", "FSEL", "FSETP")
+
+
+def loop_cost_sass(library) -> dict:
+    """{(n_ops, reduce, cond): {opcode: count, "instructions": n,
+    "backward_branches": n}} of each loop_cost_kernel instantiation in the
+    built library, from cuobjdump -sass; {} where cuobjdump is missing."""
+    import re
+    from pathlib import Path
+
+    from bpt_tpu_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).parent / "cuobjdump"
+    if not tool.exists():
+        return {}
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    out, current, labels = {}, None, set()
+    for line in sass.splitlines():
+        m = re.search(r"Function : \S*loop_cost_kernelILi(\d+)ELb([01])ELb([01])E", line)
+        if m:
+            current, labels = out.setdefault((int(m[1]), m[2] == "1", m[3] == "1"), {
+                "instructions": 0, "backward_branches": 0, **dict.fromkeys(LOOP_SASS_OPS, 0)}), set()
+            continue
+        if "Function :" in line:
+            current = None
+        label = re.match(r"\s*(\.L\w+):", line)
+        if label:
+            labels.add(label[1])
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)(\.\S+)?\s*([^;]*);", line)
+        if current is None or not m:
+            continue
+        op = m[2]
+        current["instructions"] += 1
+        if op in current:
+            current[op] += 1
+        if op == "BRA":  # to an address or a label above it: a loop (not the branch to itself after EXIT)
+            target = re.search(r"0x([0-9a-f]+)", m[4])
+            named = re.search(r"(\.L\w+)", m[4])
+            if (target and int(target[1], 16) < int(m[1], 16)) or (named and named[1] in labels):
+                current["backward_branches"] += 1
+    return out
+
+
+def loop_cost_work(n_iter: int, n_ops: int, use_reduce: bool) -> tuple[float, float]:
+    """(FP32 operations, bytes) of one launch: per element and iteration an
+    FMA (2) and a multiply (1) per step, and with the reduce the multiply by
+    0.9999 (1: counted in every iteration, as jnp.where computes it; under
+    lax.cond it runs while the flag is set, so this overcounts by at most
+    1 / (3 n_ops + 1)); max, compares and selects are left out.  Bytes: the
+    32 KB table and the 8 KB tile read, the 8 KB tile written."""
+    from bpt_tpu_torch.kernels.loop_cost import TAB_SHAPE, TILE
+
+    elements = TILE[0] * TILE[1]
+    return (float(n_iter) * elements * (3 * n_ops + int(use_reduce)),
+            4.0 * (TAB_SHAPE[0] * TAB_SHAPE[1] + 2 * elements))
+
+
+def loop_cost_path(card: str) -> list:
+    """Phases 34-36: K5, the walk-loop cost microbenchmark (csrc/loop_cost.cu)
+    and its tool.  Returns its entries of the kernels line."""
+    import tempfile
+    from pathlib import Path
+
+    from bpt_tpu_torch.kernels import build
+    from bpt_tpu_torch.kernels import loop_cost as k5
+    from bpt_tpu_torch.tools import loop_cost as tool
+    from bpt_tpu_torch.utils.profiling import Profiler, device_trace
+
+    dev = torch.device("cuda")
+    # ---- 34. parity: kernel against plain on the card, bit for bit ----------
+    rng = np.random.default_rng(9)
+    shrink = np.where(rng.random((64, 1)) < 0.5, -2e-3, 0.0)  # rows that shrink the tile: the flag clears
+    inputs = {"tool": (tool.table(), tool.tile_input(0)),
+              "seeded": ((1.0 + rng.uniform(-1e-3, 1e-3, k5.TAB_SHAPE) + shrink).astype(np.float32),
+                         rng.uniform(0.5, 1.5, k5.TILE).astype(np.float32))}
+    errs, plain = {}, {}
+    for config in k5.CONFIGS:
+        for label, (tab_np, x_np) in inputs.items():
+            tab, x = torch.from_numpy(tab_np).to(dev), torch.from_numpy(x_np).to(dev)
+            got = k5.loop_cost(tab, x, LOOP_PARITY_ITERS, *config)
+            flags = []
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            ref = k5.loop_cost_reference(tab, x, LOOP_PARITY_ITERS, *config, flags=flags)
+            end.record()
+            torch.cuda.synchronize()
+            if label == "tool":
+                plain[config] = start.elapsed_time(end)
+            differ = got != ref
+            err = (got[differ] - ref[differ]).abs().max().item() if bool(differ.any()) else 0.0
+            errs[config] = max(errs.get(config, 0.0), err)
+            set_flags = sum(bool(f) for f in flags)
+            phase("parity-loop-cost", f"ops {config[0]} reduce {int(config[1])} cond {int(config[2])}, {label} "
+                                      f"inputs, {LOOP_PARITY_ITERS} iterations: bit-equal "
+                                      f"{bool(torch.equal(got, ref))}, finite {bool(torch.isfinite(got).all())}, "
+                                      f"max_abs_err {err}" + (f", flag set in {set_flags} of {len(flags)} iterations"
+                                                              if config[1] else ""))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"loop_cost kernel {config} disagrees with its plain version ({label} inputs)")
+
+    # ---- 35. the tool's main path: its seven configurations on the card -------
+    k5.reset_launches()
+    results = tool.main(["--iters", str(LOOP_ITERS)])
+    torch.cuda.synchronize()
+    launches = dict(k5.LAUNCHES)
+    phase("main-loop-cost", f"python -m bpt_tpu_torch.tools.loop_cost --iters {LOOP_ITERS}: launches "
+                            + ", ".join(f"{c}: {n}" for c, n in launches.items()))
+    x_last = torch.from_numpy(tool.tile_input(tool.TIMED_CALLS - 1)).to(dev)
+    for r in results:  # the table's entries are >= 1: every chain grows the tile; the bare loop keeps it
+        out = r["out"]
+        grew = bool((out > x_last).all()) if r["config"][0] else bool(torch.equal(out, x_last))
+        if out.shape != x_last.shape or bool(torch.isnan(out).any()) or not grew:
+            raise AssertionError(f"loop_cost {r['config']}: the tool's output is not what its data give")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"a loop_cost configuration was not launched on the main path: {launches}")
+
+    # ---- 36. timing: ns/iter, device time, bound and share; SASS; a trace ----
+    sass = loop_cost_sass(build.build(k5.KERNEL))
+    clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                            capture_output=True, text=True, timeout=60).stdout.strip()
+    tab, x = torch.from_numpy(tool.table()).to(dev), torch.from_numpy(tool.tile_input(0)).to(dev)
+    entries = []
+    for r in results:
+        config = r["config"]
+        n_ops, red, cond = config
+        name = f"loop_cost_kernel<{n_ops},{str(red).lower()},{str(cond).lower()}>"
+        dev_ms = kernel_device_ms(lambda: k5.loop_cost(tab, x, LOOP_ITERS, *config), iters=3, name=name, tries=5)
+        flop, nbytes = loop_cost_work(LOOP_ITERS, n_ops, red)
+        bound_ms, bound_by = bound(flop, nbytes)
+        share = 100 * bound_ms / (dev_ms or r["ms"])
+        plain_ns = plain[config] * 1e6 / LOOP_PARITY_ITERS
+        code = sass.get(config)
+        phase("timing-loop-cost", f"{card} (SM clock now, max: {clocks}): ops {n_ops} reduce {int(red)} cond "
+                                  f"{int(cond)}, {LOOP_ITERS} iterations: {r['ns_per_iter']:.2f} ns/iter, "
+                                  f"{r['ms']:.4f} ms a launch (CUDA events over 5 launches), device {dev_ms} ms "
+                                  f"(profiler); {flop / 1e9:.4f} GFLOP + {nbytes / 1e3:.3f} KB -> bound "
+                                  f"{bound_ms:.6f} ms ({bound_by}), {share:.4f}% of it reached; plain version "
+                                  f"{plain[config]:.2f} ms for {LOOP_PARITY_ITERS} iterations ({plain_ns:.0f} "
+                                  f"ns/iter); SASS " + (json.dumps(code) if code else "not read"))
+        if code is not None and code["backward_branches"] == 0:
+            raise AssertionError(f"loop_cost_kernel {config}: no loop left in its SASS")
+        entries.append({
+            "name": f"loop_cost_ops{n_ops}_reduce{int(red)}_cond{int(cond)}",
+            "route": "cuda",
+            "source": "bpt_tpu_torch/csrc/loop_cost.cu",
+            "replaces": "tools/loop_cost.py:57",
+            "launches": launches[config],
+            "max_abs_err": errs[config],
+            "ms": r["ms"],
+            "device_ms": dev_ms,
+            "n_iter": LOOP_ITERS,
+            "ns_per_iter": r["ns_per_iter"],
+            "plain_ms": plain[config],
+            "plain_n_iter": LOOP_PARITY_ITERS,
+            "plain_ns_per_iter": plain_ns,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "share_pct": share,
+            "library_ms": None,
+            "sass": code,
+        })
+
+    prof = Profiler()
+    big = (320, True, True)
+    event_ms = cuda_ms(lambda: k5.loop_cost(tab, x, LOOP_ITERS, *big), iters=1, warmup=1)
+    with prof.section("loop_cost 320 ops reduce cond"):
+        k5.loop_cost(tab, x, LOOP_ITERS, *big)
+    section_ms = prof.sections["loop_cost 320 ops reduce cond"][0] * 1e3
+    for session in range(1, 6):  # a profiler session now and then records no device activity on the card
+        with tempfile.TemporaryDirectory() as logdir:
+            with device_trace(logdir):
+                k5.loop_cost(tab, x, 10, *big)
+                torch.cuda.synchronize()
+            traces = [json.loads(t.read_text()) for t in Path(logdir).glob("*.pt.trace.json")]
+        in_trace = any("loop_cost_kernel" in ev.get("name", "") for t in traces for ev in t["traceEvents"])
+        if in_trace:
+            break
+    phase("timing-loop-cost", f"utils.profiling: a Profiler section around one 320-op launch {section_ms:.3f} ms "
+                              f"(the launch {event_ms:.3f} ms by CUDA events); device_trace wrote {len(traces)} "
+                              f"Chrome trace(s), the kernel in it: {in_trace} (session {session})")
+    if not (section_ms >= 0.9 * event_ms and len(traces) == 1):
+        raise AssertionError("utils.profiling: a section did not wait for the card, or device_trace wrote no trace")
+    return entries
+
+
 def main() -> int:
     # ---- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1605,6 +1807,7 @@ def main() -> int:
     from bpt_tpu_torch.integrator import IntegratorConfig
     from bpt_tpu_torch.integrator.frame import trace_image
     from bpt_tpu_torch.kernels import build, megakernel, staged
+    from bpt_tpu_torch.kernels import loop_cost as k5
     from bpt_tpu_torch.kernels import traverse as closest_hit
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
@@ -1623,8 +1826,9 @@ def main() -> int:
     megakernel._library()  # the first load builds every kernel of csrc/
     staged._library()
     closest_hit._library()
+    k5._library()
     libraries = [build.build(name) for name in build.kernels()]  # already built: their paths
-    phase("build", f"{megakernel.KERNEL}, {staged.KERNEL} and {closest_hit.KERNEL} ready in "
+    phase("build", f"{megakernel.KERNEL}, {staged.KERNEL}, {closest_hit.KERNEL} and {k5.KERNEL} ready in "
                    f"{time.perf_counter() - t0:.2f} s "
                    f"(flags {' '.join(build.NVCC_FLAGS)})")
     for lib in libraries:
@@ -2115,6 +2319,7 @@ def main() -> int:
     kernels += entries
     kernels += inverse_rendering(card, bn, capacity, stand_in, stand_in_model)
     kernels += staged_path(card, bn, capacity, stand_in)
+    kernels += loop_cost_path(card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -53,6 +53,7 @@ SLICE_MODULES = [
     "bpt_tpu_torch.scenes.gltf_scene", "bpt_tpu_torch.apps.gltf_model", "bpt_tpu_torch.apps.hdri_environment",
     "bpt_tpu_torch.textures", "bpt_tpu_torch.apps.debug_gltf_loading", "bpt_tpu_torch.kernels.traverse",
     "bpt_tpu_torch.apps.inverse_rendering", "bpt_tpu_torch.kernels.staged", "bpt_tpu_torch.kernels.launch_args",
+    "bpt_tpu_torch.kernels.loop_cost", "bpt_tpu_torch.tools.loop_cost", "bpt_tpu_torch.utils.profiling",
 ]
 
 
@@ -765,3 +766,84 @@ def test_cuda_staged_batched_render(cuda_device):
     attach_cuda_path(renderers[1])
     assert renderers[1].batch_step is None
 
+
+
+def _loop_cost_inputs(device, seed=0):
+    """The tool's inputs, and a seeded table whose rows grow or (about half)
+    shrink the tile, so that the max and the any-reduce go both ways."""
+    from bpt_tpu_torch.tools import loop_cost as tool
+
+    rng = np.random.default_rng(seed)
+    shrink = np.where(rng.random((64, 1)) < 0.5, -2e-3, 0.0)
+    seeded = ((1.0 + rng.uniform(-1e-3, 1e-3, (64, 128)) + shrink).astype(np.float32),
+              rng.uniform(0.5, 1.5, (8, 256)).astype(np.float32))
+    return [tuple(torch.from_numpy(a).to(device) for a in pair) for pair in ((tool.table(), tool.tile_input(3)),
+                                                                              seeded)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", [(0, False, False), (40, False, False), (100, False, False), (320, False, False),
+                                    (40, True, False), (40, True, True), (320, True, True)])
+def test_cuda_loop_cost_matches_plain_version(cuda_device, config):
+    """K5 in each instantiation equals its plain version on the card bit for
+    bit (an explicit FMA in both), 30 iterations, one launch each."""
+    from bpt_tpu_torch.kernels import loop_cost as k5
+
+    for tab, x in _loop_cost_inputs(cuda_device):
+        before = k5.LAUNCHES[config]
+        got = k5.loop_cost(tab, x, 30, *config)
+        assert k5.LAUNCHES[config] == before + 1
+        ref = k5.loop_cost_reference(tab, x, 30, *config)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+        assert bool(torch.isfinite(got).all()) and (config[0] == 0) == bool(torch.equal(got, x))
+
+
+@pytest.mark.cuda
+def test_cuda_loop_cost_refusals(cuda_device):
+    """A configuration without an instantiation, a tensor on another device,
+    of another dtype or not contiguous raise, and launch nothing; the C
+    entry refuses an unknown configuration itself."""
+    from bpt_tpu_torch.kernels import loop_cost as k5
+
+    tab, x = _loop_cost_inputs(cuda_device)[1]
+    before = dict(k5.LAUNCHES)
+    for config in ((41, False, False), (0, True, False), (40, False, True), (100, True, True)):
+        with pytest.raises(ValueError, match="no kernel instantiation"):
+            k5.loop_cost(tab, x, 4, *config)
+    with pytest.raises(ValueError, match="tab is on"):
+        k5.loop_cost(tab.cpu(), x, 4, 40, False, False)
+    with pytest.raises(TypeError, match="float32"):
+        k5.loop_cost(tab, x.double(), 4, 40, False, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.loop_cost(tab, x.t().contiguous().t(), 4, 40, False, False)
+    assert k5.LAUNCHES == before
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(cuda_device).cuda_stream
+    assert k5._library().bpt_loop_cost(tab.data_ptr(), x.data_ptr(), out.data_ptr(), 4, 41, 0, 0, stream) != 0
+
+
+@pytest.mark.cuda
+def test_cuda_profiler_section_waits_for_the_card(cuda_device, tmp_path):
+    """A Profiler section around a launch lasts at least the launch; a
+    device_trace holds the kernel."""
+    from bpt_tpu_torch.kernels import loop_cost as k5
+    from bpt_tpu_torch.utils.profiling import Profiler, device_trace
+
+    tab, x = _loop_cost_inputs(cuda_device)[0]
+    k5.loop_cost(tab, x, 10, 320, True, True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    k5.loop_cost(tab, x, 2000, 320, True, True)
+    end.record()
+    torch.cuda.synchronize()
+    prof = Profiler()
+    with prof.section("k5"):
+        k5.loop_cost(tab, x, 2000, 320, True, True)
+    assert prof.sections["k5"][0] * 1e3 >= 0.9 * start.elapsed_time(end)
+    with device_trace(str(tmp_path)):
+        k5.loop_cost(tab, x, 10, 40, True, False)
+        torch.cuda.synchronize()
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert traces and "loop_cost_kernel" in traces[0].read_text()
