@@ -12,26 +12,31 @@
 // from device memory through the read-only path, whatever the mesh's size.
 // It computes what bpt_tpu_torch/accel/traverse.py traverse_bvh computes,
 // step for step (csrc/bvh.cuh bvh_closest, shared with the megakernel's
-// in-loop walk: the same 28-entry stack, the far child pushed before the
-// near one, strict < so that ties go to the first triangle in visit order,
-// the same cull rule), and writes t, the triangle id, and the barycentric
+// in-loop walk: the same visit order with the same 28-entry stack, strict
+// < so that ties go to the first triangle in visit order, the same cull
+// rule), and writes t, the triangle id, and the barycentric
 // u, v bit-equal to it (no fast math, --fmad=false).  A lane outside the
 // mask, or whose ray misses the root box, reports t = kInf, tri = -1,
 // u = v = 0, as the plain walk does.  The gradient (the port of _recompute)
 // is plain torch: kernels/traverse.py _ClosestHit.
 //
 // What bounds it on this card: latency, not bytes or arithmetic.  Each step
-// of a walk is a dependent 16-byte gather of a node or triangle record
-// chosen by the step before, and the 32 threads of a warp follow 32 paths
-// through the tree, so a warp lasts as long as its longest walk.  The
-// records a frame's walks touch (a 524,288-triangle mesh: 33.5 MB of nodes,
-// 25.2 MB of triangles) fit the 50 MB L2 only in part.
+// of a walk waits for a gather chosen by the step before, and the 32
+// threads of a warp follow 32 paths through the tree, so a warp lasts as
+// long as its longest walk.  The records a frame's walks touch (a
+// 524,288-triangle mesh: 33.55 MB of node records, 25.2 MB of triangles)
+// fit the 50 MB L2 only in part.
 //
-// What the design does about that: nothing beyond the megakernel's walk
-// yet, so that the first kernel is the simple one that is right: the stack
-// lives in local memory, the rays are read once (24 bytes) and the results
-// written once (20 bytes).  Wide BVHs, node reordering, ray sorting,
-// short register stacks and TMA-staged nodes are later work.
+// What the design does about that: the walk of csrc/bvh.cuh over
+// child-pair node records, one dependent load a step (an inner node's
+// 64-byte record with both children's boxes, or a leaf's triangle, never a
+// leaf's node record), the near child carried in registers and only far
+// children on the local-memory stack; the rays are read once (24 bytes)
+// and the results written once (20 bytes).  What still holds it back: each
+// step waits for its record from L1, L2 or device memory, and the walks of
+// a warp diverge, which this launch shape (128 threads, one ray each, in
+// the caller's order) does nothing about.  Wide BVHs and ray sorting are
+// later work.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -65,9 +70,9 @@ __global__ void closest_hit_kernel(const float* __restrict__ ro, const float* __
 
 // The closest hit of n rays: ro, rd (n, 3) float32 object-space origins and
 // unnormalized directions; active (n,) bytes, or null for every lane; nodes
-// (M, 2, 4) and tris (T, 3, 4) float32, the mesh's MeshTables; cull != 0
-// culls back faces.  Writes t, u, v (n,) float32 and tri (n,) int64 on the
-// stream.  Returns the CUDA error of the launch.
+// (T, 4, 4) (child-pair records) and tris (T, 3, 4) float32, the mesh's
+// MeshTables; cull != 0 culls back faces.  Writes t, u, v (n,) float32 and
+// tri (n,) int64 on the stream.  Returns the CUDA error of the launch.
 extern "C" int bpt_closest_hit(const float* ro, const float* rd, const uint8_t* active, const float* nodes,
                                const float* tris, int n, int cull, float* t_out, int64_t* tri_out, float* u_out,
                                float* v_out, void* stream) {

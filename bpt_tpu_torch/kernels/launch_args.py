@@ -23,7 +23,8 @@ from bpt_tpu_torch.core.sampling import lobe_exponent
 from bpt_tpu_torch.core.vecmath import normalize
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.radiance import RadianceResult, deferred_layout
-from bpt_tpu_torch.scenes.types import MAP_FIELDS, PBR_MATERIAL, Scene, is_textured, kernel_tables_of
+from bpt_tpu_torch.scenes.types import (MAP_FIELDS, PBR_MATERIAL, Scene, check_walk_tables, is_textured,
+                                        kernel_tables_of)
 
 #: The kernel's configurations, as ``configuration`` names them.
 CONFIGURATIONS = ("cornell", "quadric", "sky", "mesh", "hdri", "textured")
@@ -158,7 +159,7 @@ def pack_params(scene: Scene, cfg: IntegratorConfig, device) -> torch.Tensor:
 
 def pack_mesh(mesh):
     """TriangleMesh -> (constants (17,), MeshTables), float32, the layouts of
-    csrc/bvh.cuh and csrc/textures.cuh.
+    csrc/bvh.cuh (child-pair node records) and csrc/textures.cuh.
 
     Constants: the inverse model matrix row-major and the material
     (PBR_MATERIAL for a mesh with an albedo), made on every call.  The
@@ -231,6 +232,8 @@ def trace_args(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, 
     for key, t in tensors.items():
         if t is not None:
             check_tensor(key, t, device)
+    if tables is not None:
+        check_walk_tables(tables)
     for key, t in zip(MAP_FIELDS, maps):
         if t is not None:
             check_tensor(key, t, device)

@@ -5,7 +5,8 @@ kernels for it, ``packet_closest_hit`` (K3, the tables resident in VMEM)
 and ``hbm_closest_hit`` (K4, the triangle table streamed from HBM), both
 over the TPU's clusterized packs.  On the card both are one kernel,
 ``csrc/closest_hit.cu``: one thread per ray walks the mesh's binary BVH
-(``MeshTables``, made once by ``Scene.to``) with the megakernel's walk.
+with the megakernel's walk, over the child-pair node records of its
+``MeshTables`` (made once by ``Scene.to``).
 
 ``closest_hit(ro, rd, cull, active, mesh)`` takes (..., 3) object-space
 rays with unnormalized directions and returns ``(t, tri, u, v)``: t =
@@ -28,7 +29,7 @@ import torch
 
 from bpt_tpu_torch.accel.traverse import MAX_STACK_DEPTH, tri_t_uv, traverse_bvh
 from bpt_tpu_torch.kernels import build
-from bpt_tpu_torch.scenes.types import TriangleMesh, kernel_tables_of
+from bpt_tpu_torch.scenes.types import TriangleMesh, check_walk_tables, kernel_tables_of
 
 KERNEL = "closest_hit"
 #: Launches of the closest-hit kernel.
@@ -64,6 +65,7 @@ def _launch(ro: torch.Tensor, rd: torch.Tensor, cull: bool, active, mesh: Triang
             raise ValueError(f"{name} is on {t.device}, expected {device}")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
+    check_walk_tables(tables)
     if rd.shape != ro.shape or ro.shape[-1] != 3:
         raise ValueError(f"ro and rd must be (..., 3) of one shape, got {tuple(ro.shape)} and {tuple(rd.shape)}")
     n = ro.numel() // 3
@@ -80,12 +82,11 @@ def _launch(ro: torch.Tensor, rd: torch.Tensor, cull: bool, active, mesh: Triang
     tri = torch.empty(n, dtype=torch.int64, device=device)
     if n:
         lib = _library()
-        nodes, tris = tables.nodes.contiguous(), tables.tris.contiguous()
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.bpt_closest_hit(ro_f.data_ptr(), rd_f.data_ptr(), 0 if act is None else act.data_ptr(),
-                                      nodes.data_ptr(), tris.data_ptr(), n, int(cull), t.data_ptr(), tri.data_ptr(),
-                                      u.data_ptr(), v.data_ptr(), stream)
+                                      tables.nodes.data_ptr(), tables.tris.data_ptr(), n, int(cull), t.data_ptr(),
+                                      tri.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
         if err != 0:
             raise RuntimeError(f"closest_hit_kernel launch failed: CUDA error {err}")
         LAUNCHES["closest_hit"] += 1

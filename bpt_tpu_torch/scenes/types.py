@@ -61,17 +61,20 @@ class Quadrics(NamedTuple):
 
 class MeshTables(NamedTuple):
     """A mesh's tables in the layout of the CUDA kernels (csrc/bvh.cuh,
-    csrc/textures.cuh), float32, 16-byte records: a node is (min.xyz,
-    node_tri) and (max.xyz, node_right), the ids' int32 bits in the fourth
-    lane; a triangle its three vertices, a normal record its three vertex
-    normals, one per record.  A textured mesh (an albedo or a normal map)
-    adds its 24-byte UV record (uv0, uv1, uv2); the kernel reads the maps
-    themselves from the mesh, (H, W, 3) float32.  ``source`` holds the soup
-    and BVH tensors the tables were made from (references, no copy), each
-    with its version counter then, so that tables that no longer match their
-    mesh, replaced or edited in place, are never used."""
+    csrc/textures.cuh), float32.  ``nodes`` holds the BVH as child-pair
+    records of 64 bytes (``child_pair_nodes``): record 0 a header with the
+    root's box and reference, then one record per inner node with both
+    children's boxes and references, so that the walk reads one record per
+    inner step and none at a leaf.  A triangle is three 16-byte records, one
+    vertex each, a normal record its three vertex normals.  A textured mesh
+    (an albedo or a normal map) adds its 24-byte UV record (uv0, uv1, uv2);
+    the kernel reads the maps themselves from the mesh, (H, W, 3) float32.
+    ``source`` holds the soup and BVH tensors the tables were made from
+    (references, no copy), each with its version counter then, so that
+    tables that no longer match their mesh, replaced or edited in place, are
+    never used."""
 
-    nodes: torch.Tensor  # (M, 2, 4)
+    nodes: torch.Tensor  # (R, 4, 4): R = T for a BVH of one triangle per leaf
     tris: torch.Tensor  # (T, 3, 4)
     normals: torch.Tensor  # (T, 3, 4)
     uvs: Optional[torch.Tensor] = None  # (T, 3, 2)
@@ -129,22 +132,69 @@ TABLE_SOURCE_FIELDS = ("p0", "p1", "p2", "n0", "n1", "n2", "uv0", "uv1", "uv2", 
                        "node_max")
 
 
+def child_pair_nodes(node_tri, node_right, node_min, node_max) -> torch.Tensor:
+    """The flat BVH (pre-order, left child i + 1, ``node_tri`` >= 0 at a
+    leaf) as the walk's child-pair records, (R, 4, 4) float32 on its device,
+    R = 1 + the inner nodes.  A reference names an inner node by its record
+    (>= 1, the inner nodes numbered in pre-order) and a leaf by -1 - its
+    triangle (< 0).  Record 0 is the header, (root.min.xyz, root ref),
+    (root.max.xyz, 0), zeros; the record of an inner node is (left.min.xyz,
+    left ref), (left.max.xyz, right ref), (right.min.xyz, 0), (right.max.xyz,
+    0).  The boxes are the builder's rows bit for bit and the references
+    int32 bits in the fourth lanes: the records are built as int32, so no id
+    passes through float arithmetic."""
+    tri = node_tri.to(torch.int64)
+    inner = tri < 0
+    ref = torch.where(inner, torch.cumsum(inner.to(torch.int64), 0), -1 - tri).to(torch.int32)
+    lo = node_min.to(torch.float32).contiguous().view(torch.int32)
+    hi = node_max.to(torch.float32).contiguous().view(torch.int32)
+    parent = torch.nonzero(inner).squeeze(1)
+    left, right = parent + 1, node_right.to(torch.int64)[parent]
+    none = torch.zeros_like(left, dtype=torch.int32)
+
+    def row(box, i, w):
+        return torch.cat([box[i], w[:, None]], dim=1)
+
+    head = torch.zeros((1, 4, 4), dtype=torch.int32, device=tri.device)
+    head[0, 0, :3], head[0, 0, 3], head[0, 1, :3] = lo[0], ref[0], hi[0]
+    records = torch.stack([row(lo, left, ref[left]), row(hi, left, ref[right]), row(lo, right, none),
+                           row(hi, right, none)], dim=1)
+    return torch.cat([head, records]).view(torch.float32)
+
+
 def mesh_tables(mesh: TriangleMesh) -> MeshTables:
     """The CUDA kernels' tables of ``mesh``, on the mesh's device (84 MB for
-    a 524,288-triangle mesh; a textured one adds 12.6 MB of UV records)."""
-    def rows(xyz, w):  # built as int32 bits, so the ids' bit patterns never pass through float arithmetic
+    a 524,288-triangle mesh, 33.55 MB of them node records; a textured one
+    adds 12.6 MB of UV records)."""
+    def rows(xyz, w):  # built as int32 bits, as the node records are
         return torch.cat([xyz.to(torch.float32).contiguous().view(torch.int32), w.to(torch.int32)[:, None]], dim=1)
 
     zeros = torch.zeros(mesh.p0.shape[0], dtype=torch.int32, device=mesh.p0.device)
-    nodes = torch.stack([rows(mesh.node_min, mesh.node_tri), rows(mesh.node_max, mesh.node_right)], dim=1)
-    tris = torch.stack([rows(p, zeros) for p in (mesh.p0, mesh.p1, mesh.p2)], dim=1)
-    normals = torch.stack([rows(n, zeros) for n in (mesh.n0, mesh.n1, mesh.n2)], dim=1)
-    tables = MeshTables(*(t.contiguous().view(torch.float32) for t in (nodes, tris, normals)),
+    nodes = child_pair_nodes(mesh.node_tri, mesh.node_right, mesh.node_min, mesh.node_max)
+    tris = torch.stack([rows(p, zeros) for p in (mesh.p0, mesh.p1, mesh.p2)], dim=1).view(torch.float32)
+    normals = torch.stack([rows(n, zeros) for n in (mesh.n0, mesh.n1, mesh.n2)], dim=1).view(torch.float32)
+    tables = MeshTables(nodes, tris, normals,
                         source=tuple((t, t._version) for t in (getattr(mesh, f) for f in TABLE_SOURCE_FIELDS)))
     if not is_textured(mesh):
         return tables
     uvs = torch.stack([mesh.uv0, mesh.uv1, mesh.uv2], dim=1).to(torch.float32).contiguous()
     return tables._replace(uvs=uvs)
+
+
+def check_walk_tables(tables: MeshTables) -> None:
+    """Raise ValueError unless ``tables`` hold what csrc/bvh.cuh's walk reads:
+    (R, 4, 4) node records, R >= 1, and (T, 3, 4) triangle records, T = R
+    (one triangle per leaf), contiguous, fewer than 2**29 of each (the
+    kernel's int offsets)."""
+    nodes, tris = tables.nodes, tables.tris
+    if nodes.dim() != 3 or tuple(nodes.shape[1:]) != (4, 4) or tris.dim() != 3 or tuple(tris.shape[1:]) != (3, 4):
+        raise ValueError(f"node and triangle records must be (R, 4, 4) and (T, 3, 4), got {tuple(nodes.shape)} and "
+                         f"{tuple(tris.shape)}")
+    if not 1 <= nodes.shape[0] == tris.shape[0] < 2 ** 29:
+        raise ValueError(f"{nodes.shape[0]} node records for {tris.shape[0]} triangles: a BVH of one triangle per "
+                         f"leaf has one record per triangle (the header and T - 1 inner nodes), fewer than 2**29")
+    if not (nodes.is_contiguous() and tris.is_contiguous()):
+        raise ValueError("node and triangle records must be contiguous")
 
 
 def resident_tables(mesh: TriangleMesh) -> Optional[MeshTables]:

@@ -108,7 +108,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   primary rays from the glTF and the raised camera, bounce
                   1's rays of a plain wavefront pass with its lane mask, the
                   blob METAL and TRANSPARENT (cull off), the textured
-                  stand-in; its recompute VJP on the card against the same
+                  stand-in, the 64-triangle blob with every triangle twice
+                  (most hits tie: the plain walk's read masks must show both
+                  copies tested) and a mesh of one triangle (the root a
+                  leaf); its recompute VJP on the card against the same
                   backward on CPU copies (rtol 1e-5).
 24. wavefront-mesh — trace_image at 1024², 4 bounces, on the capacity scene
                   and the textured stand-in: the kernel walk against the
@@ -328,10 +331,13 @@ def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadri
     lanes, the torus march's steps, the mesh walk's inner-node visits and
     triangle tests on live lanes and the mesh records it read).  Each input
     byte the kernel reads is counted once: the blue-noise table, the packed
-    scene, the parameter pack; of the mesh (``mesh``), the 32-byte node,
-    48-byte triangle and 48-byte vertex-normal records the frame's walks
-    read, each distinct record once (the plain walk's masks, their union
-    over the bounces); the HDR map of the environment ``hdri`` whole, and
+    scene, the parameter pack; of the mesh (``mesh``), 32 bytes for each
+    node box (the root's in the header of the child-pair records, a child's
+    in its parent's record: the plain walk's node mask marks the root and
+    the children of every visited inner node), the 48-byte triangle and
+    48-byte vertex-normal records the frame's walks read, each distinct box
+    or record once (the plain walk's masks, their union over the bounces);
+    the HDR map of the environment ``hdri`` whole, and
     its CDF tables only under env NEE (``env_nee``).  Each of the 11 output
     planes is written once.  Sphere normals of closer hits, quadric and
     mesh normals, NEE draws and all but the cheapest shading branch are left
@@ -436,6 +442,45 @@ def blob_model(T=128, seed=0):
     z2 = np.zeros((T, 2), np.float32)
     return GLTFModel(p0=tri[:, 0], p1=tri[:, 1], p2=tri[:, 2], n0=n, n1=n, n2=n, uv0=z2, uv1=z2, uv2=z2,
                      albedo=None, normal_map=None, metallic_roughness=None, emissive=None)
+
+
+def doubled_model(model):
+    """The soup with every triangle twice: triangle i + T is triangle i, so
+    every hit is a tie that the walk's visit order decides."""
+    return type(model)(*(None if x is None else np.concatenate([x, x]) for x in model))
+
+
+def one_triangle_model():
+    """One large triangle facing the glTF camera: its BVH is one leaf, the
+    root."""
+    from bpt_tpu_torch.io.gltf import GLTFModel
+
+    p = np.array([[[-30.0, -30.0, 0.0]], [[0.0, 30.0, 0.0]], [[30.0, -30.0, 0.0]]], np.float32)
+    n = np.array([[0.0, 0.0, -1.0]], np.float32)
+    z2 = np.zeros((1, 2), np.float32)
+    return GLTFModel(p0=p[0], p1=p[1], p2=p[2], n0=n, n1=n, n2=n, uv0=z2, uv1=z2, uv2=z2, albedo=None,
+                     normal_map=None, metallic_roughness=None, emissive=None)
+
+
+def tied_lanes(mesh, ro, rd, cull: bool, n: int = 48) -> tuple[int, int]:
+    """(lanes looked at, lanes tied): of the first n lanes of a doubled soup
+    whose ray hits, those that tested both copies of their winner (the
+    copies give the same t bit for bit), by the plain walk's read masks
+    (``steps_out``) one lane at a time."""
+    from bpt_tpu_torch.accel.traverse import traverse_bvh
+
+    ro, rd = ro.reshape(-1, 3), rd.reshape(-1, 3)
+    walk = (mesh.node_tri, mesh.node_right, mesh.node_min, mesh.node_max, mesh.p0, mesh.p1, mesh.p2)
+    tri = traverse_bvh(*walk, ro, rd, cull)[1]
+    half = mesh.p0.shape[0] // 2
+    lanes = torch.nonzero(tri >= 0).squeeze(1)[:n].tolist()
+    tied = 0
+    for lane in lanes:
+        steps = []
+        traverse_bvh(*walk, ro[lane:lane + 1], rd[lane:lane + 1], cull, steps_out=steps)
+        winner = int(tri[lane])
+        tied += bool(steps[3][winner]) and bool(steps[3][(winner + half) % (2 * half)])
+    return len(lanes), tied
 
 
 def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
@@ -847,7 +892,8 @@ def closest_hit_work(ro, rd, cull: bool, active, mesh) -> tuple[float, float, li
     walk's operations per lane, visit and test (as ``kernel_work`` counts
     them for the megakernel), each live lane's ray and the lane mask (when
     there is one) read once, each lane's result written once, and each
-    distinct 32-byte node and 48-byte triangle record read."""
+    distinct 32-byte node box (as ``kernel_work`` counts it) and 48-byte
+    triangle record read."""
     from bpt_tpu_torch.accel.traverse import MAX_STACK_DEPTH, traverse_bvh
 
     steps = []
@@ -883,7 +929,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     from bpt_tpu_torch.kernels import traverse as closest_hit
     from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, hdri_camera, hdri_scene, mesh_from_model
     from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene
-    from bpt_tpu_torch.scenes.types import METAL, TRANSPARENT
+    from bpt_tpu_torch.scenes.types import DIFFUSE, METAL, TRANSPARENT
 
     dev = torch.device("cuda")
     raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0).to(dev)
@@ -918,6 +964,9 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     # ---- 23. the closest-hit kernel against the plain walk ---------------------------
     blobs = {mat: gltf_scene(mesh_from_model(blob_model(), mat_type=mat, **place), device=dev).mesh
              for mat in (METAL, TRANSPARENT)}
+    doubled = gltf_scene(mesh_from_model(doubled_model(blob_model(64)), mat_type=DIFFUSE, **place), device=dev).mesh
+    one = gltf_scene(mesh_from_model(one_triangle_model(), mat_type=DIFFUSE, translation=place["translation"]),
+                     device=dev).mesh
     # bounce 2: the lanes whose shadow ray failed at bounce 1 are off the mask (from the glTF camera no
     # primary ray ends on the light)
     ro_b, rd_b, act_b = bounce_rays(cap, gltf_camera(dev), IntegratorConfig(bounces=BOUNCES), 2)
@@ -927,7 +976,10 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
              ("blob METAL, primary rays", blobs[METAL], *primary(blobs[METAL], gltf_camera(dev)), None),
              ("blob TRANSPARENT (cull off), primary rays", blobs[TRANSPARENT],
               *primary(blobs[TRANSPARENT], gltf_camera(dev)), None),
-             ("textured stand-in, primary rays, raised camera", tex.mesh, *primary(tex.mesh, raised), None)]
+             ("textured stand-in, primary rays, raised camera", tex.mesh, *primary(tex.mesh, raised), None),
+             ("blob with every triangle twice (ties), primary rays", doubled, *primary(doubled, gltf_camera(dev)),
+              None),
+             ("one triangle (the root a leaf), primary rays", one, *primary(one, gltf_camera(dev)), None)]
     ch_err, plain_times, ch_timing = 0.0, {}, {}
     for label, mesh, ro, rd, act in cases:
         cull = mesh.albedo is not None or int(mesh.mat_type) != TRANSPARENT
@@ -947,6 +999,12 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
                                     f"{equal}, plain walk {plain_s:.2f} s")
         if not equal or hits == 0 or (act is not None and not (bool((got[1][~act] < 0).all()) and (~act).any())):
             raise AssertionError(f"the closest-hit kernel disagrees with the plain walk ({label})")
+        if mesh is doubled:
+            looked, tied = tied_lanes(mesh, ro, rd, cull)
+            phase("parity-closest-hit", f"{label}: {tied} of the first {looked} hit lanes tested both copies of "
+                                        f"their winner (a tie the visit order decides)")
+            if looked == 0 or tied < 0.8 * looked:
+                raise AssertionError("the doubled soup reached too few ties")
         if label in (cases[0][0], cases[2][0]):  # timed here, next to the parity run (phase 28 reports)
             def call(mesh=mesh, ro=ro, rd=rd, act=act, cull=cull):
                 return closest_hit.closest_hit(ro, rd, cull, act, mesh)

@@ -30,6 +30,7 @@ from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, hdri_camera
 from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
 from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
 from bpt_tpu_torch.scenes.types import DIFFUSE, METAL, TRANSPARENT
+from chip_smoke import doubled_model, one_triangle_model, tied_lanes
 
 torch.set_num_threads(2)
 
@@ -518,6 +519,77 @@ def test_cuda_closest_hit_kernel_matches_plain_walk(cuda_device, mat):
         assert int((got[1] >= 0).sum()) > 100
         if act is not None:
             assert bool((got[1][~act] == -1).all())
+
+
+def _tie_cases(device, case, mat):
+    """The doubled 64-triangle blob (placed as the mesh cases place the blob)
+    or the one triangle in the glTF box, and the glTF camera's 64x64
+    primary rays of frame 2 in the mesh's object space."""
+    from bpt_tpu_torch.camera import generate_rays
+    from bpt_tpu_torch.core.rng import rng_seed
+    from bpt_tpu_torch.core.vecmath import transform_dir, transform_point
+    from bpt_tpu_torch.integrator.frame import pixel_grid
+
+    if case == "doubled":
+        model, place = doubled_model(blob_model(64)), dict(rotation=(0.3, 0.5, 0.0), scale=(1.5, 1.5, 1.5))
+    else:
+        model, place = one_triangle_model(), {}
+    scene = gltf_scene(mesh_from_model(model, mat_type=mat, translation=(0.0, -20.0, -85.0), **place), device=device)
+    px, py = pixel_grid(64, 64, device)
+    ro, rd, _ = generate_rays(gltf_camera(device=device), px, py, 64, 64, rng_seed(2.0, px, py))
+    return scene, transform_point(scene.mesh.inv_matrix, ro), transform_dir(scene.mesh.inv_matrix, rd)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mat", [DIFFUSE, TRANSPARENT])
+@pytest.mark.parametrize("case", ["doubled", "one-triangle"])
+def test_cuda_closest_hit_kernel_on_ties_and_one_triangle(cuda_device, case, mat):
+    """The closest-hit kernel against the plain walk bit for bit on the
+    doubled soup, where nearly every hit is a tie that only the visit order
+    decides (the plain walk's read masks show both copies tested), and on
+    a mesh of one triangle, whose root is a leaf; cull on and off."""
+    from bpt_tpu_torch.kernels import traverse
+
+    scene, ro, rd = _tie_cases(cuda_device, case, mat)
+    cull = mat != TRANSPARENT
+    before = traverse.LAUNCHES["closest_hit"]
+    got = traverse.closest_hit(ro, rd, cull, None, scene.mesh)
+    assert traverse.LAUNCHES["closest_hit"] == before + 1
+    ref = traverse.closest_hit_reference(ro, rd, cull, None, scene.mesh)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert int((got[1] >= 0).sum()) > 200
+    if case == "doubled":
+        looked, tied = tied_lanes(scene.mesh, ro, rd, cull)
+        assert looked == 48 and tied >= 40
+    else:
+        assert bool((got[1] <= 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["doubled", "one-triangle"])
+def test_cuda_mesh_kernel_on_ties_and_one_triangle(cuda_device, case):
+    """K1's mesh configuration, forward and grads, against its plain version
+    bit for bit at 64x64 on the doubled soup (its first hits tie: the
+    plain walk's read masks on the same primary rays show both copies
+    tested) and on the one-triangle mesh; the mesh takes first hits."""
+    scene, ro, rd = _tie_cases(cuda_device, case, DIFFUSE)
+    cam, cfg = gltf_camera(device=cuda_device), IntegratorConfig(bounces=4)
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    before = megakernel.LAUNCHES["mesh"]
+    got = megakernel.trace_image_fused(scene, cam, cfg, 64, 64, 2.0, RV, bn)
+    assert megakernel.LAUNCHES["mesh"] == before + 1
+    ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 64, 64, 2.0, RV, bn)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    assert (got.object_id == 8.0).float().mean().item() > 0.2
+    counts = _grads_case_check(scene, cam, cfg, cuda_device)
+    assert sum(int(c.tri_tests) for c in counts) > 0
+    if case == "doubled":
+        looked, tied = tied_lanes(scene.mesh, ro, rd, True)
+        assert looked == 48 and tied >= 40
 
 
 @pytest.mark.cuda

@@ -146,16 +146,31 @@ def test_walk_reports_the_records_it_reads():
 
 
 def test_mesh_tables_are_the_kernels_layout():
-    """mesh_tables packs the soup and the BVH into 16-byte records, the ids'
-    int32 bits in the fourth lane; Scene.to drops them off the card."""
+    """mesh_tables packs the BVH into child-pair records of 64 bytes (a
+    header with the root's box and reference, then per inner node, in
+    pre-order, both children's boxes and references: an inner child's
+    record, or -1 - the triangle of a leaf, int32 bits in the w lanes) and
+    the soup into 16-byte vertex records; Scene.to drops them off the
+    card."""
     mesh = gltf_scene.mesh_from_model(blob(16))
     tables = mesh_tables(mesh)
-    assert tables.nodes.shape == (mesh.node_tri.shape[0], 2, 4) and tables.nodes.dtype == torch.float32
+    node_tri, node_right = mesh.node_tri.long(), mesh.node_right.long()
+    inner = torch.nonzero(node_tri < 0).squeeze(1)
+    assert tables.nodes.shape == (1 + inner.numel(), 4, 4) == (16, 4, 4) and tables.nodes.dtype == torch.float32
+    ref = torch.where(node_tri < 0, torch.cumsum((node_tri < 0).long(), 0), -1 - node_tri)
     bits = tables.nodes.view(torch.int32)
-    torch.testing.assert_close(bits[:, 0, 3], mesh.node_tri, rtol=0, atol=0)
-    torch.testing.assert_close(bits[:, 1, 3], mesh.node_right, rtol=0, atol=0)
-    torch.testing.assert_close(tables.nodes[:, 0, :3], mesh.node_min, rtol=0, atol=0)
-    torch.testing.assert_close(tables.nodes[:, 1, :3], mesh.node_max, rtol=0, atol=0)
+    box_bits = mesh.node_min.view(torch.int32), mesh.node_max.view(torch.int32)
+    left, right = inner + 1, node_right[inner]
+    assert bits[0, 0, 3] == ref[0] and ref[0] == 1
+    torch.testing.assert_close(bits[0, 0, :3], box_bits[0][0], rtol=0, atol=0)
+    torch.testing.assert_close(bits[0, 1, :3], box_bits[1][0], rtol=0, atol=0)
+    torch.testing.assert_close(bits[0, 1:, 3], torch.zeros(3, dtype=torch.int32), rtol=0, atol=0)
+    torch.testing.assert_close(bits[0, 2:], torch.zeros(2, 4, dtype=torch.int32), rtol=0, atol=0)
+    for k, (child, box) in enumerate(((left, 0), (left, 1), (right, 0), (right, 1))):
+        torch.testing.assert_close(bits[1:, k, :3], box_bits[box][child], rtol=0, atol=0)
+    torch.testing.assert_close(bits[1:, 0, 3].long(), ref[left], rtol=0, atol=0)
+    torch.testing.assert_close(bits[1:, 1, 3].long(), ref[right], rtol=0, atol=0)
+    assert not bits[1:, 2:, 3].any()
     for k, (p, n) in enumerate(zip((mesh.p0, mesh.p1, mesh.p2), (mesh.n0, mesh.n1, mesh.n2))):
         torch.testing.assert_close(tables.tris[:, k, :3], p, rtol=0, atol=0)
         torch.testing.assert_close(tables.normals[:, k, :3], n, rtol=0, atol=0)
