@@ -50,7 +50,7 @@ from bpt_tpu_torch.kernels import build, staged
 from bpt_tpu_torch.kernels.launch_args import (  # noqa: F401  (pack_*, plane_counts: this module's public names)
     CONFIGURATIONS, ENVS, NEES, TraceArgs, configuration, empty_outputs, outputs_result, pack_camera, pack_mesh,
     pack_params, pack_scene, plane_counts, trace_args)
-from bpt_tpu_torch.kernels.staged import STAGED_GRAD_LAUNCHES, STAGED_LAUNCHES
+from bpt_tpu_torch.kernels.staged import KEY_LAUNCHES, STAGED_GRAD_LAUNCHES, STAGED_LAUNCHES
 from bpt_tpu_torch.scenes.types import Scene, is_textured
 from bpt_tpu_torch.textures import sample_bilinear
 
@@ -62,8 +62,9 @@ GRAD_LAUNCHES = dict.fromkeys(CONFIGURATIONS, 0)
 
 
 def reset_launches() -> None:
-    """Set every launch count to 0 (K1's here, K2's of ``kernels/staged.py``)."""
-    for counts in (LAUNCHES, GRAD_LAUNCHES, STAGED_LAUNCHES, STAGED_GRAD_LAUNCHES):
+    """Set every launch count to 0 (K1's here, K2's and the key kernel's of
+    ``kernels/staged.py``)."""
+    for counts in (LAUNCHES, GRAD_LAUNCHES, STAGED_LAUNCHES, STAGED_GRAD_LAUNCHES, KEY_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -368,7 +369,8 @@ def trace_frames_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, widt
     image): the RNG, the blue noise and the film use absolute rows, so a
     row slice equals the same rows of the whole image.  CUDA tensors launch
     the staged kernel (``STAGED_LAUNCHES`` / ``STAGED_GRAD_LAUNCHES`` count
-    its phases); CPU tensors run the same driver with the plain phase
+    its phases) and the key kernel (``KEY_LAUNCHES``, one per sort); CPU
+    tensors run the same loop with the plain phase
     (``staged.trace_phase_reference``).  ``differentiable=True`` carries the
     path-replay VJP, as ``trace_image_fused`` does, summed over the frames.
     """

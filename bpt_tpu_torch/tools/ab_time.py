@@ -18,14 +18,17 @@ demo's with sun and env NEE, the lobe on, 20 launches each), the grads
 mode of each mesh, HDRI and textured configuration (20 launches each), the
 closest-hit kernel on the capacity mesh's 1024² primary rays from the glTF
 camera (50 launches), and the registers and stack nvcc reported for its
-builds; with the staged kernel, the 8-frame pool on the capacity mesh
-against its 8 K1 launches, and in every configuration, forward and grads,
-the staged kernel as one phase of one frame (``trace_staged(...,
-splits=())``: no sort, no state) against K1 on the same frame, in turns (K1,
-K2, K2, K1; 25 launches each without a mesh, 10 with one).  A checkout that
-lacks a kernel or a grads configuration prints no number for it.  Device
-times compare only within one call; put each version more than once, in
-turns.
+builds; with the staged kernel, 8-frame pools (frames 2-9, 4 phases) on the
+capacity mesh, its rugged variant, the Cornell box (forward and grads) and
+the sky against their 8 K1 launches: the whole pool (CUDA events, 5
+pools), K2's phases and the key kernel's two passes (torch.profiler), and
+the sort keys and torch.sort of each pool's three boundaries (CUDA events
+around each, 3 pools); and in every configuration, forward and grads, the
+staged kernel as one phase of one frame (``trace_staged(..., splits=())``:
+no sort, no state) against K1 on the same frame, in turns (K1, K2, K2, K1;
+25 launches each without a mesh, 10 with one).  A checkout that lacks a
+kernel or a grads configuration prints no number for it.  Device times
+compare only within one call; put each version more than once, in turns.
 """
 
 from __future__ import annotations
@@ -141,21 +144,42 @@ def measure(checkout: str) -> None:
         numbers["closest_hit_device_ms"] = device_ms(lambda: traverse.closest_hit(ro, rd, True, None, mesh), 50,
                                                      "closest_hit_kernel")
     if hasattr(megakernel, "trace_frames_fused"):  # the staged kernel
-        mscene, mcam, mcfg = families["mesh"]
+        from bpt_tpu_torch.kernels import staged
+
         fcs = [2.0 + i for i in range(8)]
         rvs = [np.array([(i * 0.173) % 1.0, (i * 0.519) % 1.0], np.float32) for i in range(8)]
+        rugged = mesh_from_model(heightfield_model(rugged=True), mat_type=1, use_native="require")
+        pools = {"mesh": families["mesh"] + (False,),
+                 "rugged": (gltf_scene(rugged, device=dev), gltf_camera(device=dev), IntegratorConfig(bounces=4),
+                            False),
+                 "cornell": (scene, cam, cfg, False), "cornell_grads": (scene, cam, cfg, True),
+                 "sky": families["sky"] + (False,)}
+        for name, (pscene, pcam, pcfg, pgrads) in pools.items():
+            def pool(record=None):
+                return staged.trace_staged(pscene, pcam, pcfg, size, size, fcs, rvs, bn, grads=pgrads, record=record)
 
-        def pool():
-            return megakernel.trace_frames_fused(mscene, mcam, mcfg, size, size, fcs, rvs, bn)
+            def frames():
+                k1 = megakernel.trace_image_fused_grads if pgrads else megakernel.trace_image_fused
+                return [k1(pscene, pcam, pcfg, size, size, f, rv, bn) for f, rv in zip(fcs, rvs)]
 
-        def frames():
-            return [megakernel.trace_image_fused(mscene, mcam, mcfg, size, size, f, rv, bn) for f, rv in zip(fcs, rvs)]
-
-        numbers["staged_pool8_ms"] = event_ms(pool, 5)
-        numbers["staged_phases_device_ms"] = device_ms(pool, 2, "phase_kernel") * mcfg.bounces
-        numbers["k1_8_frames_ms"] = event_ms(frames, 5)
+            numbers[f"pool_{name}_ms"] = event_ms(pool, 5)
+            numbers[f"pool_{name}_phases_device_ms"] = device_ms(pool, 2, "phase_kernel") * pcfg.bounces
+            sums = {"key": 0.0, "sort": 0.0}
+            for _ in range(3):
+                rec = []
+                pool(rec)
+                torch.cuda.synchronize()
+                for (_, a), (label, b) in zip(rec, rec[1:]):
+                    kind = label.split()[0]
+                    if kind in sums:
+                        sums[kind] += a.elapsed_time(b) / 3
+            numbers[f"pool_{name}_keys_ms"] = sums["key"]
+            if hasattr(staged, "launch_key"):  # the key kernel: its two passes at each of 3 boundaries
+                numbers[f"pool_{name}_keys_device_ms"] = 3 * sum(device_ms(pool, 2, kernel)
+                                                                 for kernel in ("key_box_kernel", "key_kernel"))
+            numbers[f"pool_{name}_sorts_ms"] = sums["sort"]
+            numbers[f"pool_{name}_k1_8_frames_ms"] = event_ms(frames, 5)
         # K2 as one phase of one frame (no sort, no state) against K1 on the same frame, in turns
-        from bpt_tpu_torch.kernels import staged
         for name, (fscene, fcam, fcfg) in {"cornell": (scene, cam, cfg), **families}.items():
             iters = 10 if fscene.mesh is not None else 25
             for grads in (False, True):

@@ -8,7 +8,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   (nvidia-smi) and the torch, CUDA and nvcc versions.
 2. build        — builds the kernels from bpt_tpu_torch/csrc with nvcc, one
                   process per source, all at once (the megakernel, the
-                  staged kernel, the closest-hit kernel and loop_cost).
+                  staged kernel, the sort key, the closest-hit kernel and
+                  loop_cost).
 3. parity       — the forward kernel against its plain PyTorch version at
                   1024², 4 bounces, frame 2, for both right-sphere materials.
 4. main         — the serving path: ProgressiveRenderer (on the card by
@@ -151,9 +152,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   textured stand-in under the glTF and the HDRI sun
                   configurations with the lobe): a pool of frames 2 and 3
                   at 1024², 4 bounces, bit-equal frame by frame to two K1
-                  launches on every plane, forward and grads mode; the sort
-                  after phase 0 moves lanes; a plain 64² pool's LaneCounts
-                  show each configuration's branches; on Cornell and the
+                  launches on every plane, forward and grads mode; the same
+                  pool phase by phase: at each boundary the key kernel
+                  (csrc/sort_key.cu), from K2's warp boxes and from the
+                  rows, bit-equal to sort_key in all three modes and
+                  torch.sort's permutations equal, the sort after
+                  phase 0 moves lanes; a plain 64² pool's LaneCounts show
+                  each configuration's branches; on Cornell and the
                   stand-in, every phase bit-equal to trace_phase_reference
                   from the same sorted state at 256².
 30. grad-parity-staged — at 256², render_avg(reorder=True)'s gradients (the
@@ -163,16 +168,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
 31. main-staged — ProgressiveRenderer + attach_cuda_path(reorder=True):
                   render(spp=8, batch=4) of the Cornell box and the
                   capacity mesh bit-equal to sample-at-a-time stepping, one
-                  staged launch per phase and pool.
+                  staged launch per phase and pool, one key launch per
+                  boundary and pool.
 32. train-staged — optimize(reorder=True) on phase 8's emission problem:
-                  the loss falls below 5% of its start, through K2 alone.
+                  the loss falls below 5% of its start, through K2 and the
+                  key kernel alone.
 33. timing-staged — 8 frames in one pool (1024², 4 bounces) against 8 K1
                   launches on the Cornell box (forward and grads), the
                   capacity mesh and its rugged variant: pool ms and
                   Mrays/s, each phase, sort key and torch.sort (CUDA
                   events), K2's device time (torch.profiler), its bound and
-                  share; the stand-in's fwd+bwd step w.r.t. its albedo map,
-                  staged against monolithic.
+                  share; on each boundary's state, the key kernel's device
+                  time per pass (from K2's boxes, as the pool runs it, and
+                  from the rows), its bound (bytes, from the state's live
+                  lanes) and the torch sort_key's time; the stand-in's
+                  fwd+bwd step
+                  w.r.t. its albedo map, staged against monolithic.
 34. parity-loop-cost — K5 (csrc/loop_cost.cu, the walk-loop cost
                   microbenchmark) in its seven configurations against its
                   plain version on the card, bit for bit, at 50 iterations:
@@ -1330,6 +1341,53 @@ def staged_work(lane_counts, frames: int, lanes: int, scale: int = 1, **kw) -> t
     return flop, nbytes
 
 
+def boundary_states(scene, cam, cfg, frames, rvs, bn: torch.Tensor, grads: bool = False) -> list:
+    """(state, K2's boxes) of the staged pool of ``frames`` at SIZE² at each
+    phase boundary (one phase per bounce), each phase launched from the last
+    state sorted by the key kernel: what ``trace_staged`` hands each key."""
+    from bpt_tpu_torch.kernels import megakernel, staged
+
+    pool = staged.make_pool(SIZE, SIZE, frames, rvs, bn.device)
+    outputs = megakernel.empty_outputs(scene, cfg, (len(frames), SIZE, SIZE), grads, bn.device)
+    out, state, perm, boxes = [], None, None, None
+    for lo in range(cfg.bounces):
+        if lo > 0:
+            out.append((state, boxes))
+            perm = torch.sort(staged.launch_key(state, boxes=boxes)[0], stable=True).indices
+        boxes = None if lo + 1 >= cfg.bounces else staged.phase_boxes(pool, lo, bn.device)
+        state = staged.launch_phase(scene, cam, cfg, pool, bn, state, perm, lo, lo + 1, outputs, boxes)
+    return out
+
+
+def key_device_ms(fn, iters: int = 10, tries: int = 3) -> list | None:
+    """[pass 1, pass 2]: the key kernel's mean device ms per launch of each
+    pass while ``fn`` runs, by the profiler (a mean per launch, not per
+    call: a profile may miss some launches); None when no profile recorded
+    both."""
+    for _ in range(tries):
+        rows = profiled_step(fn, iters)[2]
+        means = []
+        for name in ("key_box_kernel", "key_kernel"):  # the second is not a substring of the first
+            hit = [(ms, n) for key, ms, n in rows if name in key]
+            if hit:
+                means.append(sum(ms for ms, _ in hit) / sum(n for _, n in hit))
+        if len(means) == 2:
+            return means
+    return None
+
+
+def key_work(state) -> tuple[float, float]:
+    """(FP32 operations, bytes) of the sort key of one boundary's state: the
+    flags word of every lane read and its key written (8 bytes), a live
+    lane's ro and rd read (24 more); per live lane the origin's three cells
+    (a subtraction, a division and a product each: 9).  What the function
+    must move; the kernel reads each row's first 32 bytes twice."""
+    from bpt_tpu_torch.kernels import staged
+
+    live = int(((state[:, staged.FLAGS_WORD] & 1) != 0).sum().item())
+    return 9.0 * live, 8.0 * state.shape[0] + 24.0 * live
+
+
 def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
     """Phases 29-33: the staged multi-frame path (K2, csrc/staged.cu).
     ``capacity`` and ``stand_in`` are the capacity mesh and the textured
@@ -1377,7 +1435,7 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
     lanes2 = 2 * SIZE * SIZE
 
     # ---- 29. parity-staged: F = 2 pools against K1, frame by frame -------------------------
-    staged_err = 0.0
+    staged_err = key_err = 0.0
     for key, (scene, cam, cfg) in configs.items():
         name = megakernel.configuration(scene, cfg)
         errs = []
@@ -1399,12 +1457,22 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
                 if not all(torch.equal(a, b) for a, b in pairs):
                     raise AssertionError(f"{key}: the staged pool's frame {frame} (grads {grads}) differs from K1's: "
                                          f"max abs err {errs[-1]}")
-        pool_def = staged.make_pool(SIZE, SIZE, frames, rvs, dev)
-        outputs = megakernel.empty_outputs(scene, cfg, (2, SIZE, SIZE), False, dev)
-        state = staged.launch_phase(scene, cam, cfg, pool_def, bn, None, None, 0, 1, outputs)
-        perm = torch.sort(staged.sort_key(state), stable=True).indices
-        moved = (perm != torch.arange(lanes2, device=dev)).float().mean().item()
-        live1 = int(((state[:, 10] & 1) != 0).sum().item())
+        # the same pool phase by phase: the key kernel against sort_key at each boundary, in every mode
+        live, moved = [], 0.0
+        for b, (state, boxes) in enumerate(boundary_states(scene, cam, cfg, frames, rvs, bn)):
+            for mode in staged.KEY_MODES:
+                got_key = staged.launch_key(state, mode, boxes)[0]
+                rows_key = staged.launch_key(state, mode)[0]
+                plain_key = staged.sort_key(state, mode)
+                perm = torch.sort(got_key, stable=True).indices
+                key_err = max(key_err, (got_key - plain_key).abs().max().item(),
+                              (rows_key - plain_key).abs().max().item())
+                if not (torch.equal(got_key, plain_key) and torch.equal(rows_key, plain_key)
+                        and torch.equal(perm, torch.sort(plain_key, stable=True).indices)):
+                    raise AssertionError(f"{key}: the key kernel ({mode}) differs from sort_key at boundary {b + 1}")
+                if b == 0 and mode == "oct-morton":
+                    moved = (perm != torch.arange(lanes2, device=dev)).float().mean().item()
+            live.append(int(((state[:, staged.FLAGS_WORD] & 1) != 0).sum().item()))
         lanes = []  # the branches, counted by the plain pool at 64²
         staged.trace_staged(scene, cam, cfg, 64, 64, frames, rvs, bn, lane_counts=lanes)
         hits, misses = sum(int(c.hits) for c in lanes), sum(int(c.misses) for c in lanes)
@@ -1424,8 +1492,11 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
             fired["lobe draws"] = sum(int(c.lobe_draws) for c in lanes) > 0
         staged_err = max(staged_err, *errs)
         phase("parity-staged", f"{key}: F=2 pool at {SIZE}x{SIZE}, frames 2 and 3, forward and grads bit-equal to K1 "
-                               f"frame by frame (11 planes, sg, deferred), {cfg.bounces} launches each; after phase 0 "
-                               f"{live1} of {lanes2} lanes live, the sort moved {100 * moved:.1f}% of the lanes; "
+                               f"frame by frame (11 planes, sg, deferred), {cfg.bounces} launches each; live lanes at "
+                               f"the boundaries {live} of {lanes2}, the key kernel (from K2's boxes and from the "
+                               f"rows) bit-equal to sort_key there in "
+                               f"{', '.join(staged.KEY_MODES)} (the same permutations), the first sort moved "
+                               f"{100 * moved:.1f}% of the lanes; "
                                "plain 64x64 pool: " + ", ".join(f"{k} {'yes' if v else 'NO'}"
                                                                 for k, v in fired.items()))
         if not (all(fired.values()) and moved > 0.0):
@@ -1441,15 +1512,16 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
             for lo in range(cfg.bounces):
                 plain = {k: None if v is None else v.clone() for k, v in outputs.items()}
                 if lo > 0:
-                    perm = torch.sort(staged.sort_key(state), stable=True).indices
+                    perm = torch.sort(staged.launch_key(state)[0], stable=True).indices
                 got = staged.launch_phase(scene, cam, cfg, pool_def, bn, state, perm, lo, lo + 1, outputs)
                 ref = staged.trace_phase_reference(scene, cam, cfg, pool_def, bn, state, perm, lo, lo + 1, plain)
                 torch.cuda.synchronize()
                 ok = all(torch.allclose(outputs[k], plain[k], rtol=0, atol=0, equal_nan=True)  # unwritten: the same
                          for k in outputs if outputs[k] is not None)
                 if got is not None:
-                    live = (ref[:, 10] & 1) != 0
-                    ok = ok and torch.equal(got[:, 10], ref[:, 10]) and torch.equal(got[live], ref[live])
+                    flags = staged.FLAGS_WORD
+                    live = (ref[:, flags] & 1) != 0
+                    ok = ok and torch.equal(got[:, flags], ref[:, flags]) and torch.equal(got[live], ref[live])
                     rows.append(int(live.sum().item()))
                 if not ok:
                     raise AssertionError(f"{key}: staged phase [{lo}, {lo + 1}) (grads {grads}) differs from the "
@@ -1510,7 +1582,7 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
                                     f"the monolithic VJP {worst_mono:.2e}, vs central differences {worst_fd:.2e}")
 
     # ---- 31. main-staged: the batched renderer through the staged pool ---------------------
-    main_launches = {}
+    main_launches, main_keys = {}, 0
     for key, scene_fn, camera in (("cornell", lambda: cornell_scene(), cornell_camera()),
                                   ("mesh", lambda: gltf_scene(capacity), gltf_camera())):
         attached, plain_r = (ProgressiveRenderer(scene_fn(), cfg4, SIZE, SIZE, seed=7) for _ in range(2))
@@ -1519,15 +1591,18 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
         img = attached.render(camera, spp=SPP, batch=4)
         torch.cuda.synchronize()
         n_staged, n_k1 = sum(megakernel.STAGED_LAUNCHES.values()), sum(megakernel.LAUNCHES.values())
+        n_keys = sum(staged.KEY_LAUNCHES.values())
+        main_keys += n_keys
         ref = plain_r.render(camera, spp=SPP)
         torch.cuda.synchronize()
         equal = torch.equal(attached.state.accum, plain_r.state.accum) and torch.equal(img, ref)
         main_launches[key] = n_staged
         phase("main-staged", f"{key} {SIZE}x{SIZE}, render(spp={SPP}, batch=4) through attach_cuda_path(reorder=True):"
-                             f" {n_staged} staged launches ({BOUNCES} phases x 2 pools), {n_k1} K1 launch (the first "
-                             f"sample); accum bit-equal to sample-at-a-time stepping: {equal}; display in "
-                             f"[{img.min().item():.4f}, {img.max().item():.4f}]")
-        if not (equal and n_staged == BOUNCES * 2 and n_k1 == 1 and bool(torch.isfinite(img).all())):
+                             f" {n_staged} staged launches ({BOUNCES} phases x 2 pools), {n_keys} key launches, "
+                             f"{n_k1} K1 launch (the first sample); accum bit-equal to sample-at-a-time stepping: "
+                             f"{equal}; display in [{img.min().item():.4f}, {img.max().item():.4f}]")
+        if not (equal and n_staged == BOUNCES * 2 and n_keys == (BOUNCES - 1) * 2 and n_k1 == 1
+                and bool(torch.isfinite(img).all())):
             raise AssertionError(f"{key}: the batched staged render differs or did not go through K2")
         attach_cuda_path(attached)
         if attached.batch_step is not None:
@@ -1550,12 +1625,13 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
     losses = result.losses.cpu().numpy()
     train_s = time.perf_counter() - t0
     train_launches = megakernel.STAGED_GRAD_LAUNCHES["cornell"]
+    train_keys = sum(staged.KEY_LAUNCHES.values())
     emission = float(result.params["emission"])
     phase("train-staged", f"{SIZE}x{SIZE}, {BOUNCES} bounces, {TRAIN_STEPS} steps of optimize(reorder=True) in "
                           f"{train_s:.3f} s: loss {losses[0]:.6g} -> {losses[-1]:.6g}, emission 4.0 -> {emission:.5f} "
-                          f"(truth 10.0); staged grads launches {train_launches}")
-    if not (losses[-1] < 0.05 * losses[0] and np.isfinite(losses).all()
-            and train_launches == TRAIN_STEPS * BOUNCES and sum(megakernel.GRAD_LAUNCHES.values()) == 0):
+                          f"(truth 10.0); staged grads launches {train_launches}, key launches {train_keys}")
+    if not (losses[-1] < 0.05 * losses[0] and np.isfinite(losses).all() and train_launches == TRAIN_STEPS * BOUNCES
+            and train_keys == TRAIN_STEPS * (BOUNCES - 1) and sum(megakernel.GRAD_LAUNCHES.values()) == 0):
         raise AssertionError("optimize(reorder=True) did not lower the loss below 5% of its start through K2")
 
     # ---- 33. timing-staged: 8 frames in one pool against 8 K1 launches ----------------------
@@ -1592,6 +1668,17 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
             phase_ms = [sums[f"phase {b}"] for b in range(BOUNCES)]
             key_ms = [sums[f"key {b}"] for b in range(1, BOUNCES)]
             sort_ms = [sums[f"sort {b}"] for b in range(1, BOUNCES)]
+            kt = {"device": [], "events": [], "rows": [], "plain": [], "bound": [], "live": []}  # per boundary
+            for state, boxes in boundary_states(scene, cam, cfg4, fcs, rv8, bn, grads=grads):
+                kt["events"].append(cuda_ms(lambda state=state, boxes=boxes: staged.launch_key(state, boxes=boxes),
+                                            iters=20, warmup=2))
+                kt["device"].append(key_device_ms(lambda state=state, boxes=boxes: staged.launch_key(state,
+                                                                                                      boxes=boxes)))
+                kt["rows"].append(key_device_ms(lambda state=state: staged.launch_key(state)))
+                kt["plain"].append(cuda_ms(lambda state=state: staged.sort_key(state), iters=5, warmup=1))
+                kt["bound"].append(bound(*key_work(state))[0])
+                kt["live"].append(int(((state[:, staged.FLAGS_WORD] & 1) != 0).sum().item()))
+            key_dev = [sum(d) if d is not None else e for d, e in zip(kt["device"], kt["events"])]
             dev_k2 = kernel_device_ms(pool, 2, instance(grads, "none", "quad", has_mesh, kernel="phase_kernel"))
             dev_k1 = kernel_device_ms(mono, 2, instance(grads, "none", "quad", has_mesh))
             lanes = []
@@ -1625,9 +1712,17 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
                                    f"{flop / 1e9:.4f} GFLOP + {nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms "
                                    f"({bound_by}), " + (f"{share:.2f}% of it reached" if share else "not measured")
                                    + f"; plain pool of {BENCH_FRAMES // scale} frame(s) {plain_ms:.1f} ms")
+            shares = [round(100 * b / d, 1) for b, d in zip(kt["bound"], key_dev)]
+            phase("timing-staged", f"{card}: {label}, the key kernel on each boundary's state ({lanes8} lanes, live "
+                                   f"{kt['live']}): device [pass 1 over K2's boxes, pass 2] {kt['device']} ms "
+                                   f"(profiler; from the rows {kt['rows']}), through its wrapper "
+                                   f"{[round(x, 4) for x in kt['events']]} ms; bound "
+                                   f"{[round(x, 4) for x in kt['bound']]} ms (bytes), {shares}% of it reached; the "
+                                   f"torch sort_key {[round(x, 4) for x in kt['plain']]} ms")
             timed[label] = dict(ms=k2_ms, device_ms=dev_pool, pool_ms=pool_ms, k1_frames_ms=mono_ms,
                                 key_ms=sum(key_ms), sort_ms=sum(sort_ms), plain_ms=plain_ms,
-                                plain_frames=BENCH_FRAMES // scale, bound_ms=bound_ms, bound_by=bound_by)
+                                plain_frames=BENCH_FRAMES // scale, bound_ms=bound_ms, bound_by=bound_by,
+                                key_kernel_ms=key_dev, key_plain_ms=kt["plain"], key_bound_ms=kt["bound"])
     common = {"route": "cuda", "source": "bpt_tpu_torch/csrc/staged.cu",
               "replaces": "bpt_tpu/kernels/megakernel.py:2619",
               "max_abs_err": staged_err, "library_ms": None}
@@ -1635,6 +1730,13 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
                dict(name="staged_cornell_grads", launches=train_launches, **common, **timed["cornell grads"]),
                dict(name="staged_mesh", launches=main_launches["mesh"], **common, **timed["mesh"],
                     **{f"rugged_{k}": v for k, v in timed["mesh_rugged"].items()})]
+    mesh_key = timed["mesh"]  # the 8-frame capacity pool: per key, the mean of its three boundaries
+    entries.append(dict(name="staged_key", route="cuda", source="bpt_tpu_torch/csrc/sort_key.cu",
+                        replaces="bpt_tpu/kernels/megakernel.py:2631", launches=main_keys, max_abs_err=key_err,
+                        ms=float(np.mean(mesh_key["key_kernel_ms"])), plain_ms=float(np.mean(mesh_key["key_plain_ms"])),
+                        bound_ms=float(np.mean(mesh_key["key_bound_ms"])), bound_by="bytes", library_ms=None,
+                        per_boundary={k: {f: v[f] for f in ("key_kernel_ms", "key_plain_ms", "key_bound_ms")}
+                                      for k, v in timed.items()}))
 
     # the textured stand-in's fwd+bwd step w.r.t. its albedo map (bench.py --reorder --backward's shape)
     fwd_bwd = {}
@@ -1883,11 +1985,12 @@ def main() -> int:
     t0 = time.perf_counter()
     megakernel._library()  # the first load builds every kernel of csrc/
     staged._library()
+    staged._key_library()
     closest_hit._library()
     k5._library()
     libraries = [build.build(name) for name in build.kernels()]  # already built: their paths
-    phase("build", f"{megakernel.KERNEL}, {staged.KERNEL}, {closest_hit.KERNEL} and {k5.KERNEL} ready in "
-                   f"{time.perf_counter() - t0:.2f} s "
+    phase("build", f"{megakernel.KERNEL}, {staged.KERNEL}, {staged.KEY_KERNEL}, {closest_hit.KERNEL} and {k5.KERNEL} "
+                   f"ready in {time.perf_counter() - t0:.2f} s "
                    f"(flags {' '.join(build.NVCC_FLAGS)})")
     for lib in libraries:
         log = lib.with_suffix(".so.log")

@@ -55,6 +55,7 @@ SLICE_MODULES = [
     "bpt_tpu_torch.textures", "bpt_tpu_torch.apps.debug_gltf_loading", "bpt_tpu_torch.kernels.traverse",
     "bpt_tpu_torch.apps.inverse_rendering", "bpt_tpu_torch.kernels.staged", "bpt_tpu_torch.kernels.launch_args",
     "bpt_tpu_torch.kernels.loop_cost", "bpt_tpu_torch.tools.loop_cost", "bpt_tpu_torch.utils.profiling",
+    "bpt_tpu_torch.tools.key_sweep",
 ]
 
 
@@ -796,7 +797,8 @@ def test_cuda_staged_pool_matches_k1(cuda_device, case):
 def test_cuda_staged_phase_matches_plain_phase(cuda_device, case):
     """One staged launch from a sorted state against trace_phase_reference
     from the same state: the live lanes' rows, every dead lane's flags and
-    every output plane bit for bit; the permutation moved lanes."""
+    every output plane bit for bit; the permutation moved lanes.  The
+    boxes both launches wrote give the key kernel sort_key's key and box."""
     from bpt_tpu_torch.kernels import staged
 
     scene, cam, cfg = _staged_cases(cuda_device)[case]
@@ -804,15 +806,20 @@ def test_cuda_staged_phase_matches_plain_phase(cuda_device, case):
     pool = staged.make_pool(64, 64, (2.0, 3.0), (RV, np.array([0.6, 0.1], np.float32)), cuda_device)
     for grads in (False, True):
         kernel = megakernel.empty_outputs(scene, cfg, (2, 64, 64), grads, cuda_device)
-        state = staged.launch_phase(scene, cam, cfg, pool, bn, None, None, 0, 1, kernel)
-        perm = torch.sort(staged.sort_key(state), stable=True).indices
+        boxes = [staged.phase_boxes(pool, lo, cuda_device) for lo in (0, 1)]
+        state = staged.launch_phase(scene, cam, cfg, pool, bn, None, None, 0, 1, kernel, boxes[0])
+        perm = torch.sort(staged.launch_key(state, boxes=boxes[0])[0], stable=True).indices
         assert not torch.equal(perm, torch.arange(pool.lanes, device=cuda_device))
         plain = {k: None if v is None else v.clone() for k, v in kernel.items()}
-        got = staged.launch_phase(scene, cam, cfg, pool, bn, state, perm, 1, 2, kernel)
+        got = staged.launch_phase(scene, cam, cfg, pool, bn, state, perm, 1, 2, kernel, boxes[1])
         ref = staged.trace_phase_reference(scene, cam, cfg, pool, bn, state, perm, 1, 2, plain)
         torch.cuda.synchronize()
-        live = (ref[:, 10] & 1) != 0
-        torch.testing.assert_close(got[:, 10], ref[:, 10], rtol=0, atol=0)
+        for rows, box in ((state, boxes[0]), (got, boxes[1])):
+            key, lo, hi = staged.launch_key(rows, boxes=box)
+            assert torch.equal(key, staged.sort_key(rows)) and torch.equal(torch.cat([lo, hi]),
+                                                                           torch.cat(staged.key_box(rows)))
+        live = (ref[:, staged.FLAGS_WORD] & 1) != 0
+        torch.testing.assert_close(got[:, staged.FLAGS_WORD], ref[:, staged.FLAGS_WORD], rtol=0, atol=0)
         torch.testing.assert_close(got[live], ref[live], rtol=0, atol=0)
         for k in kernel:
             if kernel[k] is not None:
@@ -837,6 +844,114 @@ def test_cuda_staged_batched_render(cuda_device):
     torch.testing.assert_close(img, ref, rtol=0, atol=0)
     attach_cuda_path(renderers[1])
     assert renderers[1].batch_step is None
+
+
+KEY_EDGE_CASES = ["all-dead", "one-live", "zeros-and-faces", "nan-in-dead-rows", "zero-directions"]
+
+
+def key_edge_pools(n=512, seed=3) -> dict:
+    """Edge pools of the sort key, as numpy (ro, rd, alive): every lane
+    dead; one live lane (a box of one point); origins at +-0.0 and on the
+    live box's faces (an axis whose box is a zero of either sign, one whose
+    box has no extent); NaN and infinities in the dead rows' ro and rd;
+    direction components at exactly +-0.0 and on dir-morton's cell edges."""
+    rng = np.random.default_rng(seed)
+    ro = rng.normal(0, 30, (n, 3)).astype(np.float32)
+    rd = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    live = rng.random(n) < 0.9
+    faces = np.stack([rng.choice(np.array(v, np.float32), n) for v in
+                      ([-0.0, 0.0, 4.0], [-7.5, 7.5, -0.0, 0.0, 1.25], [-0.0, 0.0])], axis=1)
+    half = rng.random(n) < 0.5
+    nan_ro, nan_rd = ro.copy(), rd.copy()
+    nan_ro[~half] = np.nan
+    nan_rd[~half] = np.array([np.nan, np.inf, -np.inf], np.float32)
+    edges = rng.choice(np.array([-0.0, 0.0, -1.0, -0.5, 0.5, 1.0, 0.3], np.float32), (n, 3))
+    return {"all-dead": (ro, rd, np.zeros(n, bool)), "one-live": (ro, rd, np.arange(n) == 37),
+            "zeros-and-faces": (faces, rd, live), "nan-in-dead-rows": (nan_ro, nan_rd, half),
+            "zero-directions": (ro, edges, live)}
+
+
+def pack_key_state(ro, rd, alive, seed=4) -> torch.Tensor:
+    """A state of the staged path's row layout holding ``ro``, ``rd`` and
+    the alive bit, with other flag bits set and seeded garbage in every word
+    the key does not read."""
+    from bpt_tpu_torch.kernels import staged
+
+    rng = np.random.default_rng(seed)
+    n = len(alive)
+    state = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (n, staged.STATE_WORDS), dtype=np.int64).astype(np.int32))
+    state[:, staged.RO_WORD:staged.RO_WORD + 3] = torch.from_numpy(np.ascontiguousarray(ro)).view(torch.int32)
+    state[:, staged.RD_WORD:staged.RD_WORD + 3] = torch.from_numpy(np.ascontiguousarray(rd)).view(torch.int32)
+    state[:, staged.FLAGS_WORD] = torch.from_numpy((alive.astype(np.int32) | (rng.integers(0, 2 ** 15, n) << 1))
+                                                   .astype(np.int32))
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["oct-morton", "morton-oct", "dir-morton"])
+@pytest.mark.parametrize("case", KEY_EDGE_CASES)
+def test_cuda_key_kernel_matches_its_plain_halves(cuda_device, case, mode):
+    """On the edge pools, each pass of the key kernel equals its plain half:
+    pass 1's box over the rows equals key_box's (as values: the key is
+    blind to the sign of a zero), pass 2 from the plain box (given as the
+    one box to reduce) equals key_from_box bit for bit; the whole kernel
+    equals sort_key on the card and on the CPU, and gives torch.sort the
+    same permutation; one count per key."""
+    from bpt_tpu_torch.kernels import staged
+
+    host = pack_key_state(*key_edge_pools()[case])
+    state = host.to(cuda_device)
+    lo, hi = staged.key_box(state)
+    before = staged.KEY_LAUNCHES[mode]
+    key, klo, khi = staged.launch_key(state, mode)
+    alone = staged.launch_key(state, mode, boxes=torch.cat([lo, hi])[None])[0]
+    assert staged.KEY_LAUNCHES[mode] == before + 2
+    plain = staged.sort_key(state, mode)
+    torch.cuda.synchronize()
+    assert torch.equal(klo, lo) and torch.equal(khi, hi)
+    torch.testing.assert_close(alone, staged.key_from_box(state, lo, hi, mode), rtol=0, atol=0)
+    torch.testing.assert_close(key, plain, rtol=0, atol=0)
+    torch.testing.assert_close(key.cpu(), staged.sort_key(host, mode), rtol=0, atol=0)
+    torch.testing.assert_close(torch.sort(key, stable=True).indices, torch.sort(plain, stable=True).indices,
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["capacity", "cornell"])
+def test_cuda_key_kernel_on_real_pool_states(cuda_device, case):
+    """A 1024x1024 pool of frames 2 and 3 (the capacity mesh from the glTF
+    camera, the Cornell box), phase by phase: at each boundary the key
+    kernel, from the rows and from the boxes K2 wrote, equals sort_key in
+    every mode, and so does the permutation."""
+    from bpt_tpu_torch.kernels import staged
+    from bpt_tpu_torch.scenes.gltf_scene import heightfield_model
+
+    if case == "capacity":
+        scene = gltf_scene(mesh_from_model(heightfield_model(), mat_type=DIFFUSE, use_native="require"),
+                           device=cuda_device)
+        cam = gltf_camera(device=cuda_device)
+    else:
+        scene, cam = cornell_scene(device=cuda_device), cornell_camera(device=cuda_device)
+    cfg = IntegratorConfig(bounces=4)
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    pool = staged.make_pool(1024, 1024, (2.0, 3.0), (RV, np.array([0.6, 0.1], np.float32)), cuda_device)
+    outputs = megakernel.empty_outputs(scene, cfg, (2, 1024, 1024), False, cuda_device)
+    boxes = staged.phase_boxes(pool, 0, cuda_device)
+    state, perm = staged.launch_phase(scene, cam, cfg, pool, bn, None, None, 0, 1, outputs, boxes), None
+    for lo in range(1, cfg.bounces):
+        for mode in staged.KEY_MODES:
+            key = staged.launch_key(state, mode, boxes)[0]
+            plain = staged.sort_key(state, mode)
+            torch.testing.assert_close(key, plain, rtol=0, atol=0)
+            torch.testing.assert_close(staged.launch_key(state, mode)[0], plain, rtol=0, atol=0)
+            sorted_key = torch.sort(key, stable=True)
+            torch.testing.assert_close(sorted_key.indices, torch.sort(plain, stable=True).indices, rtol=0, atol=0)
+            if mode == "oct-morton":
+                perm = sorted_key.indices
+        assert bool((key != 1 << 30).any())
+        boxes = None if lo + 1 >= cfg.bounces else staged.phase_boxes(pool, lo, cuda_device)
+        state = staged.launch_phase(scene, cam, cfg, pool, bn, state, perm, lo, lo + 1, outputs, boxes)
 
 
 

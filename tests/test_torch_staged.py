@@ -106,9 +106,10 @@ def test_phases_resume_where_they_stopped():
     key = staged.sort_key(state)
     perm = torch.sort(key, stable=True).indices
     assert not torch.equal(perm, torch.arange(pool.lanes))
-    alive = (state[:, 10] & 1) != 0
+    alive = (state[:, staged.FLAGS_WORD] & 1) != 0
     assert 0 < int(alive.sum()) < pool.lanes and bool((key[~alive] == 1 << 30).all())
-    assert bool((state[~alive, 8:12] == 0).all())
+    quad = staged.FLAGS_WORD // 4 * 4  # the 16 bytes that hold the flags word: a dead lane's zeros
+    assert bool((state[~alive, quad:quad + 4] == 0).all())
     sorted_alive = alive[perm]
     assert bool(sorted_alive[:int(alive.sum())].all())  # the live lanes first
     identity = {k: None if v is None else v.clone() for k, v in outputs.items()}
@@ -118,8 +119,9 @@ def test_phases_resume_where_they_stopped():
     for k in outputs:  # the color of a path that has not ended is not written yet: the same garbage in both
         if outputs[k] is not None:
             torch.testing.assert_close(outputs[k], identity[k], rtol=0, atol=0, equal_nan=True)
-    rows, rows_id = after[(after[:, 10] & 1) != 0], after_id[(after_id[:, 10] & 1) != 0]
-    torch.testing.assert_close(rows[rows[:, 11].argsort()], rows_id[rows_id[:, 11].argsort()], rtol=0, atol=0)
+    flags, home = staged.FLAGS_WORD, staged.HOME_WORD
+    rows, rows_id = after[(after[:, flags] & 1) != 0], after_id[(after_id[:, flags] & 1) != 0]
+    torch.testing.assert_close(rows[rows[:, home].argsort()], rows_id[rows_id[:, home].argsort()], rtol=0, atol=0)
 
 
 def test_row_slice_equals_rows_of_the_whole_image():
@@ -168,8 +170,9 @@ def test_sort_key_matches_jax(mode, live):
     planes[layout.index("alive"), 0] = alive
     ref = np.asarray(_sort_key(jnp.asarray(planes), layout, mode))[0]
     packed = torch.zeros((m, staged.STATE_WORDS), dtype=torch.int32)
-    packed[:, 0:6] = torch.as_tensor(np.concatenate([ro, rd], axis=1)).view(torch.int32)
-    packed[:, 10] = torch.as_tensor(alive.astype(np.int32))
+    packed[:, staged.RO_WORD:staged.RO_WORD + 3] = torch.as_tensor(ro).view(torch.int32)
+    packed[:, staged.RD_WORD:staged.RD_WORD + 3] = torch.as_tensor(rd).view(torch.int32)
+    packed[:, staged.FLAGS_WORD] = torch.as_tensor(alive.astype(np.int32))
     np.testing.assert_array_equal(staged.sort_key(packed, mode).numpy(), ref)
 
 
