@@ -17,8 +17,10 @@ chip_smoke.py's raised camera: the glTF demo's configuration and the HDRI
 demo's with sun and env NEE, the lobe on, 20 launches each), the grads
 mode of each mesh, HDRI and textured configuration (20 launches each), the
 closest-hit kernel on the capacity mesh's 1024² primary rays from the glTF
-camera (50 launches), and the registers and stack nvcc reported for its
-builds; with the staged kernel, 8-frame pools (frames 2-9, 4 phases) on the
+camera and on bounce 2's rays and lane mask in a plain wavefront pass
+(``bounce_rays``, as ``chip_smoke.py`` builds them; 50 launches each), and
+the registers and stack nvcc reported for its builds; with the staged
+kernel, 8-frame pools (frames 2-9, 4 phases) on the
 capacity mesh, its rugged variant, the Cornell box (forward and grads) and
 the sky against their 8 K1 launches: the whole pool (CUDA events, 5
 pools), K2's phases and the key kernel's two passes (torch.profiler), and
@@ -29,6 +31,11 @@ no sort, no state) against K1 on the same frame, in turns (K1, K2, K2, K1;
 25 launches each without a mesh, 10 with one).  A checkout that lacks a
 kernel or a grads configuration prints no number for it.  Device times
 compare only within one call; put each version more than once, in turns.
+
+    python -m bpt_tpu_torch.tools.ab_time --only closest_hit A B B A
+
+times the closest-hit kernel alone (its two ray sets), for the checkouts
+that differ only in it.
 """
 
 from __future__ import annotations
@@ -39,8 +46,31 @@ import sys
 from pathlib import Path
 
 
-def measure(checkout: str) -> None:
-    """One checkout, in this process: print one line of numbers."""
+def bounce_rays(scene, cam, cfg, size: int, rand_vec2, bn, bounce: int) -> tuple:
+    """The object-space rays (size, size, 3) and the live-lane mask that
+    bounce ``bounce`` of a plain wavefront pass at frame 2 hands the mesh's
+    walk (the plain walk's own arguments)."""
+    from bpt_tpu_torch.accel import traverse as accel_traverse
+    from bpt_tpu_torch.integrator.frame import trace_image
+
+    seen = []
+    walk = accel_traverse.traverse_bvh
+
+    def spy(*args, **kw):
+        seen.append((args[7], args[8], kw.get("active")))
+        return walk(*args, **kw)
+
+    accel_traverse.traverse_bvh = spy
+    try:
+        trace_image(scene, cam, cfg, size, size, 2.0, rand_vec2, bn, plain_walk=True)
+    finally:
+        accel_traverse.traverse_bvh = walk
+    return seen[bounce]
+
+
+def measure(checkout: str, only: str | None = None) -> None:
+    """One checkout, in this process: print one line of numbers (``only``
+    "closest_hit": the closest-hit kernel's alone)."""
     sys.path.insert(0, checkout)
     import numpy as np
     import torch
@@ -95,6 +125,30 @@ def measure(checkout: str) -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
+    def closest_hit_ms(model) -> dict:
+        """The closest-hit kernel's device ms on the capacity mesh's primary
+        rays from the glTF camera and on bounce 2's rays and mask."""
+        from bpt_tpu_torch.camera import generate_rays
+        from bpt_tpu_torch.core.rng import rng_seed
+        from bpt_tpu_torch.core.vecmath import transform_dir, transform_point
+        from bpt_tpu_torch.integrator.frame import pixel_grid
+        from bpt_tpu_torch.kernels import traverse
+
+        mscene, mcam = gltf_scene(model, device=dev), gltf_camera(device=dev)
+        mesh = mscene.mesh
+        px, py = pixel_grid(size, size, dev)
+        ro, rd, _ = generate_rays(mcam, px, py, size, size, rng_seed(2.0, px, py))
+        ro, rd = transform_point(mesh.inv_matrix, ro), transform_dir(mesh.inv_matrix, rd)
+        ro_b, rd_b, act_b = bounce_rays(mscene, mcam, IntegratorConfig(bounces=4), size, rv, bn, 2)
+        return {"closest_hit_device_ms": device_ms(lambda: traverse.closest_hit(ro, rd, True, None, mesh), 50,
+                                                   "closest_hit_kernel"),
+                "closest_hit_bounce2_device_ms": device_ms(lambda: traverse.closest_hit(ro_b, rd_b, True, act_b, mesh),
+                                                           50, "closest_hit_kernel")}
+
+    if only == "closest_hit":
+        numbers = closest_hit_ms(mesh_from_model(heightfield_model(), mat_type=1, use_native="require"))
+        print_numbers(checkout, numbers)
+        return
     renderer = ProgressiveRenderer(cornell_scene(), cfg, size, size, device=dev)
     camera = cornell_camera()
     renderer.render(camera, spp=2)
@@ -131,18 +185,7 @@ def measure(checkout: str) -> None:
                 numbers[f"{name}_grads_device_ms"] = device_ms(
                     lambda: megakernel.trace_image_fused_grads(fscene, fcam, fcfg, size, size, 2.0, rv, bn), 20)
     if (Path(checkout) / "bpt_tpu_torch" / "kernels" / "traverse.py").exists():  # the closest-hit kernel
-        from bpt_tpu_torch.core.rng import rng_seed
-        from bpt_tpu_torch.camera import generate_rays
-        from bpt_tpu_torch.core.vecmath import transform_dir, transform_point
-        from bpt_tpu_torch.integrator.frame import pixel_grid
-        from bpt_tpu_torch.kernels import traverse
-
-        mesh = families["mesh"][0].mesh
-        px, py = pixel_grid(size, size, dev)
-        ro, rd, _ = generate_rays(gltf_camera(device=dev), px, py, size, size, rng_seed(2.0, px, py))
-        ro, rd = transform_point(mesh.inv_matrix, ro), transform_dir(mesh.inv_matrix, rd)
-        numbers["closest_hit_device_ms"] = device_ms(lambda: traverse.closest_hit(ro, rd, True, None, mesh), 50,
-                                                     "closest_hit_kernel")
+        numbers.update(closest_hit_ms(capacity))
     if hasattr(megakernel, "trace_frames_fused"):  # the staged kernel
         from bpt_tpu_torch.kernels import staged
 
@@ -197,8 +240,14 @@ def measure(checkout: str) -> None:
                 mode = "grads" if grads else "fwd"
                 numbers[f"one_phase_{name}_{mode}_k1_device_ms"] = (t[0] + t[3]) / 2
                 numbers[f"one_phase_{name}_{mode}_k2_device_ms"] = (t[1] + t[2]) / 2
+    print_numbers(checkout, numbers)
+
+
+def print_numbers(checkout: str, numbers: dict) -> None:
+    """One line: the checkout, its numbers, and what nvcc reported for its
+    builds (registers, shared memory, stack, spills)."""
     build = []
-    for log in glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log")):
+    for log in sorted(glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log"))):
         build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]
     print(f"{checkout}: " + " ".join(f"{k} {v:.4f}" for k, v in numbers.items())
           + (f" | build: {'; '.join(build)}" if build else ""), flush=True)
@@ -207,8 +256,14 @@ def measure(checkout: str) -> None:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--one"]:
-        measure(argv[1])
+        measure(argv[1], argv[2] if len(argv) > 2 else None)
         return 0
+    only = None
+    if argv[:1] == ["--only"]:
+        if argv[1:2] != ["closest_hit"]:
+            print("--only takes closest_hit", file=sys.stderr)
+            return 2
+        only, argv = argv[1], argv[2:]
     if not argv:
         print(__doc__)
         return 2
@@ -216,8 +271,8 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(card, flush=True)
     for checkout in argv:
-        proc = subprocess.run([sys.executable, __file__, "--one", str(Path(checkout).resolve())],
-                              capture_output=True, text=True)
+        cmd = [sys.executable, __file__, "--one", str(Path(checkout).resolve())] + ([only] if only else [])
+        proc = subprocess.run(cmd, capture_output=True, text=True)
         print(proc.stdout.strip(), flush=True)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)

@@ -107,12 +107,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
 23. parity-closest-hit — the closest-hit kernel against the plain walk, bit
                   for bit in t, tri, u and v, at 1024²: the capacity mesh's
                   primary rays from the glTF and the raised camera, bounce
-                  1's rays of a plain wavefront pass with its lane mask, the
+                  2's rays of a plain wavefront pass with its lane mask, the
                   blob METAL and TRANSPARENT (cull off), the textured
                   stand-in, the 64-triangle blob with every triangle twice
                   (most hits tie: the plain walk's read masks must show both
-                  copies tested) and a mesh of one triangle (the root a
-                  leaf); its recompute VJP on the card against the same
+                  copies tested), a mesh of one triangle (the root a leaf),
+                  a 1021x997 image and bounce 2's rays as a flat
+                  (1000003, 3) set with its mask (lane counts that fill no
+                  whole number of the kernel's 128-lane spans); its
+                  recompute VJP on the card against the same
                   backward on CPU copies (rtol 1e-5).
 24. wavefront-mesh — trace_image at 1024², 4 bounces, on the capacity scene
                   and the textured stand-in: the kernel walk against the
@@ -142,7 +145,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 28. timing-closest-hit / timing-grads-mesh / timing-inverse-rendering —
                   device time (torch.profiler), time through the wrapper
                   (CUDA events), plain time, bound and share of the
-                  closest-hit kernel and of each new grads configuration;
+                  closest-hit kernel (primary rays and bounce 2, with the
+                  registers, shared memory, stack and spills nvcc reported
+                  for it) and of each new grads configuration;
                   the wavefront pass with either walk; the textured
                   inverse-rendering fwd+bwd step of both routes (ms,
                   Mrays/s, peak device memory).
@@ -439,6 +444,23 @@ def kernel_device_ms(fn, iters: int, name: str, tries: int = 3) -> float | None:
         if rows:
             return sum(ms for ms, _ in rows) / sum(n for _, n in rows)
     return None
+
+
+def nvcc_report(name: str) -> dict:
+    """Registers, shared memory (bytes), stack frame and spill stores and
+    loads (bytes) that ptxas reported for the first kernel of
+    ``csrc/<name>.cu`` in its library's build log."""
+    import re
+
+    from bpt_tpu_torch.kernels import build
+
+    log = build.build(name).with_suffix(".so.log").read_text()
+    used = re.search(r"Used (\d+) registers[^\n]*", log)  # "..., used 1 barriers, ..., 528 bytes smem"
+    smem = re.search(r"(\d+) bytes smem", used.group(0))
+    frame, stores, loads = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                                     log).groups()
+    return {"registers": int(used.group(1)), "smem_bytes": int(smem.group(1)) if smem else 0,
+            "stack_frame_bytes": int(frame), "spill_store_bytes": int(stores), "spill_load_bytes": int(loads)}
 
 
 def blob_model(T=128, seed=0):
@@ -897,14 +919,18 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
     return entries, model, mesh
 
 
-def closest_hit_work(ro, rd, cull: bool, active, mesh) -> tuple[float, float, list]:
-    """(FP32 operations, bytes, [inner-node visits, triangle tests]) of one
-    closest-hit launch on these rays, from the plain walk's counts: the
+def closest_hit_work(ro, rd, cull: bool, active, mesh) -> tuple[float, float, list, dict]:
+    """(FP32 operations, bytes, [inner-node visits, triangle tests], the
+    walks' lengths) of one closest-hit launch on these rays, from the plain
+    walk's counts: the
     walk's operations per lane, visit and test (as ``kernel_work`` counts
     them for the megakernel), each live lane's ray and the lane mask (when
     there is one) read once, each lane's result written once, and each
     distinct 32-byte node box (as ``kernel_work`` counts it) and 48-byte
-    triangle record read."""
+    triangle record read.  The lengths: lanes on the mask, lanes that walk
+    (enter the root box), and the steps (visits plus tests) of a walking
+    lane, mean, 99th percentile and most: a warp lasts as long as its
+    longest walk."""
     from bpt_tpu_torch.accel.traverse import MAX_STACK_DEPTH, traverse_bvh
 
     steps = []
@@ -916,7 +942,13 @@ def closest_hit_work(ro, rd, cull: bool, active, mesh) -> tuple[float, float, li
     flop = live * CH_RAY_FLOP + visits * NODE_VISIT_FLOP + tests * TRI_TEST_FLOP
     nbytes = (live * CH_RAY_BYTES + (0 if active is None else lanes) + lanes * CH_RESULT_BYTES
               + 32 * int(steps[2].sum()) + 48 * int(steps[3].sum()))
-    return flop, nbytes, [visits, tests]
+    per_lane = (steps[0] + steps[1]).reshape(-1)
+    walking = per_lane[per_lane > 0].double()
+    lengths = {"live": live, "walking": int(walking.numel()),
+               "mean_steps": round(walking.mean().item(), 2) if walking.numel() else 0.0,
+               "p99_steps": walking.quantile(0.99).item() if walking.numel() else 0.0,
+               "max_steps": int(walking.max().item()) if walking.numel() else 0}
+    return flop, nbytes, [visits, tests], lengths
 
 
 def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_model) -> list:
@@ -927,7 +959,6 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     stand-in's model.  Returns their entries of the kernels line."""
     import dataclasses
 
-    from bpt_tpu_torch.accel import traverse as accel_traverse
     from bpt_tpu_torch.apps.hdri_environment import synthetic_hdr
     from bpt_tpu_torch.apps.inverse_rendering import recover_albedo
     from bpt_tpu_torch.camera import Camera, generate_rays
@@ -941,6 +972,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, hdri_camera, hdri_scene, mesh_from_model
     from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene
     from bpt_tpu_torch.scenes.types import DIFFUSE, METAL, TRANSPARENT
+    from bpt_tpu_torch.tools.ab_time import bounce_rays
 
     dev = torch.device("cuda")
     raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0).to(dev)
@@ -949,28 +981,12 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     tex = gltf_scene(stand_in, device=dev)
     pixels = SIZE * SIZE
 
-    def primary(mesh, cam):
-        """1024² primary rays of frame 2 in the mesh's object space."""
-        px, py = pixel_grid(SIZE, SIZE, dev)
-        ro, rd, _ = generate_rays(cam, px, py, SIZE, SIZE, rng_seed(2.0, px, py))
+    def primary(mesh, cam, height=SIZE, width=SIZE):
+        """Primary rays of frame 2 (1024² unless told) in the mesh's object
+        space."""
+        px, py = pixel_grid(height, width, dev)
+        ro, rd, _ = generate_rays(cam, px, py, width, height, rng_seed(2.0, px, py))
         return transform_point(mesh.inv_matrix, ro), transform_dir(mesh.inv_matrix, rd)
-
-    def bounce_rays(scene, cam, cfg, bounce):
-        """A bounce's object-space rays and live lanes in a plain wavefront
-        pass (the plain walk's own arguments)."""
-        seen = []
-        walk = accel_traverse.traverse_bvh
-
-        def spy(*args, **kw):
-            seen.append((args[7], args[8], kw.get("active")))
-            return walk(*args, **kw)
-
-        accel_traverse.traverse_bvh = spy
-        try:
-            trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, plain_walk=True)
-        finally:
-            accel_traverse.traverse_bvh = walk
-        return seen[bounce]
 
     # ---- 23. the closest-hit kernel against the plain walk ---------------------------
     blobs = {mat: gltf_scene(mesh_from_model(blob_model(), mat_type=mat, **place), device=dev).mesh
@@ -980,7 +996,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
                      device=dev).mesh
     # bounce 2: the lanes whose shadow ray failed at bounce 1 are off the mask (from the glTF camera no
     # primary ray ends on the light)
-    ro_b, rd_b, act_b = bounce_rays(cap, gltf_camera(dev), IntegratorConfig(bounces=BOUNCES), 2)
+    ro_b, rd_b, act_b = bounce_rays(cap, gltf_camera(dev), IntegratorConfig(bounces=BOUNCES), SIZE, RAND_VEC2, bn, 2)
     cases = [("capacity, primary rays, glTF camera", cap.mesh, *primary(cap.mesh, gltf_camera(dev)), None),
              ("capacity, primary rays, raised camera", cap.mesh, *primary(cap.mesh, raised), None),
              ("capacity, bounce 2 of a plain pass, its live lanes only", cap.mesh, ro_b, rd_b, act_b),
@@ -990,7 +1006,11 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
              ("textured stand-in, primary rays, raised camera", tex.mesh, *primary(tex.mesh, raised), None),
              ("blob with every triangle twice (ties), primary rays", doubled, *primary(doubled, gltf_camera(dev)),
               None),
-             ("one triangle (the root a leaf), primary rays", one, *primary(one, gltf_camera(dev)), None)]
+             ("one triangle (the root a leaf), primary rays", one, *primary(one, gltf_camera(dev)), None),
+             ("capacity, primary rays of a 1021x997 image, glTF camera", cap.mesh,
+              *primary(cap.mesh, gltf_camera(dev), 1021, 997), None),
+             ("capacity, bounce 2 as flat (1000003, 3) rays, its live lanes only", cap.mesh,
+              ro_b.reshape(-1, 3)[:1000003], rd_b.reshape(-1, 3)[:1000003], act_b.reshape(-1)[:1000003])]
     ch_err, plain_times, ch_timing = 0.0, {}, {}
     for label, mesh, ro, rd, act in cases:
         cull = mesh.albedo is not None or int(mesh.mat_type) != TRANSPARENT
@@ -1245,19 +1265,22 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     # ---- 28. timing ----------------------------------------------------------------------
     entries = []
     ch_rows = []
+    ch_build = nvcc_report(closest_hit.KERNEL)
     for label, (case, mesh, ro, rd, act) in (("primary rays, glTF camera", cases[0]), ("bounce 2", cases[2])):
         ms, dev_ms = ch_timing[case]
         plain_ms = plain_times[case]
-        flop, nbytes, steps = closest_hit_work(ro, rd, True, act, mesh)
+        flop, nbytes, steps, lengths = closest_hit_work(ro, rd, True, act, mesh)
         bound_ms, bound_by = bound(flop, nbytes)
         share = 100 * bound_ms / dev_ms if dev_ms else None
         ch_rows.append(dict(label=label, ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
         phase("timing-closest-hit", f"{card}: capacity mesh, {label}, {ro[..., 0].numel()} lanes: kernel device "
                                     f"{dev_ms} ms, through its wrapper {ms:.3f} ms, plain walk {plain_ms:.3f} ms; "
-                                    f"inner-node visits / triangle tests {steps}; {flop / 1e9:.4f} GFLOP + "
+                                    f"inner-node visits / triangle tests {steps}; walks {json.dumps(lengths)}; "
+                                    f"{flop / 1e9:.4f} GFLOP + "
                                     f"{nbytes / 1e6:.3f} MB -> "
                                     f"bound {bound_ms:.4f} ms ({bound_by}), "
-                                    + (f"{share:.2f}% of it reached" if share else "not measured"))
+                                    + (f"{share:.2f}% of it reached" if share else "not measured")
+                                    + f"; nvcc: {json.dumps(ch_build)}")
     phase("timing-closest-hit", f"{card}: the wavefront pass at {SIZE}x{SIZE}, {BOUNCES} bounces, kernel walk / plain "
                                 f"walk: " + "; ".join(f"{k} {a:.3f} / {b:.3f} ms" for k, (a, b) in wavefront.items()))
     entries.append({"name": "closest_hit", "route": "cuda", "source": "bpt_tpu_torch/csrc/closest_hit.cu",
@@ -1265,7 +1288,8 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
                     "launches": train["wavefront"]["closest_hit"], "max_abs_err": ch_err, "ms": ch_rows[0]["ms"],
                     "device_ms": ch_rows[0]["dev_ms"], "plain_ms": ch_rows[0]["plain_ms"],
                     "bound_ms": ch_rows[0]["bound_ms"], "bound_by": ch_rows[0]["bound_by"], "library_ms": None,
-                    "bounce2_device_ms": ch_rows[1]["dev_ms"], "bounce2_bound_ms": ch_rows[1]["bound_ms"]})
+                    "bounce2_device_ms": ch_rows[1]["dev_ms"], "bounce2_bound_ms": ch_rows[1]["bound_ms"],
+                    **ch_build})
     for key, info in grads_info.items():
         scene, cam, cfg, lanes = info["scene"], info["cam"], info["cfg"], info["lanes"]
         textured = key.startswith("textured")

@@ -522,10 +522,10 @@ def test_cuda_closest_hit_kernel_matches_plain_walk(cuda_device, mat):
             assert bool((got[1][~act] == -1).all())
 
 
-def _tie_cases(device, case, mat):
+def _tie_cases(device, case, mat, height=64, width=64):
     """The doubled 64-triangle blob (placed as the mesh cases place the blob)
-    or the one triangle in the glTF box, and the glTF camera's 64x64
-    primary rays of frame 2 in the mesh's object space."""
+    or the one triangle in the glTF box, and the glTF camera's primary rays
+    of frame 2 (64x64 unless told) in the mesh's object space."""
     from bpt_tpu_torch.camera import generate_rays
     from bpt_tpu_torch.core.rng import rng_seed
     from bpt_tpu_torch.core.vecmath import transform_dir, transform_point
@@ -536,8 +536,8 @@ def _tie_cases(device, case, mat):
     else:
         model, place = one_triangle_model(), {}
     scene = gltf_scene(mesh_from_model(model, mat_type=mat, translation=(0.0, -20.0, -85.0), **place), device=device)
-    px, py = pixel_grid(64, 64, device)
-    ro, rd, _ = generate_rays(gltf_camera(device=device), px, py, 64, 64, rng_seed(2.0, px, py))
+    px, py = pixel_grid(height, width, device)
+    ro, rd, _ = generate_rays(gltf_camera(device=device), px, py, width, height, rng_seed(2.0, px, py))
     return scene, transform_point(scene.mesh.inv_matrix, ro), transform_dir(scene.mesh.inv_matrix, rd)
 
 
@@ -566,6 +566,74 @@ def test_cuda_closest_hit_kernel_on_ties_and_one_triangle(cuda_device, case, mat
         assert looked == 48 and tied >= 40
     else:
         assert bool((got[1] <= 0).all())
+
+
+# (mesh, leading shape of the rays, lane mask): images and flat sets whose
+# lane counts are no multiple of the kernel's 128-lane spans, and masks that
+# leave whole spans, single lanes or scattered lanes live.
+SCHEDULE_CASES = [
+    ("doubled", (33, 67), None), ("doubled", (33, 67), "random45"), ("one-triangle", (33, 67), "checker"),
+    ("doubled", (33, 67), "tiles"), ("doubled", (1, 1), None), ("doubled", (1, 37), "one"),
+    ("one-triangle", (1, 37), None), ("doubled", (70, 9), "tiles"), ("one-triangle", (70, 9), None),
+    ("doubled", (70, 9), "dead"), ("doubled", (1,), None), ("doubled", (31,), None),
+    ("one-triangle", (33,), "checker"), ("doubled", (4096,), "random45"), ("doubled", (4096,), "tiles"),
+    ("one-triangle", (4096,), "one"), ("doubled", (4096,), "dead"), ("doubled", (0,), None),
+]
+
+
+def _schedule_mask(kind, shape, rng):
+    """A lane mask of ``shape``: none, all dead, one live lane, a
+    checkerboard, 45% live at random, or 16x16 blocks (flat: runs of 256
+    lanes) dead next to live ones."""
+    if kind is None:
+        return None
+    n = int(np.prod(shape))
+    flat = np.arange(n)
+    width = shape[-1] if len(shape) == 2 else n
+    row, col = flat // max(width, 1), flat % max(width, 1)
+    masks = {"dead": np.zeros(n, bool), "one": flat == rng.integers(max(n, 1)),
+             "checker": (row + col) % 2 == 0, "random45": rng.uniform(0, 1, n) < 0.45,
+             "tiles": ((row // 16 + col // 16) % 2 == 0) if len(shape) == 2 else (flat // 256) % 2 == 0}
+    return torch.as_tensor(masks[kind].reshape(shape))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh_case,shape,mask", SCHEDULE_CASES,
+                         ids=[f"{m}-{'x'.join(map(str, s))}-{k}" for m, s, k in SCHEDULE_CASES])
+def test_cuda_closest_hit_lane_schedule(cuda_device, mesh_case, shape, mask):
+    """The closest-hit kernel's lane schedule (spans of 128 lanes in the
+    caller's order, the lanes that walk packed into a block's first
+    threads) against the plain walk bit for bit in t, tri, u and v, on the
+    doubled soup (ties) and the one-triangle mesh: images of 1x1 to 70x9
+    and 33x67 rays, flat sets of 1 to 4096 rays (0: no launch), and masks
+    that are all dead, one lane, a checkerboard, 45% random, or 16x16
+    blocks (runs of 256 lanes) dead beside live ones; lanes off the mask get
+    (INFINITY, -1, 0, 0); one launch per call."""
+    from bpt_tpu_torch.core.vecmath import INFINITY
+    from bpt_tpu_torch.kernels import traverse
+
+    scene, ro, rd = _tie_cases(cuda_device, "doubled" if mesh_case == "doubled" else "one-triangle", DIFFUSE,
+                               *(shape if len(shape) == 2 else (64, 64)))
+    rng = np.random.default_rng(7)
+    if len(shape) == 1:  # lanes picked from the 64x64 image
+        pick = torch.as_tensor(rng.permutation(4096)[:shape[0]], device=cuda_device)
+        ro, rd = ro.reshape(-1, 3)[pick], rd.reshape(-1, 3)[pick]
+    act = _schedule_mask(mask, shape, rng)
+    act = None if act is None else act.to(cuda_device)
+    before = traverse.LAUNCHES["closest_hit"]
+    got = traverse.closest_hit(ro, rd, True, act, scene.mesh)
+    assert traverse.LAUNCHES["closest_hit"] == before + (1 if ro.numel() else 0)
+    ref = traverse.closest_hit_reference(ro, rd, True, act, scene.mesh)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert a.shape == tuple(shape)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if act is not None and bool((~act).any()):
+        dead = ~act
+        assert bool((got[0][dead] == INFINITY).all() and (got[1][dead] == -1).all())
+        assert bool((got[2][dead] == 0).all() and (got[3][dead] == 0).all())
+    if int(np.prod(shape)) >= 2000 and mask != "dead" and mask != "one":
+        assert int((got[1] >= 0).sum()) > 100
 
 
 @pytest.mark.cuda
