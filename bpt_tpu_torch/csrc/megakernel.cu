@@ -61,10 +61,16 @@
 // wrapper composes the color in torch.
 //
 // What bounds it on this card: per-thread arithmetic and latency, with warp
-// divergence.  Cornell: the intersection of every ray with 6 quads as 12
-// Moller-Trumbore triangles and 2 instanced spheres, plus sin/cos/exp/log
-// and IEEE divides and square roots, divergent across the four material
-// branches.  Quadric: the 12 unit intersectors per live bounce, and above
+// divergence.  Cornell: the intersection of every ray with 6 quads and 2
+// instanced spheres, plus sin/cos/exp/log and IEEE divides and square
+// roots, divergent across the four material branches.  A scene whose quads
+// are all parallelograms (every demo scene) takes the TPU kernel's
+// fast_quads test (csrc/path.cuh parallelogram_t: one plane intersection
+// and a dual-basis inside test, 34 operations and one reciprocal a quad)
+// instead of two Moller-Trumbore fans (104 and two reciprocals); its
+// per-quad algebra (the plane normal, the dual basis and their inverse
+// lengths) is made once per quad geometry by the wrapper and read from the
+// quad row.  Quadric: the 12 unit intersectors per live bounce, and above
 // all the torus's SDF march: a ray inside the torus's bound marches until
 // |d| < 0.01 (tens of steps, up to 500 near grazing), and the 31 other
 // threads of its warp wait for the slowest one.  Sky: the Preetham
@@ -79,8 +85,9 @@
 // n_sg * 4 bytes per pixel.
 //
 // What the design does about that: one thread per pixel with its whole path
-// state in registers; the scene constants and the parameter pack sit in
-// shared memory, loaded once per block; the blue-noise texel is gathered
+// state in registers; the scene block (camera, parameters, the 128-byte
+// quad rows, the sphere and quadric rows) sits in shared memory, loaded
+// once per block and read as float4s; the blue-noise texel is gathered
 // directly from the 256x256x4 table (the TPU kernel needed host-rolled
 // planes because Mosaic has no per-lane gather).  Unlike the TPU's masked
 // lockstep, a thread leaves the bounce loop once its path is dead (a dead
@@ -160,13 +167,15 @@ __device__ __forceinline__ void trace_pixel(const TraceArgs& a) {
   a.out_sharp[pix] = p.sharp;
 }
 
-// The kernels: one thread per pixel.  Without a mesh, 80 registers let 3
-// blocks of 256 threads share an SM (registers are allocated 8 a thread);
-// unbounded, these configurations take up to 86 and 2 blocks, and run up to
-// 17% slower (Cornell grads).  A mesh configuration keeps the compiler's own
-// choice: a register bound there costs more than it gains.
+// The kernels: one thread per pixel.  Without a mesh, 64 registers let 4
+// blocks of 256 threads share an SM; they spill to L1, yet run faster than
+// 3 blocks at 80 registers or no bound (bpt_tpu_torch/tools/ab_time.py
+// --only nomesh over variant checkouts; PERF.md keeps the numbers): with
+// the parallelogram quad test the extra warps hide more latency than the
+// spills cost.  A mesh configuration keeps the compiler's own choice: a
+// register bound there costs more than it gains.
 template <bool kGrads, int kEnv, int kNee>
-__global__ void __launch_bounds__(256, 3) trace_kernel(const TraceArgs a) {
+__global__ void __launch_bounds__(256, 4) trace_kernel(const TraceArgs a) {
   trace_pixel<kGrads, kEnv, kNee, false, false>(a);
 }
 
@@ -179,7 +188,7 @@ template <bool kGrads, int kEnv, int kNee, bool kMesh, bool kTextured = false>
 int launch_cfg(const TraceArgs& a, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
-  const size_t smem = scene_smem_bytes(a, kMesh);
+  const size_t smem = sizeof(float) * scene_floats(a, kMesh);
   if constexpr (kMesh) {
     trace_kernel<kGrads, kEnv, kNee, kTextured><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
   } else {

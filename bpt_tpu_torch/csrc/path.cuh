@@ -1,7 +1,8 @@
 // The path tracer's per-lane code, shared by the monolithic megakernel (K1,
 // csrc/megakernel.cu) and the staged phase kernel (K2, csrc/staged.cu): the
-// argument block, the scene constants in shared memory, ray generation and
-// the body of one bounce.  Both kernels run these expressions in this order,
+// argument block, the scene block in shared memory, ray generation and the
+// body of one bounce (with the quad test: the parallelogram test or the
+// two triangle fans).  Both kernels run these expressions in this order,
 // so that under --fmad=false a path traced in several phases ends bit for
 // bit where one traced in a single launch does.  The notes on numerics,
 // draw order and the grads mode's planes are in csrc/megakernel.cu.
@@ -25,12 +26,7 @@ namespace bpt {
 // a named namespace: with the struct in the unnamed one, the C entry that
 // takes it was not exported from nvcc's shared library.
 struct TraceArgs {
-  const float* cam;
-  const float* params;
-  const float* quads;
-  const float* spheres;
-  const float* quadrics;
-  const float* mesh;  // kMeshFloats constants
+  const float* scene;  // the scene block: cam | params | quads | spheres | quadrics | mesh constants
   const float4* mesh_nodes;
   const float4* mesh_tris;
   const float4* mesh_normals;
@@ -56,6 +52,7 @@ struct TraceArgs {
   float frame_f;
   int tex_h[4], tex_w[4];
   int metal_roughness_lobe;
+  int fast_quads;  // every quad is a parallelogram: the parallelogram test, else the two triangle fans
 };
 
 constexpr uint32_t kMagic = 1103515245u;
@@ -70,19 +67,27 @@ constexpr int kPbr = 10;
 constexpr int kEnvNone = 0, kEnvSky = 1, kEnvHdri = 2;
 constexpr int kNeeQuad = 0, kNeeSun = 1, kNeeEnv = 2;
 
-// Packed scene layouts (bpt_tpu_torch/kernels/megakernel.py pack_scene /
-// pack_camera / pack_params / pack_mesh): cam = pos3 right3 up3 fwd3 ulen
-// vlen aperture focus; quad row (20) = n3 v0 v1 v2 v3 color3 mat pad; sphere
-// row (21) = inverse 4x4 row-major (16) color3 mat pad; quadric row (20) =
-// inverse 4x4 row-major (16) color3 mat; mesh constants (17) = inverse 4x4
-// row-major (16) mat (kPbr for a mesh with an albedo), and its nodes,
-// triangles and normals (csrc/bvh.cuh), UV records and texels
-// (csrc/textures.cuh); the parameter pack: vec.cuh.
+// The scene block (bpt_tpu_torch/kernels/launch_args.py trace_args, from
+// pack_camera / pack_params / pack_scene / pack_mesh), one contiguous
+// float32 array: cam (16) = pos3 right3 up3 fwd3 ulen vlen aperture focus;
+// the parameter pack (24, vec.cuh); nq quad rows (32) = the parallelogram
+// test's per-quad algebra ng3 c0 d1 k1 d3 k3 (made once per quad geometry),
+// v0 mat n3 pad v1 v2 v3 color3 (kQ* below); ns sphere rows (24) = inverse
+// 4x4 row-major (16) color3 mat pad4; nqd quadric rows (20) = inverse 4x4
+// row-major (16) color3 mat; with a mesh its constants (17) = inverse 4x4
+// row-major (16) mat (kPbr for a mesh with an albedo).  Every part but the
+// last starts on a 16-byte boundary, so that the shape loops read their
+// rows as float4s (ld4), which ran faster than scalar loads and than a
+// constant bank (bpt_tpu_torch/tools/ab_time.py; PERF.md keeps the
+// numbers).  The mesh's nodes, triangles and normals (csrc/bvh.cuh), UV
+// records and texels (csrc/textures.cuh) are tables of their own.
 constexpr int kCamFloats = 16;
-constexpr int kQuadFloats = 20;
-constexpr int kSphereFloats = 21;
+constexpr int kQuadFloats = 32;
+constexpr int kSphereFloats = 24;
 constexpr int kQuadricFloats = 20;
 constexpr int kMeshFloats = 17;
+constexpr int kQNg = 0, kQC0 = 3, kQD1 = 4, kQK1 = 7, kQD3 = 8, kQK3 = 11, kQV0 = 12, kQMat = 15, kQN = 16,
+              kQV1 = 20, kQV2 = 23, kQV3 = 26, kQColor = 29;
 
 // iq's uvec2 hash, one draw: native uint32 wrap-around, mantissa bitcast.
 __device__ __forceinline__ float rng_next(uint32_t& sx, uint32_t& sy) {
@@ -97,6 +102,17 @@ __device__ __forceinline__ float rng_next(uint32_t& sx, uint32_t& sy) {
 __device__ __forceinline__ float tent(float x) {
   return x < 0.5f ? sqrtf(fmaxf(2.0f * x, 0.0f)) - 1.0f : 1.0f - sqrtf(fmaxf(2.0f - 2.0f * x, 0.0f));
 }
+
+// Four consecutive floats of the scene block (16-byte aligned): one float4
+// load from shared memory, a broadcast (every lane of a warp reads the same
+// row).
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// Rows 0-2 of a row-major 4x4 matrix in the scene block.
+struct Mat34 {
+  float4 r0, r1, r2;
+};
+__device__ __forceinline__ Mat34 ld_mat(const float* m) { return Mat34{ld4(m), ld4(m + 4), ld4(m + 8)}; }
 
 // Moller-Trumbore with backface cull; kInf on a miss.
 __device__ __forceinline__ float triangle_t(V3 v0, V3 v1, V3 v2, V3 ro, V3 rd) {
@@ -128,6 +144,38 @@ __device__ __forceinline__ V3 xform_dir(const float* m, V3 d) {
 __device__ __forceinline__ V3 xform_normal(const float* m, V3 n) {
   return v3(m[0] * n.x + m[4] * n.y + m[8] * n.z, m[1] * n.x + m[5] * n.y + m[9] * n.z,
             m[2] * n.x + m[6] * n.y + m[10] * n.z);
+}
+// The same three on a matrix already loaded.
+__device__ __forceinline__ V3 xform_point(const Mat34& m, V3 p) {
+  return v3((m.r0.x * p.x + m.r0.y * p.y + m.r0.z * p.z) + m.r0.w,
+            (m.r1.x * p.x + m.r1.y * p.y + m.r1.z * p.z) + m.r1.w,
+            (m.r2.x * p.x + m.r2.y * p.y + m.r2.z * p.z) + m.r2.w);
+}
+__device__ __forceinline__ V3 xform_dir(const Mat34& m, V3 d) {
+  return v3(m.r0.x * d.x + m.r0.y * d.y + m.r0.z * d.z, m.r1.x * d.x + m.r1.y * d.y + m.r1.z * d.z,
+            m.r2.x * d.x + m.r2.y * d.y + m.r2.z * d.z);
+}
+__device__ __forceinline__ V3 xform_normal(const Mat34& m, V3 n) {
+  return v3(m.r0.x * n.x + m.r1.x * n.y + m.r2.x * n.z, m.r0.y * n.x + m.r1.y * n.y + m.r2.y * n.z,
+            m.r0.z * n.x + m.r1.z * n.y + m.r2.z * n.z);
+}
+
+// The parallelogram test (the TPU kernel's fast_quads path) of the quad row
+// Q: one plane intersection, then the hit point's coordinates along e1 and
+// e3 from the dual basis d1, d3 (their inverse lengths k1, k3), inside [0, 1]
+// each; denom > 0 is the fans' backface cull.  The row's per-quad algebra was
+// made once per quad geometry.  kInf on a miss, NaN included.
+__device__ __forceinline__ float parallelogram_t(const float* Q, V3 ro, V3 rd) {
+  const float4 a = ld4(Q + kQNg), b = ld4(Q + kQD1), d = ld4(Q + kQD3), v0 = ld4(Q + kQV0);
+  const float denom = rd.x * a.x + rd.y * a.y + rd.z * a.z;
+  const float ron = ro.x * a.x + ro.y * a.y + ro.z * a.z;
+  const float tt = (a.w - ron) * safe_inv(denom);
+  const float hx = ro.x + rd.x * tt - v0.x, hy = ro.y + rd.y * tt - v0.y, hz = ro.z + rd.z * tt - v0.z;
+  const float aa = (hx * b.x + hy * b.y + hz * b.z) * b.w;
+  const float bb = (hx * d.x + hy * d.y + hz * d.z) * d.w;
+  const bool miss = (tt <= 0.0f) || (aa < 0.0f) || (aa > 1.0f) || (bb < 0.0f) || (bb > 1.0f) || (denom > 0.0f) ||
+                    isnan(tt);
+  return miss ? kInf : tt;
 }
 
 // Exact dielectric Fresnel: returns Re, writes the IoR ratio.
@@ -162,8 +210,8 @@ __device__ __forceinline__ V3 cos_hemisphere(V3 nl, float r_, float p_) {
 // Quad-light NEE: direction toward a point of the light and its weight.
 __device__ __forceinline__ V3 quad_light(const float* lq, V3 x, V3 nl, float rx, float ry, float rz,
                                          float* weight) {
-  V3 ln = load3(lq + 0);
-  V3 lv0 = load3(lq + 3), lv1 = load3(lq + 6), lv2 = load3(lq + 9), lv3 = load3(lq + 12);
+  V3 ln = load3(lq + kQN);
+  V3 lv0 = load3(lq + kQV0), lv1 = load3(lq + kQV1), lv2 = load3(lq + kQV2), lv3 = load3(lq + kQV3);
   V3 rp = v3(lv0.x + (lv2.x - lv0.x) * clampf(rx, 0.1f, 0.9f), lv0.y + (lv2.y - lv0.y) * clampf(ry, 0.1f, 0.9f),
              lv0.z + (lv2.z - lv0.z) * clampf(rz, 0.1f, 0.9f));
   V3 d = sub(rp, x);
@@ -178,8 +226,7 @@ __device__ __forceinline__ V3 quad_light(const float* lq, V3 x, V3 nl, float rx,
   return d;
 }
 
-// The scene constants in shared memory: cam | params | quads | spheres |
-// quadrics | mesh.
+// The parts of the scene block in shared memory.
 struct SceneConsts {
   const float* cam;
   const float* P;
@@ -189,34 +236,29 @@ struct SceneConsts {
   const float* mesh_inv;
 };
 
-__host__ __device__ inline size_t scene_smem_bytes(const TraceArgs& a, bool mesh) {
-  return sizeof(float) * (kCamFloats + kParamFloats + a.nq * kQuadFloats + a.ns * kSphereFloats +
-                          a.nqd * kQuadricFloats + (mesh ? kMeshFloats : 0));
+__host__ __device__ inline int scene_floats(const TraceArgs& a, bool mesh) {
+  return kCamFloats + kParamFloats + a.nq * kQuadFloats + a.ns * kSphereFloats + a.nqd * kQuadricFloats +
+         (mesh ? kMeshFloats : 0);
 }
 
-// Every thread of the block copies its share, then the block waits: call
-// before any thread returns.
+// The scene block in shared memory: every thread of the block copies its
+// share, then the block waits (call before any thread returns).  Every
+// read in the shape loops is warp-uniform, a broadcast.
 template <bool kMesh>
 __device__ __forceinline__ SceneConsts load_scene(const TraceArgs& a) {
-  extern __shared__ float smem[];
-  const int nq = a.nq, ns = a.ns, nqd = a.nqd;
+  extern __shared__ float4 smem4[];  // 16-byte aligned
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int n = scene_floats(a, kMesh);
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < n; i += blockDim.x * blockDim.y) smem[i] = a.scene[i];
+  __syncthreads();
   SceneConsts c;
   c.cam = smem;
   c.P = smem + kCamFloats;
   c.quads = c.P + kParamFloats;
-  c.spheres = c.quads + nq * kQuadFloats;
-  c.quadrics = c.spheres + ns * kSphereFloats;
-  c.mesh_inv = c.quadrics + nqd * kQuadricFloats;
-  const int seg[6] = {kCamFloats, kParamFloats, nq * kQuadFloats, ns * kSphereFloats, nqd * kQuadricFloats,
-                      kMesh ? kMeshFloats : 0};
-  const float* src[6] = {a.cam, a.params, a.quads, a.spheres, a.quadrics, a.mesh};
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  int base = 0;
-  for (int g = 0; g < 6; ++g) {
-    for (int i = tid; i < seg[g]; i += blockDim.x * blockDim.y) smem[base + i] = src[g][i];
-    base += seg[g];
-  }
-  __syncthreads();
+  c.spheres = c.quads + a.nq * kQuadFloats;
+  c.quadrics = c.spheres + a.ns * kSphereFloats;
+  c.mesh_inv = c.quadrics + a.nqd * kQuadricFloats;
   return c;
 }
 
@@ -378,10 +420,11 @@ __device__ __forceinline__ bool trace_bounces(const TraceArgs& a, const SceneCon
     float hu = 0.0f, hv = 0.0f;  // a textured mesh hit's UV
     for (int s = 0; s < ns; ++s) {
       const float* m = c.spheres + s * kSphereFloats;
-      QHit hit = q_sphere(xform_point(m, ro), xform_dir(m, rd));
+      const Mat34 M = ld_mat(m);
+      QHit hit = q_sphere(xform_point(M, ro), xform_dir(M, rd));
       if (hit.t < t_best) {
         t_best = hit.t;
-        nrm = normalize(xform_normal(m, normalize(hit.n)));
+        nrm = normalize(xform_normal(M, normalize(hit.n)));
         hc = load3(m + 16);
         mat = (int)m[19];
         hid = (float)s;
@@ -390,27 +433,38 @@ __device__ __forceinline__ bool trace_bounces(const TraceArgs& a, const SceneCon
     }
     for (int i = 0; i < nqd; ++i) {
       const float* m = c.quadrics + i * kQuadricFloats;
-      QHit hit = quadric_intersect(i, xform_point(m, ro), xform_dir(m, rd), k.shape_k);
+      const Mat34 M = ld_mat(m);
+      QHit hit = quadric_intersect(i, xform_point(M, ro), xform_dir(M, rd), k.shape_k);
       if (hit.t < t_best) {
         t_best = hit.t;
-        nrm = normalize(xform_normal(m, normalize(hit.n)));
+        nrm = normalize(xform_normal(M, normalize(hit.n)));
         hc = load3(m + 16);
         mat = (int)m[19];
         hid = (float)(ns + i);
         hobj = ns + i;
       }
     }
-    for (int q = 0; q < nq; ++q) {
-      const float* Q = c.quads + q * kQuadFloats;
-      V3 v0 = load3(Q + 3), v1 = load3(Q + 6), v2 = load3(Q + 9), v3_ = load3(Q + 12);
-      float t = fminf(triangle_t(v0, v1, v2, ro, rd), triangle_t(v0, v2, v3_, ro, rd));
-      if (t < t_best) {
-        t_best = t;
-        nrm = load3(Q + 0);
-        hc = load3(Q + 15);
-        mat = (int)Q[18];
-        hid = (float)(ns + nqd + q);
-        hobj = ns + nqd + q;
+    auto take_quad = [&](float t, const float* Q, int q) {
+      t_best = t;
+      const float4 n = ld4(Q + kQN);
+      nrm = v3(n.x, n.y, n.z);
+      hc = load3(Q + kQColor);
+      mat = (int)Q[kQMat];
+      hid = (float)(ns + nqd + q);
+      hobj = ns + nqd + q;
+    };
+    if (a.fast_quads) {  // every quad is a parallelogram
+      for (int q = 0; q < nq; ++q) {
+        const float* Q = c.quads + q * kQuadFloats;
+        const float t = parallelogram_t(Q, ro, rd);
+        if (t < t_best) take_quad(t, Q, q);
+      }
+    } else {  // the two triangle fans (v0, v1, v2) and (v0, v2, v3)
+      for (int q = 0; q < nq; ++q) {
+        const float* Q = c.quads + q * kQuadFloats;
+        V3 v0 = load3(Q + kQV0), v1 = load3(Q + kQV1), v2 = load3(Q + kQV2), v3_ = load3(Q + kQV3);
+        const float t = fminf(triangle_t(v0, v1, v2, ro, rd), triangle_t(v0, v2, v3_, ro, rd));
+        if (t < t_best) take_quad(t, Q, q);
       }
     }
     if constexpr (kMesh) {  // the model: object space, the BVH walk, the winner's normal

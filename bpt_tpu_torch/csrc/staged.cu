@@ -216,10 +216,11 @@ __device__ __forceinline__ void write_warp_box(const StagedArgs& s, const RowOut
   }
 }
 
-// The kernels, K1's register policy: without a mesh 3 blocks of 256
-// threads an SM (80 registers; they spill 38-60 bytes to L1), with one the
-// compiler's own choice.  (256, 2) removes the spills but is 6-9% slower
-// in the Cornell and sky pools' phases (PERF.md, K2's row).
+// The kernels: without a mesh 3 blocks of 256 threads an SM (80 registers;
+// they spill up to 68 bytes to L1), with one the compiler's own choice.
+// (256, 2) removes the spills but is 6-9% slower in the Cornell and sky
+// pools' phases (PERF.md, K2's row), and (256, 4), K1's bound, spills
+// 218-234 bytes and is 12% slower.
 template <bool kGrads, int kEnv, int kNee>
 __global__ void __launch_bounds__(256, 3) phase_kernel(const StagedArgs s) {
   const RowOut r = phase_lane<kGrads, kEnv, kNee, false, false>(s);
@@ -240,7 +241,7 @@ int launch_cfg(const StagedArgs& s, void* stream) {
   const dim3 block = s.lo == 0 ? dim3(16, 16) : dim3(256);
   const dim3 grid = s.lo == 0 ? dim3((s.t.width + 15) / 16, (s.t.height + 15) / 16, s.frames)
                               : dim3((unsigned)((s.lanes + 255) / 256));
-  const size_t smem = scene_smem_bytes(s.t, kMesh);
+  const size_t smem = sizeof(float) * scene_floats(s.t, kMesh);
   if constexpr (kMesh) {
     phase_kernel<kGrads, kEnv, kNee, kTextured><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(s);
   } else {

@@ -11,11 +11,11 @@ namespace bpt {
 constexpr float kInf = 1.0e6f;
 constexpr float kTwoPi = 6.28318530717958648f;
 
-// The layout of the parameter pack (kernels/megakernel.py pack_params):
+// The layout of the parameter pack (kernels/launch_args.py pack_params):
 // shape_k, the sun direction, the sun-only sky terms, the sun lobe, the
 // sun-NEE weight scale, the sky's per-channel constants, and the HDRI
 // map's exposure, height and width.
-constexpr int kParamFloats = 22;
+constexpr int kParamFloats = 24;  // 2 pads: the next part starts on a 16-byte boundary
 constexpr int kPShapeK = 0, kPSun = 1, kPSunE = 4, kPGamma = 5, kPBlend = 6, kPLobeExp = 7, kPLobeRough = 8,
               kPSunWeight = 9, kPRayleigh = 10, kPMie = 13, kPExtinction = 16, kPExposure = 19, kPHdrH = 20,
               kPHdrW = 21;

@@ -12,6 +12,7 @@ import torch
 from bpt_tpu_torch.camera import Camera, generate_rays
 from bpt_tpu_torch.core.rng import blue_noise_fetch, rng_seed
 from bpt_tpu_torch.core.vecmath import smoothstep
+from bpt_tpu_torch.geometry.triangles import resolve_fast_quads
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.radiance import RadianceResult, calculate_radiance
 from bpt_tpu_torch.scenes.types import Scene
@@ -77,6 +78,7 @@ def trace_image(
     param_grads: bool = False,
     lane_counts: list | None = None,
     plain_walk: bool = False,
+    fast_quads: bool | None = False,
 ):
     """Trace one 1-sample-per-pixel frame; returns the raw per-pixel result.
 
@@ -86,13 +88,18 @@ def trace_image(
     planes and deferred the (n_def, H, W) deferred planes of
     ``calculate_radiance`` (which also explains ``lane_counts``).  A mesh is
     walked by the closest-hit kernel on the card unless ``plain_walk``.
+    ``fast_quads=True`` tests the quads with the parallelogram test of the
+    TPU kernel's fast path (every quad must be a parallelogram, else
+    ValueError; None decides as the kernel's entry points do), the default
+    with the two triangle fans of the wavefront.
     """
+    fast_quads = resolve_fast_quads(scene.quads, fast_quads)
     px, py = pixel_grid(height, width, blue_noise.device)
     rng = rng_seed(frame_counter, px, py)
     bn = blue_noise_fetch(blue_noise, px, py, rand_vec2)
     ro, rd, rng = generate_rays(camera, px, py, width, height, rng)
     out = calculate_radiance(scene, cfg, ro, rd, rng, bn, frame_counter, param_grads=param_grads,
-                             lane_counts=lane_counts, plain_walk=plain_walk)
+                             lane_counts=lane_counts, plain_walk=plain_walk, fast_quads=fast_quads)
     return (out[0], out[3], out[4]) if param_grads else out[0]
 
 

@@ -14,7 +14,7 @@ import torch
 
 from bpt_tpu_torch.core.vecmath import INFINITY, normal_to_world, normalize, transform_dir, transform_point
 from bpt_tpu_torch.geometry.quadrics import UNIT_INTERSECTORS, unit_sphere_intersect, unit_torus_intersect
-from bpt_tpu_torch.geometry.triangles import quad_intersect
+from bpt_tpu_torch.geometry.triangles import parallelogram_constants, parallelogram_intersect, quad_intersect
 from bpt_tpu_torch.scenes.types import Scene
 
 
@@ -79,10 +79,19 @@ def _intersect_quadrics(quadrics, ro, rd, best: Hit, id_base: int, torus_steps: 
     return best
 
 
-def _intersect_quads(quads, ro, rd, best: Hit, id_base: int) -> Hit:
+def _intersect_quads(quads, ro, rd, best: Hit, id_base: int, fast_quads: bool = False,
+                     quad_tests: list | None = None) -> Hit:
     """All quads at once: rays (..., 1, 3) against quads (Nq, 3); the first
-    minimum wins, as ``argmin`` does in the reference."""
-    t = quad_intersect(quads.v0, quads.v1, quads.v2, quads.v3, ro[..., None, :], rd[..., None, :])
+    minimum wins, as ``argmin`` does in the reference.  ``fast_quads``: the
+    parallelogram test (the caller has checked that every quad is one),
+    else the two triangle fans; ``quad_tests`` receives which ran
+    ("parallelogram" or "fans")."""
+    if fast_quads:
+        t = parallelogram_intersect(parallelogram_constants(quads), ro[..., None, :], rd[..., None, :])
+    else:
+        t = quad_intersect(quads.v0, quads.v1, quads.v2, quads.v3, ro[..., None, :], rd[..., None, :])
+    if quad_tests is not None:
+        quad_tests.append("parallelogram" if fast_quads else "fans")
     t_min = torch.amin(t, dim=-1)
     first = torch.argmax((t == t_min[..., None]).to(torch.int8), dim=-1)
     normal = normalize(quads.normal[first])
@@ -92,7 +101,7 @@ def _intersect_quads(quads, ro, rd, best: Hit, id_base: int) -> Hit:
 
 def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_steps: list | None = None,
                     active: torch.Tensor | None = None, mesh_steps: list | None = None,
-                    plain_walk: bool = False) -> Hit:
+                    plain_walk: bool = False, fast_quads: bool = False, quad_tests: list | None = None) -> Hit:
     """Nearest hit over spheres, quadrics, quads and the mesh for (..., 3)
     rays of any batch shape.
 
@@ -102,9 +111,12 @@ def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_step
     ``torus_steps`` receives the torus march's per-lane step counts
     (``unit_torus_intersect``'s ``steps_out``) and ``mesh_steps`` the walk's
     per-lane inner-node visits and triangle tests and the masks of the mesh
-    records read (``intersect_mesh_bvh``'s).  The mesh walk is the
-    closest-hit kernel on CUDA tensors unless ``plain_walk`` (or
-    ``mesh_steps``) asks for the plain one."""
+    records read (``intersect_mesh_bvh``'s), and ``quad_tests`` which
+    quad test ran.  The mesh walk is the closest-hit kernel on CUDA tensors
+    unless ``plain_walk`` (or ``mesh_steps``) asks for the plain one.
+    ``fast_quads=True`` tests the quads with the parallelogram test (every
+    quad must be a parallelogram: ``geometry.triangles.resolve_fast_quads``
+    decides), the default with the two triangle fans of the wavefront."""
     best = _empty_hit(ro.shape[:-1], ro.device, ro.dtype)
     id_base = 0
     if scene.spheres is not None:
@@ -114,7 +126,7 @@ def scene_intersect(scene: Scene, ro: torch.Tensor, rd: torch.Tensor, torus_step
         best = _intersect_quadrics(scene.quadrics, ro, rd, best, id_base, torus_steps)
         id_base += scene.quadrics.inv_matrix.shape[0]
     if scene.quads is not None:
-        best = _intersect_quads(scene.quads, ro, rd, best, id_base)
+        best = _intersect_quads(scene.quads, ro, rd, best, id_base, fast_quads, quad_tests)
         id_base += scene.quads.v0.shape[0]
     if scene.mesh is not None:
         from bpt_tpu_torch.accel.traverse import intersect_mesh_bvh  # accel.traverse imports this module

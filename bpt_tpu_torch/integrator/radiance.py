@@ -118,7 +118,11 @@ class LaneCounts(NamedTuple):
     mesh hit, the albedo and the emissive map at every PBR hit, the
     metallic-roughness map at every PBR hit that did not end (0 for a map
     the mesh lacks); and ``texel_reads``, per map the (H, W) bool mask of the
-    texels those samples read, or None."""
+    texels those samples read, or None.
+
+    ``parallelogram_tests``: the quad tests of live lanes that the
+    parallelogram test made (live lanes x quads when ``fast_quads`` ran it,
+    0 when the two triangle fans did), counted where that branch runs."""
 
     live: torch.Tensor
     hits: torch.Tensor
@@ -133,6 +137,7 @@ class LaneCounts(NamedTuple):
     lobe_draws: torch.Tensor | None = None
     texel_samples: torch.Tensor | None = None
     texel_reads: tuple | None = None
+    parallelogram_tests: torch.Tensor | None = None
 
 
 def check_supported(scene: Scene, cfg: IntegratorConfig) -> None:
@@ -250,12 +255,13 @@ def init_paths(scene: Scene, cfg: IntegratorConfig, ray_origin: torch.Tensor, ra
 
 
 def run_bounces(scene: Scene, cfg: IntegratorConfig, state: PathState, lo: int, hi: int,
-                lane_counts: list | None = None, plain_walk: bool = False) -> PathState:
+                lane_counts: list | None = None, plain_walk: bool = False, fast_quads: bool = False) -> PathState:
     """Bounces [lo, hi) of every lane of ``state``; returns the state after
     them.  Bounce indices are absolute (bounce 0 sees the environment
     directly, bounce 1 after a mirror rewrites the first-hit records).
     Every lane is evaluated, dead ones masked, so lanes may come in any
-    order.  ``lane_counts`` and ``plain_walk``: see ``calculate_radiance``.
+    order.  ``lane_counts``, ``plain_walk`` and ``fast_quads``: see
+    ``calculate_radiance``.
     """
     ro, rd, mask, accum = state.ro, state.rd, state.mask, state.accum
     alive, spec, sample_light, coat_hit = state.alive, state.spec, state.sample_light, state.coat_hit
@@ -303,8 +309,9 @@ def run_bounces(scene: Scene, cfg: IntegratorConfig, state: PathState, lo: int, 
         lit = full(False, torch.bool)
         torus_steps = [] if lane_counts is not None and scene.quadrics is not None else None
         mesh_steps = [] if lane_counts is not None and scene.mesh is not None else None
+        quad_tests = [] if lane_counts is not None else None
         hit = scene_intersect(scene, ro, rd, torus_steps=torus_steps, active=alive, mesh_steps=mesh_steps,
-                              plain_walk=plain_walk)
+                              plain_walk=plain_walk, fast_quads=fast_quads, quad_tests=quad_tests)
         miss = hit.t >= INFINITY
         if lane_counts is not None:
             none = torch.zeros((), dtype=torch.int64, device=dev)
@@ -312,7 +319,9 @@ def run_bounces(scene: Scene, cfg: IntegratorConfig, state: PathState, lo: int, 
             visits, tests = (mesh_steps[0].sum(), mesh_steps[1].sum()) if mesh_steps else (none, none)
             lane_counts.append(LaneCounts(alive.sum(), (alive & ~miss).sum(), (alive & miss).sum(), steps, visits,
                                           tests, (alive & miss & sample_light).sum(),
-                                          tuple(mesh_steps[2:]) if mesh_steps else None))
+                                          tuple(mesh_steps[2:]) if mesh_steps else None,
+                                          parallelogram_tests=alive.sum() * (scene.quads.v0.shape[0] if
+                                                                             quad_tests == ["parallelogram"] else 0)))
             mesh_won = alive & ~miss & (hit.object_id == mesh_id)  # the lanes whose normal-map texel is sampled
 
         n = normalize(hit.normal)
@@ -617,6 +626,7 @@ def calculate_radiance(
     param_grads: bool = False,
     lane_counts: list | None = None,
     plain_walk: bool = False,
+    fast_quads: bool = False,
 ):
     """Trace one path per lane for up to cfg.bounces bounces:
     ``run_bounces(init_paths(...), 0, cfg.bounces)``, then ``finish_paths``.
@@ -630,10 +640,14 @@ def calculate_radiance(
 
     ``lane_counts``, for measurement, receives one ``LaneCounts`` per
     bounce.  ``plain_walk`` keeps the mesh walk plain on CUDA tensors
-    (``scene_intersect``).
+    (``scene_intersect``).  ``fast_quads=True`` tests the quads with the
+    parallelogram test of the TPU kernel's fast path (every quad must be a
+    parallelogram; ``geometry.triangles.resolve_fast_quads``), the default
+    with the wavefront's two triangle fans.
     """
     state = init_paths(scene, cfg, ray_origin, ray_dir, rng, bn, frame_counter, param_grads=param_grads)
-    state = run_bounces(scene, cfg, state, 0, cfg.bounces, lane_counts=lane_counts, plain_walk=plain_walk)
+    state = run_bounces(scene, cfg, state, 0, cfg.bounces, lane_counts=lane_counts, plain_walk=plain_walk,
+                        fast_quads=fast_quads)
     if param_grads:
         result, sg, deferred = finish_paths(state)
         return result, state.rng, state.bn, sg, deferred

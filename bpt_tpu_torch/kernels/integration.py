@@ -2,9 +2,10 @@
 
 A ``ProgressiveRenderer`` runs its radiance pass through
 ``trace_image_fused``, so on a CUDA device it launches the megakernel from
-construction.  ``attach_cuda_path(renderer, reorder)``, the port of
-``attach_pallas_path``, checks that the renderer is on a CUDA device and
-that the kernel takes its scene and config; with ``reorder=True`` it also
+construction.  ``attach_cuda_path(renderer, reorder, fast_quads)``, the
+port of ``attach_pallas_path``, checks that the renderer is on a CUDA
+device and that the kernel takes its scene and config, and decides the
+parallelogram quad test for the scene once; with ``reorder=True`` it also
 installs ``staged_batch_step`` as the renderer's ``batch_step``, so that
 ``render(spp, batch)`` traces each batch of k frames as one staged pool
 (``trace_frames_fused``), and an attach with ``reorder=False`` removes it.
@@ -15,6 +16,7 @@ behaviour — denoiser alpha flags, motion resets — is unchanged bit for bit.
 
 from __future__ import annotations
 
+from bpt_tpu_torch.geometry.triangles import resolve_fast_quads
 from bpt_tpu_torch.integrator.frame import finish_frame
 from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported
 from bpt_tpu_torch.kernels.megakernel import trace_frames_fused
@@ -30,7 +32,8 @@ def staged_batch_step(renderer: ProgressiveRenderer):
     def step(scene, camera, cfg, state: RenderState, rand_vec2s, blue_noise) -> RenderState:
         k = len(rand_vec2s)
         counters = [state.frame_counter + 1.0 + i for i in range(k)]
-        pool = trace_frames_fused(scene, camera, cfg, width, height, counters, list(rand_vec2s), blue_noise)
+        pool = trace_frames_fused(scene, camera, cfg, width, height, counters, list(rand_vec2s), blue_noise,
+                                  fast_quads=renderer.fast_quads)
         accum = state.accum
         for i, frame_counter in enumerate(counters):
             accum = finish_frame(RadianceResult(*(t[i] for t in pool)), accum, frame_counter, False)
@@ -39,11 +42,19 @@ def staged_batch_step(renderer: ProgressiveRenderer):
     return step
 
 
-def attach_cuda_path(renderer: ProgressiveRenderer, reorder: bool = False) -> None:
+def attach_cuda_path(renderer: ProgressiveRenderer, reorder: bool = False, fast_quads: bool | None = None) -> None:
     """Check that the renderer's radiance pass runs the CUDA kernel; with
     ``reorder=True`` route its batched samples through the staged pool, with
-    ``reorder=False`` step them one frame at a time again."""
+    ``reorder=False`` step them one frame at a time again.
+
+    ``fast_quads`` (None: every quad of the renderer's scene is a
+    parallelogram; True demands it, ValueError otherwise; False: the two
+    triangle fans) is decided here, once, as JAX's attach decides it, and
+    every later frame takes it: a scene swapped in later whose quads are
+    not parallelograms then raises ValueError instead of tracing wrong quad
+    hits."""
     if renderer.device.type != "cuda":
         raise ValueError(f"attach_cuda_path needs a renderer on a CUDA device, not {renderer.device}")
     check_supported(renderer.scene, renderer.cfg)
+    renderer.fast_quads = resolve_fast_quads(renderer.scene.quads, fast_quads)
     renderer.batch_step = staged_batch_step(renderer) if reorder else None

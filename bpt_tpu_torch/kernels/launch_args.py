@@ -2,8 +2,10 @@
 
 K1 (``csrc/megakernel.cu``) and K2 (``csrc/staged.cu``) take the same
 argument block, ``TraceArgs`` of ``csrc/path.cuh`` (K2 wraps it in its
-``StagedArgs``): the packed scene, camera, parameters, mesh tables and maps,
-the blue-noise table and the output planes.  ``trace_args`` packs and checks
+``StagedArgs``): the scene block (the camera, the parameters and the packed
+quads, spheres, quadrics and mesh constants, one contiguous float32
+tensor), the mesh tables and maps, the blue-noise table, the output planes
+and the switch of the parallelogram quad test.  ``trace_args`` packs and checks
 one launch's block; ``empty_outputs`` / ``outputs_result`` make a launch's
 output planes and read them back as a RadianceResult.  Both wrappers
 (``kernels/megakernel.py``, ``kernels/staged.py``) import this module, so
@@ -21,6 +23,7 @@ from bpt_tpu_torch import sky
 from bpt_tpu_torch.camera import Camera, film_extents
 from bpt_tpu_torch.core.sampling import lobe_exponent
 from bpt_tpu_torch.core.vecmath import normalize
+from bpt_tpu_torch.geometry.triangles import cached_on, parallelogram_constants, resolve_fast_quads
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.radiance import RadianceResult, deferred_layout
 from bpt_tpu_torch.scenes.types import (MAP_FIELDS, PBR_MATERIAL, Scene, check_walk_tables, is_textured,
@@ -49,15 +52,25 @@ _MAX_SPHERES = 64
 _N_QUADRICS = 12
 ENVS = {"none": 0, "sky": 1, "hdri": 2}
 NEES = {"quad": 0, "sun": 1, "env": 2}
+#: Floats of each part of the scene block (csrc/path.cuh): the camera, the
+#: parameter pack, a quad row, a sphere row, a quadric row, the mesh
+#: constants.  Every part but the last starts on a 16-byte boundary: the
+#: kernels read the rows as float4s.
+CAM_FLOATS, PARAM_FLOATS, QUAD_FLOATS, SPHERE_FLOATS, QUADRIC_FLOATS, MESH_FLOATS = 16, 24, 32, 24, 20, 17
+#: The quad row's columns: the parallelogram test's constants first
+#: (``geometry.triangles.PARALLELOGRAM_COLUMNS``: ng, c0, d1, k1, d3, k3,
+#: v0), then the material, the normalized normal, a pad, v1, v2, v3 and
+#: the color (csrc/path.cuh kQ*).
+QUAD_COLUMNS = {"mat": 15, "n": 16, "v1": 20, "v2": 23, "v3": 26, "color": 29}
 
 
 class TraceArgs(ctypes.Structure):
     """The kernel's argument block, ``TraceArgs`` of csrc/path.cuh
     (pointers first, then 32-bit fields; the C side reports its size)."""
 
-    _POINTERS = ("cam", "params", "quads", "spheres", "quadrics", "mesh", "mesh_nodes", "mesh_tris", "mesh_normals",
-                 "hdr", "row_cdf", "col_cdf", "env_pdf", "blue_noise", "out_color", "out_normal", "out_ocolor",
-                 "out_oid", "out_sharp", "out_sg", "mesh_uvs", "out_def")
+    _POINTERS = ("scene", "mesh_nodes", "mesh_tris", "mesh_normals", "hdr", "row_cdf", "col_cdf", "env_pdf",
+                 "blue_noise", "out_color", "out_normal", "out_ocolor", "out_oid", "out_sharp", "out_sg", "mesh_uvs",
+                 "out_def")
     _fields_ = ([(name, ctypes.c_void_p) for name in _POINTERS]
                 + [("tex", ctypes.c_void_p * 4)]
                 + [(name, ctypes.c_int) for name in ("nq", "ns", "nqd", "bn_ox", "bn_oy", "width", "height", "bounces")]
@@ -65,32 +78,58 @@ class TraceArgs(ctypes.Structure):
                 + [(name, ctypes.c_int) for name in ("light_index", "diffuse_indirect_max", "camera_is_moving",
                                                      "transparent_tint")]
                 + [("frame_u", ctypes.c_uint32), ("frame_f", ctypes.c_float)]
-                + [("tex_h", ctypes.c_int * 4), ("tex_w", ctypes.c_int * 4), ("metal_roughness_lobe", ctypes.c_int)])
+                + [("tex_h", ctypes.c_int * 4), ("tex_w", ctypes.c_int * 4), ("metal_roughness_lobe", ctypes.c_int),
+                   ("fast_quads", ctypes.c_int)])
+
+
+def _quad_geometry(q) -> torch.Tensor:
+    """The quad rows without their color, (Nq, 29): made once per quad
+    geometry (the vertices, normal and material tensors)."""
+    def make():
+        with torch.no_grad():
+            pad = torch.zeros((q.v0.shape[0], 1), dtype=torch.float32, device=q.v0.device)
+            rows = [parallelogram_constants(q), q.mat_type.to(torch.float32)[:, None], normalize(q.normal), pad,
+                    q.v1, q.v2, q.v3]
+            return torch.cat([r.to(torch.float32) for r in rows], dim=1).contiguous()
+
+    return cached_on((q.v0, q.v1, q.v2, q.v3, q.normal, q.mat_type), "quad rows", make)
+
+
+def _material_tail(mat_type: torch.Tensor, width: int) -> torch.Tensor:
+    """(N, width): the material as float32, then zeros; made once per tensor."""
+    def make():
+        tail = torch.zeros((mat_type.shape[0], width), dtype=torch.float32, device=mat_type.device)
+        tail[:, 0] = mat_type.to(torch.float32)
+        return tail
+
+    return cached_on((mat_type,), f"material tail {width}", make)
 
 
 def pack_scene(scene: Scene) -> tuple[torch.Tensor, torch.Tensor | None, torch.Tensor | None]:
-    """Scene -> (quads (Nq, 20), spheres (Ns, 21) or None, quadrics (12, 20)
+    """Scene -> (quads (Nq, 32), spheres (Ns, 21) or None, quadrics (12, 20)
     or None), float32.
 
-    Quad row: normalized n3, v0..v3, color3, mat, pad.  Sphere row: inverse
-    4x4 row-major (16), color3, mat, pad.  Quadric row: inverse 4x4
-    row-major (16), color3, mat.  The layout of the TPU kernel's
-    ``pack_scene``.
+    Quad row (``QUAD_COLUMNS``): the parallelogram test's per-quad algebra
+    (``geometry.triangles.parallelogram_constants``: ng, c0, d1, k1, d3,
+    k3), v0, mat, the normalized n, a pad, v1, v2, v3, color: 128 bytes.
+    Everything but the color is made once per quad geometry; the color,
+    which an inverse-rendering step changes, is packed on every call.
+    Sphere row: inverse 4x4 row-major (16), color3, mat and 4 pads (96
+    bytes).  Quadric row: inverse 4x4 row-major (16), color3, mat.  The
+    TPU kernel's ``pack_scene`` holds the same values in 20- and 21-float
+    rows (n, v0..v3, color, mat, pad; its spheres as here without the last
+    3 pads): the algebra and the pads are this port's.
     """
     q = scene.quads
-    zq = torch.zeros((q.v0.shape[0], 1), dtype=torch.float32, device=q.v0.device)
-    quads = torch.cat([normalize(q.normal), q.v0, q.v1, q.v2, q.v3, q.color,
-                       q.mat_type.to(torch.float32)[:, None], zq], dim=1)
-    sph = None
+    quads = torch.cat([_quad_geometry(q), q.color.to(torch.float32)], dim=1)
+    sph = qdr = None
     if scene.spheres is not None:
         s = scene.spheres
-        zs = torch.zeros((s.color.shape[0], 1), dtype=torch.float32, device=s.color.device)
-        sph = torch.cat([s.inv_matrix.reshape(-1, 16), s.color, s.mat_type.to(torch.float32)[:, None], zs], dim=1)
-    qdr = None
+        sph = torch.cat([s.inv_matrix.reshape(-1, 16), s.color, _material_tail(s.mat_type, 5)], dim=1)
     if scene.quadrics is not None:
         d = scene.quadrics
-        qdr = torch.cat([d.inv_matrix.reshape(-1, 16), d.color, d.mat_type.to(torch.float32)[:, None]], dim=1)
-    return quads.contiguous(), *(None if t is None else t.contiguous() for t in (sph, qdr))
+        qdr = torch.cat([d.inv_matrix.reshape(-1, 16), d.color, _material_tail(d.mat_type, 1)], dim=1)
+    return quads, sph, qdr
 
 
 _PARAMS: dict = {}
@@ -115,18 +154,18 @@ def _param_constants(cfg: IntegratorConfig, device) -> torch.Tensor:
         head = torch.tensor([0.5, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0])
         lobe = torch.stack([lobe_exponent(cfg.sun_lobe_roughness), rough, torch.tensor(0.05)])
         consts = torch.as_tensor(np.concatenate([sky.RAYLEIGH_AT_X, sky.MIE_AT_X, sky.EXTINCTION_SUM]))
-        return torch.cat([head, lobe, consts, torch.tensor([1.0, 0.0, 0.0])])
+        return torch.cat([head, lobe, consts, torch.tensor([1.0, 0.0, 0.0, 0.0, 0.0])])
 
     return _device_constants(("params", cfg.sun_lobe_roughness), make, device)
 
 
 def pack_params(scene: Scene, cfg: IntegratorConfig, device) -> torch.Tensor:
-    """(22,) float32 on ``device``, the layout of csrc/vec.cuh: shape_k, the
+    """(24,) float32 on ``device``, the layout of csrc/vec.cuh: shape_k, the
     sun direction, the sun-only sky terms (sun_e, gamma, blend), the sun
     lobe's exponent and roughness, the sun-NEE weight scale (0.05, or
     sun_power² 1e-7 under ``sun_weight_mode="hdri"``), the sky's
     per-channel Rayleigh, Mie and extinction constants, and the HDR map's
-    exposure, height and width.  Every entry is computed by the function
+    exposure, height and width, then 2 pads.  Every entry is computed by the function
     the plain version calls, so the kernel sees the same floats.  Only
     device work: no copy from the host."""
     params = _param_constants(cfg, device)
@@ -151,7 +190,8 @@ def pack_params(scene: Scene, cfg: IntegratorConfig, device) -> torch.Tensor:
     if cfg.env == "hdri":
         h, w = scene.env.hdr_image.shape[:2]
         parts += [scene.env.hdr_exposure.to(**f32).reshape(1),
-                  _device_constants(("hdr shape", h, w), lambda: torch.tensor([float(h), float(w)]), device)]
+                  _device_constants(("hdr shape", h, w), lambda: torch.tensor([float(h), float(w)]), device),
+                  params[22:]]
     else:
         parts.append(params[19:])
     return torch.cat(parts).detach().contiguous()
@@ -190,22 +230,35 @@ def check_tensor(name: str, t: torch.Tensor, device: torch.device) -> None:
 
 
 
+def scene_floats(nq: int, ns: int, nqd: int, mesh: bool) -> int:
+    """The scene block's floats (csrc/path.cuh scene_floats)."""
+    return (CAM_FLOATS + PARAM_FLOATS + nq * QUAD_FLOATS + ns * SPHERE_FLOATS + nqd * QUADRIC_FLOATS
+            + (MESH_FLOATS if mesh else 0))
+
+
 def trace_args(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
-                blue_noise: torch.Tensor, outputs: dict, film_height: int | None = None) -> tuple:
+               blue_noise: torch.Tensor, outputs: dict, film_height: int | None = None,
+               fast_quads: bool | None = None) -> tuple:
     """Pack and check one launch's scene, camera and configuration into the
     kernel's argument block, with the output pointers of ``outputs``
     ({"out_color": tensor, ...}; None for a plane the call does not write).
     ``film_height`` is the height of the film the camera maps (the image's
-    own unless a pool traces rows of a taller one).  Returns ``(args,
-    mesh_arg, keep)``: ``keep`` holds the packed tensors until the launch
-    is enqueued.  CUDA tensors only."""
+    own unless a pool traces rows of a taller one); ``fast_quads`` switches
+    the parallelogram quad test (``geometry.triangles.resolve_fast_quads``).
+    The camera, the parameter pack and ``pack_scene``'s rows (and the mesh
+    constants) go into one contiguous scene block, made by one
+    concatenation.  Returns ``(args, mesh_arg, keep)``: ``keep`` holds the
+    packed tensors until the launch is enqueued.  CUDA tensors only."""
     device = blue_noise.device
     if scene.quads is None:
         raise ValueError("the kernel needs at least one quad; a scene without quads runs on the wavefront "
                          "(trace_image)")
-    quads, sph, qdr = pack_scene(scene)
-    cam = pack_camera(camera, width, height if film_height is None else film_height)
-    params = pack_params(scene, cfg, device)
+    fast_quads = resolve_fast_quads(scene.quads, fast_quads)
+    with torch.no_grad():
+        quads, sph, qdr = pack_scene(scene)
+        cam = pack_camera(camera, width, height if film_height is None else film_height)
+        params = pack_params(scene, cfg, device)
+        mesh_consts, tables = pack_mesh(scene.mesh) if scene.mesh is not None else (None, None)
     nq = quads.shape[0]
     ns = 0 if sph is None else sph.shape[0]
     nqd = 0 if qdr is None else qdr.shape[0]
@@ -217,15 +270,22 @@ def trace_args(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, 
         light = cfg.light_index if cfg.light_index >= 0 else nq - 1
         if not 0 <= light < nq:
             raise ValueError(f"light_index {cfg.light_index} out of range for {nq} quads")
-    mesh_consts, tables = pack_mesh(scene.mesh) if scene.mesh is not None else (None, None)
     textured = is_textured(scene.mesh)
     maps = [getattr(scene.mesh, m) if textured else None for m in MAP_FIELDS]
     env = scene.env if cfg.env == "hdri" else None
     hdr = (None,) * 4 if env is None else (env.hdr_image,) + tuple(env.env_cdf or (None,) * 3)
     if cfg.nee != "env":
         hdr = hdr[:1] + (None,) * 3
-    tensors = {"blue_noise": blue_noise, "quads": quads, "camera": cam, "params": params, "spheres": sph,
-               "quadrics": qdr, "mesh": mesh_consts, "mesh_nodes": None if tables is None else tables.nodes,
+    parts = {"camera": cam, "params": params, "quads": quads, "spheres": sph, "quadrics": qdr, "mesh": mesh_consts}
+    for key, t in parts.items():
+        if t is not None:
+            check_tensor(key, t, device)
+    with torch.no_grad():
+        block = torch.cat([t.reshape(-1) for t in parts.values() if t is not None])
+    if block.numel() != scene_floats(nq, ns, nqd, scene.mesh is not None):
+        raise ValueError(f"the scene block holds {block.numel()} floats, not the kernel's "
+                         f"{scene_floats(nq, ns, nqd, scene.mesh is not None)}")
+    tensors = {"blue_noise": blue_noise, "scene": block, "mesh_nodes": None if tables is None else tables.nodes,
                "mesh_tris": None if tables is None else tables.tris,
                "mesh_normals": None if tables is None else tables.normals, "hdr": hdr[0], "row_cdf": hdr[1],
                "col_cdf": hdr[2], "env_pdf": hdr[3], "mesh_uvs": tables.uvs if textured else None}
@@ -240,11 +300,10 @@ def trace_args(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, 
             if t.dim() != 3 or t.shape[-1] != 3 or t.numel() >= 2 ** 31:
                 raise ValueError(f"{key} must be (H, W, 3) with fewer than 2**31 floats, got {tuple(t.shape)}")
     ptrs = {key: (0 if t is None else t.data_ptr()) for key, t in (tensors | outputs).items()}
-    ptrs["cam"] = ptrs.pop("camera")
     args = TraceArgs(**ptrs, nq=nq, ns=ns, nqd=nqd, width=width, height=height, bounces=cfg.bounces,
-                      eps=cfg.eps_intersect, light_index=light, diffuse_indirect_max=cfg.diffuse_indirect_max,
-                      camera_is_moving=int(cfg.camera_is_moving), transparent_tint=int(cfg.transparent_tint),
-                      metal_roughness_lobe=int(cfg.metal_roughness_lobe))
+                     eps=cfg.eps_intersect, light_index=light, diffuse_indirect_max=cfg.diffuse_indirect_max,
+                     camera_is_moving=int(cfg.camera_is_moving), transparent_tint=int(cfg.transparent_tint),
+                     metal_roughness_lobe=int(cfg.metal_roughness_lobe), fast_quads=int(fast_quads))
     for i, t in enumerate(maps):
         if t is not None:
             args.tex[i], args.tex_h[i], args.tex_w[i] = t.data_ptr(), t.shape[0], t.shape[1]

@@ -43,6 +43,7 @@ from bpt_tpu_torch.camera import Camera
 from bpt_tpu_torch.core.rng import blue_noise_offsets, frame_to_u32
 from bpt_tpu_torch.core.vecmath import INFINITY
 from bpt_tpu_torch.env import get_hdr_color
+from bpt_tpu_torch.geometry.triangles import resolve_fast_quads
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported, deferred_layout
@@ -70,20 +71,21 @@ def reset_launches() -> None:
 
 
 def trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
-                                lane_counts=None):
+                                lane_counts=None, fast_quads=None):
     """The plain PyTorch version of the forward kernel: ``trace_image`` with
     the plain mesh walk (the kernel is held to it, not to the closest-hit
-    kernel)."""
+    kernel) and the kernel's quad test (``fast_quads`` decided as the
+    kernel's wrapper decides it)."""
     return trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
-                       lane_counts=lane_counts, plain_walk=True)
+                       lane_counts=lane_counts, plain_walk=True, fast_quads=resolve_fast_quads(scene.quads, fast_quads))
 
 
 def trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
-                                      lane_counts=None):
+                                      lane_counts=None, fast_quads=None):
     """The plain PyTorch version of the grads-mode kernel: (RadianceResult,
     sg, deferred)."""
     return trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, param_grads=True,
-                       lane_counts=lane_counts, plain_walk=True)
+                       lane_counts=lane_counts, plain_walk=True, fast_quads=resolve_fast_quads(scene.quads, fast_quads))
 
 def _library() -> ctypes.CDLL:
     lib = build.load(KERNEL)
@@ -110,14 +112,14 @@ def _check_call(scene: Scene, cfg: IntegratorConfig, width: int, height: int, bl
 
 
 def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int, frame_counter,
-            rand_vec2, blue_noise: torch.Tensor, grads: bool):
+            rand_vec2, blue_noise: torch.Tensor, grads: bool, fast_quads: bool | None):
     """Pack, check and launch one kernel configuration on the current
     stream: (RadianceResult, sg or None, deferred or None).  CUDA tensors
     only."""
     device = blue_noise.device
     name = configuration(scene, cfg)
     outputs = empty_outputs(scene, cfg, (height, width), grads, device)
-    args, mesh_arg, _keep = trace_args(scene, camera, cfg, width, height, blue_noise, outputs)
+    args, mesh_arg, _keep = trace_args(scene, camera, cfg, width, height, blue_noise, outputs, fast_quads=fast_quads)
     args.bn_ox, args.bn_oy = blue_noise_offsets(rand_vec2)
     args.frame_u, args.frame_f = frame_to_u32(frame_counter), float(frame_counter)
     lib = _library()
@@ -131,19 +133,21 @@ def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, hei
 
 
 def trace_image_fused_grads(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
-                            frame_counter, rand_vec2, blue_noise: torch.Tensor):
+                            frame_counter, rand_vec2, blue_noise: torch.Tensor, fast_quads: bool | None = None):
     """The kernel's grads mode: ``(RadianceResult, sg, deferred)``, sg the
     (n_sg, H, W) path-replay planes and deferred the (n_def, H, W) deferred
     planes of ``integrator.radiance.calculate_radiance`` (whose color leaves
     out what they defer; ``compose_deferred`` restores it).
 
     CPU tensors run the plain version; CUDA tensors launch the kernel.
+    ``fast_quads``: as ``trace_image_fused``.
     """
     _check_call(scene, cfg, width, height, blue_noise)
     if blue_noise.device.type == "cpu":
         return trace_image_fused_grads_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2,
-                                                 blue_noise)
-    return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=True)
+                                                 blue_noise, fast_quads=fast_quads)
+    return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=True,
+                   fast_quads=fast_quads)
 
 
 def _pixel_sum(planes: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
@@ -306,7 +310,8 @@ def _check_fixed_inputs(scene: Scene, camera: Camera) -> None:
 
 def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
                       frame_counter, rand_vec2, blue_noise: torch.Tensor, differentiable: bool = False,
-                      reorder: bool = False, reorder_splits=None, reorder_key: str = "oct-morton") -> RadianceResult:
+                      reorder: bool = False, reorder_splits=None, reorder_key: str = "oct-morton",
+                      fast_quads: bool | None = None) -> RadianceResult:
     """One 1-spp frame, the same RadianceResult as
     ``integrator.frame.trace_image`` (same draws; float-level parity).
 
@@ -334,27 +339,38 @@ def trace_image_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width
     bounce) and the lanes are sorted by ``reorder_key`` between phases.
     The result equals the unsorted frame's bit for bit, forward and
     differentiable.
+
+    ``fast_quads``, as JAX's ``trace_image_pallas`` takes it: None tests
+    the quads with the parallelogram test exactly when every quad is a
+    parallelogram (decided once per quad geometry and kept among
+    ``geometry.triangles``' 64 most recently used entries, up to 5 a scene:
+    no host sync per call while a caller cycles through at most 12 scenes),
+    True demands it (ValueError on quads that are not
+    parallelograms), False keeps the two triangle fans.  The kernel and its
+    plain version take the same test.
     """
     if reorder:
         out = trace_frames_fused(scene, camera, cfg, width, height, [frame_counter], [rand_vec2], blue_noise,
                                  reorder_splits=reorder_splits, reorder_key=reorder_key,
-                                 differentiable=differentiable)
+                                 differentiable=differentiable, fast_quads=fast_quads)
         return RadianceResult(*(t[0] for t in out))
     _check_call(scene, cfg, width, height, blue_noise)
     if differentiable:
         out = path_replay(scene, camera, cfg, lambda s: trace_image_fused_grads(
-            s, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise))
+            s, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, fast_quads=fast_quads))
         if out is not None:
             return out
     if blue_noise.device.type == "cpu":
-        return trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
-    return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=False)[0]
+        return trace_image_fused_reference(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
+                                           fast_quads=fast_quads)
+    return _launch(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise, grads=False,
+                   fast_quads=fast_quads)[0]
 
 
 def trace_frames_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int,
                        frame_counters, rand_vec2s, blue_noise: torch.Tensor, reorder_splits=None,
                        reorder_key: str = "oct-morton", full_height: int | None = None, row_offset: int = 0,
-                       differentiable: bool = False) -> RadianceResult:
+                       differentiable: bool = False, fast_quads: bool | None = None) -> RadianceResult:
     """F progressive frames traced as one pool of F·H·W lanes on the staged
     path: the port of ``trace_frames_pallas``.  Returns a RadianceResult
     whose tensors have a leading F axis, each frame equal bit for bit to
@@ -373,13 +389,15 @@ def trace_frames_fused(scene: Scene, camera: Camera, cfg: IntegratorConfig, widt
     tensors run the same loop with the plain phase
     (``staged.trace_phase_reference``).  ``differentiable=True`` carries the
     path-replay VJP, as ``trace_image_fused`` does, summed over the frames.
+    ``fast_quads``: as ``trace_image_fused`` (JAX's ``trace_frames_pallas``
+    takes it so).
     """
     _check_call(scene, cfg, width, height, blue_noise)
 
     def trace(s, grads):
         return staged.trace_staged(s, camera, cfg, width, height, frame_counters, rand_vec2s, blue_noise,
                                    splits=reorder_splits, key_mode=reorder_key, row_offset=row_offset,
-                                   full_height=full_height, grads=grads)
+                                   full_height=full_height, grads=grads, fast_quads=fast_quads)
 
     if differentiable:
         out = path_replay(scene, camera, cfg, lambda s: trace(s, True))

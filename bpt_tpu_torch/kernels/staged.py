@@ -42,6 +42,7 @@ import torch
 
 from bpt_tpu_torch.camera import generate_rays
 from bpt_tpu_torch.core.rng import BlueNoise, RngState, blue_noise_offsets, frame_to_u32
+from bpt_tpu_torch.geometry.triangles import resolve_fast_quads
 from bpt_tpu_torch.integrator.radiance import PathState, check_supported, deferred_layout, init_paths, run_bounces
 from bpt_tpu_torch.kernels import build, launch_args
 from bpt_tpu_torch.scenes.types import is_textured
@@ -216,14 +217,16 @@ def _rows(outputs: dict, key: str) -> torch.Tensor | None:
 
 
 def trace_phase_reference(scene, camera, cfg, pool: Pool, blue_noise: torch.Tensor, state_in, perm, lo: int,
-                          hi: int, outputs: dict, lane_counts: list | None = None):
+                          hi: int, outputs: dict, lane_counts: list | None = None, fast_quads: bool | None = None):
     """The plain version of one K2 launch: bounces [lo, hi) of every lane of
     ``pool``, reading lane i's state from row ``perm[i]`` of ``state_in``
     (phase 0: None, None; a fresh path per lane).  It writes the lanes'
     records, ended paths' color and sharpness and the grads mode's planes
     home into ``outputs`` (``launch_args.empty_outputs`` of (F, H, W), in
     place) and returns the state after the phase (None after the last).
-    The mesh walk is the plain one."""
+    The mesh walk is the plain one; ``fast_quads`` the quad test, decided as
+    the kernel's wrapper decides it."""
+    fast_quads = resolve_fast_quads(scene.quads, fast_quads)
     dev = blue_noise.device
     lanes = pool.lanes
     last = hi >= cfg.bounces
@@ -271,7 +274,7 @@ def trace_phase_reference(scene, camera, cfg, pool: Pool, blue_noise: torch.Tens
                                    em_uv=part.get("em_uv"),
                                    albedo_uv=None if uv is None else tuple(uv[:, 2 * b:2 * b + 2]
                                                                            for b in range(cfg.bounces)))
-    state = run_bounces(scene, cfg, state, lo, hi, lane_counts=lane_counts, plain_walk=True)
+    state = run_bounces(scene, cfg, state, lo, hi, lane_counts=lane_counts, plain_walk=True, fast_quads=fast_quads)
 
     # ---- home writes: records and grads planes of the lanes that ran, ended paths' color and flag
     idx = home[alive0]
@@ -349,7 +352,7 @@ def phase_boxes(pool: Pool, lo: int, device) -> torch.Tensor:
 
 
 def launch_phase(scene, camera, cfg, pool: Pool, blue_noise: torch.Tensor, state_in, perm, lo: int, hi: int,
-                 outputs: dict, boxes: torch.Tensor | None = None):
+                 outputs: dict, boxes: torch.Tensor | None = None, fast_quads: bool | None = None):
     """One K2 launch on the current stream, with ``trace_phase_reference``'s
     arguments and result.  CUDA tensors only.  ``boxes`` (``phase_boxes``;
     not in the last phase): where the kernel also writes, for each warp,
@@ -370,7 +373,7 @@ def launch_phase(scene, camera, cfg, pool: Pool, blue_noise: torch.Tensor, state
                          f"perm a ({lanes},) int64 one on {device}")
     state_out = None if hi >= cfg.bounces else torch.empty((lanes, STATE_WORDS), dtype=torch.int32, device=device)
     args, mesh_arg, _keep = launch_args.trace_args(scene, camera, cfg, pool.width, pool.height, blue_noise, outputs,
-                                                   film_height=pool.full_height)
+                                                   film_height=pool.full_height, fast_quads=fast_quads)
     table = pool.tables.data_ptr()
     sargs = _StagedArgs(t=args, state_in=0 if lo == 0 else state_in.data_ptr(),
                         state_out=0 if state_out is None else state_out.data_ptr(),
@@ -446,7 +449,8 @@ def launch_key(state, mode: str = "oct-morton", boxes: torch.Tensor | None = Non
 
 def trace_staged(scene, camera, cfg, width: int, height: int, frame_counters, rand_vec2s, blue_noise: torch.Tensor,
                  splits=None, key_mode: str = "oct-morton", row_offset: int = 0, full_height: int | None = None,
-                 grads: bool = False, lane_counts: list | None = None, record: list | None = None):
+                 grads: bool = False, lane_counts: list | None = None, record: list | None = None,
+                 fast_quads: bool | None = None):
     """The pool of the F frames ``frame_counters`` / ``rand_vec2s`` traced in
     phases (``phase_bounds(cfg.bounces, splits)``), the lanes sorted by
     ``key_mode`` between phases: ``(RadianceResult, sg, deferred)`` with a
@@ -456,12 +460,15 @@ def trace_staged(scene, camera, cfg, width: int, height: int, frame_counters, ra
     measurement: ``lane_counts`` makes every phase the plain one, on either
     device, and receives the ``LaneCounts`` of every bounce of the pool
     (the key kernel then reads the rows); ``record`` receives (label, CUDA
-    event) after each key, sort and phase."""
+    event) after each key, sort and phase.  ``fast_quads``: the quad test of
+    every phase (``geometry.triangles.resolve_fast_quads``), decided once
+    here."""
     device = blue_noise.device
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"the staged path runs on CPU or CUDA tensors, not {device}")
     check_supported(scene, cfg)
     _check_mode(key_mode)
+    fast_quads = resolve_fast_quads(scene.quads, fast_quads)
     pool = make_pool(width, height, frame_counters, rand_vec2s, device, full_height, row_offset)
     bounds = phase_bounds(cfg.bounces, splits)
     lead = (pool.frames, height, width)
@@ -484,9 +491,10 @@ def trace_staged(scene, camera, cfg, width: int, height: int, frame_counters, ra
             mark(f"sort {lo}")
         if kernel:
             boxes = None if hi >= cfg.bounces else phase_boxes(pool, lo, device)
-            state = launch_phase(scene, camera, cfg, pool, blue_noise, state, perm, lo, hi, outputs, boxes)
+            state = launch_phase(scene, camera, cfg, pool, blue_noise, state, perm, lo, hi, outputs, boxes,
+                                 fast_quads)
         else:
             state = trace_phase_reference(scene, camera, cfg, pool, blue_noise, state, perm, lo, hi, outputs,
-                                          lane_counts)
+                                          lane_counts, fast_quads)
         mark(f"phase {lo}")
     return launch_args.outputs_result(outputs, scene, cfg, lead, grads)

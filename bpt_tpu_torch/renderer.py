@@ -47,13 +47,16 @@ def next_counters(state: RenderState, camera_is_moving: bool) -> tuple[float, fl
 
 
 def step_state(scene: Scene, camera: Camera, cfg: IntegratorConfig, state: RenderState,
-               camera_is_moving: bool, rand_vec2, blue_noise: torch.Tensor) -> RenderState:
+               camera_is_moving: bool, rand_vec2, blue_noise: torch.Tensor,
+               fast_quads: bool | None = None) -> RenderState:
     """One progressive frame: the radiance pass ``trace_image_fused`` (the
-    CUDA kernel on CUDA tensors, its plain version on CPU ones), then edge
-    detection and accumulation in ``finish_frame``."""
+    CUDA kernel on CUDA tensors, its plain version on CPU ones; its
+    ``fast_quads``), then edge detection and accumulation in
+    ``finish_frame``."""
     frame_counter, sample_counter = next_counters(state, camera_is_moving)
     height, width = state.accum.shape[0], state.accum.shape[1]
-    result = trace_image_fused(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
+    result = trace_image_fused(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
+                               fast_quads=fast_quads)
     accum = finish_frame(result, state.accum, frame_counter, camera_is_moving)
     return RenderState(accum=accum, sample_counter=sample_counter, frame_counter=frame_counter)
 
@@ -71,6 +74,8 @@ class ProgressiveRenderer:
     kernel on a CUDA device, its plain version (``trace_image``) on
     ``device="cpu"``.
 
+    ``fast_quads`` is the radiance pass's quad test: None (decided per quad
+    geometry) unless ``attach_cuda_path`` decided it for the scene.
     ``batch_step``, None unless installed (``kernels.integration``
     ``attach_cuda_path(reorder=True)``), traces several still-camera frames
     at once: ``batch_step(scene, camera, cfg, state, rand_vec2s,
@@ -91,6 +96,7 @@ class ProgressiveRenderer:
         self._np_rng = np.random.default_rng(seed)
         self._last_cam_matrix: Optional[np.ndarray] = None
         self._cam_on_device: tuple = (None, None)
+        self.fast_quads: bool | None = None
         self.batch_step = None
 
     def camera_moved(self, camera: Camera) -> bool:
@@ -115,7 +121,7 @@ class ProgressiveRenderer:
 
     def _step(self, camera: Camera, moving: bool, rand_vec2) -> RenderState:
         self.state = step_state(self.scene, self._device_camera(camera), self.cfg, self.state,
-                                moving, np.asarray(rand_vec2, np.float32), self.blue_noise)
+                                moving, np.asarray(rand_vec2, np.float32), self.blue_noise, self.fast_quads)
         return self.state
 
     def render_sample(self, camera: Camera, force_reset: bool = False) -> RenderState:

@@ -36,6 +36,35 @@ compare only within one call; put each version more than once, in turns.
 
 times the closest-hit kernel alone (its two ray sets), for the checkouts
 that differ only in it.
+
+    python -m bpt_tpu_torch.tools.ab_time --only nomesh PARENT . V1 V2 V2 V1 . PARENT
+
+times K1's six configurations without a mesh (Cornell, quadric and sky,
+forward and grads: device ms per launch at 1024², 4 bounces, frame 2, 50
+launches each), K2's 8-frame Cornell and sky pools (the phases' device ms
+and the pool's CUDA-event ms) and, for bench.py's Cornell fwd+bwd step
+(1024², 4 bounces, 8 frames, w.r.t. the light's color), its device
+operations and host synchronizations (``step_counts``), with ptxas's
+registers and spills per no-mesh instantiation.  The variants of the
+kernels' design that were measured and not kept are checkouts of this
+tree made by a patch or a one-line edit, run from the repository's root:
+
+    v() { mkdir -p _scratch/$1 && git archive HEAD | tar -x -C _scratch/$1; }
+    p() { patch -d _scratch/$1 -p1 < bpt_tpu_torch/tools/ab_variants/$2.patch; }
+    v scene_scalar && p scene_scalar scene_scalar
+    v scene_constant_bank && p scene_constant_bank scene_scalar && p scene_constant_bank scene_constant_bank
+    v k1_bound_3 && sed -i 's/(256, 4) trace_kernel/(256, 3) trace_kernel/' \
+        _scratch/k1_bound_3/bpt_tpu_torch/csrc/megakernel.cu
+    v k1_no_bound && sed -i 's/__launch_bounds__(256, 4) trace_kernel/trace_kernel/' \
+        _scratch/k1_no_bound/bpt_tpu_torch/csrc/megakernel.cu
+    v k2_bound_4 && sed -i 's/(256, 3) phase_kernel/(256, 4) phase_kernel/' \
+        _scratch/k2_bound_4/bpt_tpu_torch/csrc/staged.cu
+
+scene_scalar reads the scene block from shared memory by scalar loads
+(the parameter pack and the sphere rows without their 16-byte pads);
+scene_constant_bank, on top of it, reads the block from a ``__constant__``
+bank filled by a device-to-device copy on the launch's stream before each
+launch; the other three change a register bound.
 """
 
 from __future__ import annotations
@@ -68,9 +97,62 @@ def bounce_rays(scene, cam, cfg, size: int, rand_vec2, bn, bounce: int) -> tuple
     return seen[bounce]
 
 
+def step_counts(fn, tries: int = 3) -> tuple[int, int]:
+    """(device operations, host synchronizations) of one call of ``fn``
+    after a warm call: the kernels, copies and memsets torch.profiler
+    records on the card, and the synchronizing calls torch's sync debug mode
+    reports (a copy to the host, ``.item()``, a blocking copy from pageable
+    memory).  A profiler session that records no device activity is run
+    again, up to ``tries`` sessions."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    ops = 0
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ops = sum(ev.count for ev in prof.key_averages() if ev.device_type == DeviceType.CUDA)
+        if ops:
+            break
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return ops, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def cornell_step(megakernel, scene, cam, cfg, size: int, frames: int, bn, rv):
+    """bench.py's default cell as one call: ``frames`` frames of the
+    Cornell box through ``trace_image_fused(differentiable=True)``, the
+    mean of their colors, its gradient w.r.t. the light's (quad 5) color."""
+    import torch
+
+    def step():
+        lc = scene.quads.color[5].clone().requires_grad_(True)
+        s = scene._replace(quads=scene.quads._replace(color=torch.cat([scene.quads.color[:5], lc[None]])))
+        acc = 0.0
+        for i in range(frames):
+            acc = acc + megakernel.trace_image_fused(s, cam, cfg, size, size, 2.0 + i, rv, bn,
+                                                     differentiable=True).color
+        return torch.autograd.grad(acc.mean(), [lc])[0]
+
+    return step
+
+
 def measure(checkout: str, only: str | None = None) -> None:
     """One checkout, in this process: print one line of numbers (``only``
-    "closest_hit": the closest-hit kernel's alone)."""
+    "closest_hit": the closest-hit kernel's alone; "nomesh": K1 without a
+    mesh, K2's Cornell and sky pools and the Cornell step's counts)."""
     sys.path.insert(0, checkout)
     import numpy as np
     import torch
@@ -145,9 +227,46 @@ def measure(checkout: str, only: str | None = None) -> None:
                 "closest_hit_bounce2_device_ms": device_ms(lambda: traverse.closest_hit(ro_b, rd_b, True, act_b, mesh),
                                                            50, "closest_hit_kernel")}
 
+    def nomesh_numbers() -> dict:
+        """K1's six configurations without a mesh, K2's Cornell and sky
+        pools, and the Cornell fwd+bwd step's device operations and host
+        synchronizations."""
+        from bpt_tpu_torch.kernels import staged
+
+        numbers = {}
+        cases = {"cornell": (scene, cam, cfg),
+                 "quadric": (quadric_geometry_scene(device=dev), quadric_camera(device=dev),
+                             IntegratorConfig(bounces=4, transparent_tint=True)),
+                 "sky": (physical_sky_scene(device=dev), sky_camera(device=dev),
+                         IntegratorConfig(bounces=4, env="sky", nee="sun"))}
+        for name, (fscene, fcam, fcfg) in cases.items():
+            for mode, k1 in (("fwd", megakernel.trace_image_fused), ("grads", megakernel.trace_image_fused_grads)):
+                numbers[f"{name}_{mode}_device_ms"] = device_ms(
+                    lambda: k1(fscene, fcam, fcfg, size, size, 2.0, rv, bn), 50)
+        fcs = [2.0 + i for i in range(8)]
+        rvs = [np.array([(i * 0.173) % 1.0, (i * 0.519) % 1.0], np.float32) for i in range(8)]
+        for name in ("cornell", "sky"):
+            pscene, pcam, pcfg = cases[name]
+
+            def pool():
+                return staged.trace_staged(pscene, pcam, pcfg, size, size, fcs, rvs, bn)
+
+            numbers[f"pool_{name}_phases_device_ms"] = device_ms(pool, 2, "phase_kernel") * pcfg.bounces
+            numbers[f"pool_{name}_ms"] = event_ms(pool, 5)
+        ops, syncs = step_counts(cornell_step(megakernel, scene, cam, cfg, size, 8, bn, rv))
+        numbers["step_device_ops"], numbers["step_host_syncs"] = ops, syncs
+        return numbers
+
     if only == "closest_hit":
         numbers = closest_hit_ms(mesh_from_model(heightfield_model(), mat_type=1, use_native="require"))
         print_numbers(checkout, numbers)
+        return
+    if only == "nomesh":
+        numbers = nomesh_numbers()
+        from bpt_tpu_torch.kernels import build
+
+        logs = [f"{build.build(name)}.log" for name in ("megakernel", "staged")]
+        print_numbers(checkout, numbers, logs)
         return
     renderer = ProgressiveRenderer(cornell_scene(), cfg, size, size, device=dev)
     camera = cornell_camera()
@@ -243,12 +362,42 @@ def measure(checkout: str, only: str | None = None) -> None:
     print_numbers(checkout, numbers)
 
 
-def print_numbers(checkout: str, numbers: dict) -> None:
+def ptxas_report(log: str) -> list[str]:
+    """The no-mesh instantiations of K1 (``trace_kernel``) and K2
+    (``phase_kernel``) in a build log of nvcc -Xptxas -v, one string each:
+    "trace_kernel<grads,env,nee>: N registers, F B stack, S/L B spill
+    stores/loads"."""
+    import re
+
+    entry = re.compile(r"Compiling entry function '\w*?(trace_kernel|phase_kernel)ILb([01])ELi(\d)ELi(\d)EEEv")
+    out, name, spill = [], None, ""
+    for line in log.splitlines():
+        m = entry.search(line)
+        if "Compiling entry function" in line:
+            name = f"{m.group(1)}<{m.group(2)},{m.group(3)},{m.group(4)}>" if m else None
+            spill = ""
+        elif name and "stack frame" in line:
+            frame, stores, loads = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                                             r"loads", line).groups()
+            spill = f", {frame} B stack, {stores}/{loads} B spill stores/loads"
+        elif name and "Used" in line and "registers" in line:
+            out.append(f"{name}: {re.search(r'Used (\d+) registers', line).group(1)} registers{spill}")
+            name = None
+    return out
+
+
+def print_numbers(checkout: str, numbers: dict, logs=None) -> None:
     """One line: the checkout, its numbers, and what nvcc reported for its
-    builds (registers, shared memory, stack, spills)."""
+    builds (registers, shared memory, stack, spills): every line of the
+    checkout's build logs, or with ``logs`` the no-mesh instantiations of
+    those logs (``ptxas_report``)."""
     build = []
-    for log in sorted(glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log"))):
-        build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]
+    if logs is None:
+        for log in sorted(glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log"))):
+            build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]
+    else:
+        for log in logs:
+            build += ptxas_report(Path(log).read_text())
     print(f"{checkout}: " + " ".join(f"{k} {v:.4f}" for k, v in numbers.items())
           + (f" | build: {'; '.join(build)}" if build else ""), flush=True)
 
@@ -260,8 +409,8 @@ def main(argv=None) -> int:
         return 0
     only = None
     if argv[:1] == ["--only"]:
-        if argv[1:2] != ["closest_hit"]:
-            print("--only takes closest_hit", file=sys.stderr)
+        if argv[1] not in ("closest_hit", "nomesh"):
+            print("--only takes closest_hit or nomesh", file=sys.stderr)
             return 2
         only, argv = argv[1], argv[2:]
     if not argv:

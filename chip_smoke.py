@@ -11,12 +11,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   staged kernel, the sort key, the closest-hit kernel and
                   loop_cost).
 3. parity       — the forward kernel against its plain PyTorch version at
-                  1024², 4 bounces, frame 2, for both right-sphere materials.
+                  1024², 4 bounces, frame 2, for both right-sphere materials
+                  (the parallelogram quad test, as the Cornell box decides);
+                  the two triangle fans asked for (fast_quads=False) and a
+                  sheared quad (decided: the fans), forward and grads mode.
 4. main         — the serving path: ProgressiveRenderer (on the card by
                   default) renders the Cornell box at 1024², 8 spp; checks
                   launches, range, light placement and the motion reset.
 5. timing       — CUDA-event times per frame of the forward kernel and of
-                  its plain version at 1024², 4 bounces.
+                  its plain version at 1024², 4 bounces; its bound, with the
+                  parallelogram test counted (every live lane's quad tests
+                  must have taken it), and the bound counted as the two
+                  fans.
 6. grad-parity  — the grads-mode kernel against its plain version, and its
                   11 planes against the forward kernel's, bit for bit, at
                   1024² (METAL and TRANSPARENT right sphere, tint off; and
@@ -28,7 +34,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
 8. train        — the training path: diff.inverse.optimize recovers the
                   light emission (1024², 4 bounces, 30 Adam steps).
 9. grad-timing  — bench.py's default cell (1024², 4 bounces, 8 frames,
-                  fwd+bwd w.r.t. the light color): ms per step and rays/s,
+                  fwd+bwd w.r.t. the light color): its device operations
+                  and host synchronizations, no more than before the
+                  parallelogram test (PARENT_STEP_*); ms per step and rays/s,
                   forward-only step, each kernel's device time
                   (torch.profiler), the backward's torch part, and the
                   plain route at 256².
@@ -52,7 +60,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   1024², 4 bounces, 10 Adam steps; the loss must fall.
 13. timing-quadric / timing-sky — per configuration and mode: CUDA-event
                   time per frame through the wrapper, device time
-                  (torch.profiler), the plain version's time, the bound;
+                  (torch.profiler), the plain version's time, the bound
+                  and the bound counted as the two fans;
                   the progressive frame time and Mrays/s.
 14. grad-quadric — at 256², the path-replay gradient of mean(color·[1,2,3])
                   for quadric 11's color and the light against autograd
@@ -228,6 +237,15 @@ GRAD_SIZE = 256
 TRAIN_STEPS = 30
 TRAIN_FRAMES = (1.0, 2.0)
 BENCH_FRAMES = 8
+# bench.py's Cornell fwd+bwd step (phase 9) before the parallelogram test:
+# its device operations and host synchronizations (tools/ab_time.py
+# step_counts on the parent commit, under torch PARENT_STEP_TORCH); the step
+# must make no more.  The operations are torch's kernels, copies and
+# memsets, so their count holds for that torch only: under another the
+# script reports it and compares the host synchronizations alone.
+PARENT_STEP_OPS = 325
+PARENT_STEP_SYNCS = 0
+PARENT_STEP_TORCH = "2.11.0+cu128"
 
 # Published peaks of one H100 SXM at a 700 W limit (NVIDIA's data sheet):
 # float32 outside the tensor cores, and HBM3.
@@ -239,6 +257,13 @@ PEAK_BYTES_PER_S = 3.35e12
 RAYGEN_FLOP = 80  # tent AA, film mapping, thin lens, two normalizations
 SPHERE_FLOP = 68  # per sphere per live bounce: transform, quadratic, roots, normal
 QUAD_FLOP = 104  # per quad per live bounce: two Moller-Trumbore triangles of 52
+# The parallelogram test (csrc/path.cuh parallelogram_t), per quad per live
+# bounce when the scene takes it: denom 5, ron 5, tt 3 (c0 - ron, the guarded
+# inverse, the product), the hit point 9, aa 6, bb 6.  Its per-quad algebra
+# (e1 3, e3 3, ng 9, d1 9, d3 9, den1 5, den3 5, k1 1, k3 1, c0 5) is made
+# once per quad geometry in torch: counted once per launch.
+PARALLELOGRAM_FLOP = 34
+QUAD_ALGEBRA_FLOP = 50
 HIT_FLOP = 24  # per hit: normal, facing test, hit point (21) + the cheapest branch (3)
 # Per live bounce, the 12 shapes of csrc/quadrics.cuh, each with its 33-FLOP
 # transform and its cheapest exit: sphere 68, cylinder 67, cone 96,
@@ -341,7 +366,7 @@ def mesh_records_read(lane_counts) -> list[int]:
 
 def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadrics: int = 0,
                 sky: bool = False, mesh: bool = False, hdri=None, env_nee: bool = False,
-                textured: bool = False, deferred: bool = False) -> tuple[float, float]:
+                textured: bool = False, deferred: bool = False, as_fans: bool = False) -> tuple[float, float]:
     """(FP32 operations, bytes) the kernel needs for one frame whose
     plain run reported ``lane_counts`` (per bounce: live, hit and missed
     lanes, the torus march's steps, the mesh walk's inner-node visits and
@@ -366,15 +391,24 @@ def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadri
     ``deferred`` (the grads mode, whose own planes the caller adds) the
     kernel leaves the environment's radiance on a miss under ``hdri`` and
     the albedo's samples to the composition outside it: neither map is read
-    and neither lookup is counted; the CDF tables of env NEE still are."""
+    and neither lookup is counted; the CDF tables of env NEE still are.
+
+    A quad test of a live lane counts the parallelogram test's operations
+    where the plain run made it (``parallelogram_tests``), plus the per-quad
+    algebra once, and the two fans' elsewhere; ``as_fans`` counts every
+    quad test as the two fans (the bound before the kernel took the
+    parallelogram test)."""
     live = sum(int(c.live) for c in lane_counts)
     hits = sum(int(c.hits) for c in lane_counts)
     misses = sum(int(c.misses) for c in lane_counts)
-    flop = (pixels * RAYGEN_FLOP + live * (n_spheres * SPHERE_FLOP + n_quads * QUAD_FLOP) + hits * HIT_FLOP
+    par = 0 if as_fans else sum(int(c.parallelogram_tests) for c in lane_counts)
+    quad_flop = ((live * n_quads - par) * QUAD_FLOP + par * PARALLELOGRAM_FLOP
+                 + (n_quads * QUAD_ALGEBRA_FLOP if par else 0))
+    flop = (pixels * RAYGEN_FLOP + live * n_spheres * SPHERE_FLOP + quad_flop + hits * HIT_FLOP
             + (live * QUADRIC_SET_FLOP if n_quadrics else 0)
             + sum(int(c.torus_steps) for c in lane_counts) * TORUS_STEP_FLOP
             + (misses * SKY_FLOP if sky else 0) + (misses * HDRI_FLOP if hdri is not None and not deferred else 0))
-    nbytes = (256 * 256 * 4 * 4 + 4 * (16 + 22 + 20 * n_quads + 21 * n_spheres + 20 * n_quadrics)
+    nbytes = (256 * 256 * 4 * 4 + 4 * (16 + 24 + 32 * n_quads + 24 * n_spheres + 20 * n_quadrics)
               + 11 * 4 * pixels)
     if mesh:
         flop += (live * MESH_RAY_FLOP + sum(int(c.node_visits) for c in lane_counts) * NODE_VISIT_FLOP
@@ -572,7 +606,7 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
         got = megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
         lanes = []
         t0 = time.perf_counter()
-        ref = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+        ref = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes, fast_quads=None)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         stats = compare(got, ref)
@@ -640,7 +674,7 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
         plain_ms = cuda_ms(plain, iters=1, warmup=0)
         peak_plain = torch.cuda.max_memory_allocated() / 1e9
         lanes = []
-        trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+        trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes, fast_quads=None)
         flop, nbytes = kernel_work(lanes, scene.quads.v0.shape[0], scene.spheres.color.shape[0], pixels,
                                    mesh=True, hdri=scene.env if fam == "hdri" else None, env_nee=cfg.nee == "env")
         bound_ms, bound_by = bound(flop, nbytes)
@@ -790,7 +824,7 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
         got = megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
         lanes = []
         t0 = time.perf_counter()
-        ref = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+        ref = trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes, fast_quads=None)
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         stats = compare(got, ref)
@@ -819,7 +853,7 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
         raise AssertionError("a normal map alone does not run the textured configuration")
     got = megakernel.trace_image_fused(bump, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
     lanes = []
-    ref = trace_image(bump, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+    ref = trace_image(bump, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes, fast_quads=None)
     torch.cuda.synchronize()
     stats = compare(got, ref)
     samples = [int(x) for x in sum(c.texel_samples for c in lanes)]
@@ -2037,6 +2071,32 @@ def main() -> int:
         if not stats["ok"]:
             raise AssertionError(f"kernel disagrees with its plain version (mat {mat})")
         max_err = max(max_err, stats["max_abs_err"])
+    # the quad test: the Cornell box takes the parallelogram test (above); the two fans, asked for, and a
+    # sheared quad (no parallelogram: decided the fans) are bit-equal to their plain versions too
+    skewed = cornell_scene(device=dev)
+    v2 = skewed.quads.v2.clone()
+    v2[0] += torch.tensor([5.0, 0.0, 0.0], device=dev)
+    skewed = skewed._replace(quads=skewed.quads._replace(v2=v2))
+    fast = megakernel.trace_image_fused(cornell_scene(device=dev), cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+    for label, qscene, fq in (("two fans asked for", cornell_scene(device=dev), False),
+                              ("a sheared quad, decided", skewed, None)):
+        got = megakernel.trace_image_fused(qscene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, fast_quads=fq)
+        ref = megakernel.trace_image_fused_reference(qscene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, fast_quads=fq)
+        g_got, g_sg, _ = megakernel.trace_image_fused_grads(qscene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn,
+                                                            fast_quads=fq)
+        g_ref, g_sg_ref, _ = megakernel.trace_image_fused_grads_reference(qscene, cam, cfg, SIZE, SIZE, 2.0,
+                                                                          RAND_VEC2, bn, fast_quads=fq)
+        torch.cuda.synchronize()
+        stats, g_stats = compare(got, ref), compare(g_got, g_ref)
+        sg_err = (g_sg - g_sg_ref).abs().max().item()
+        phase("parity", f"{label}: " + json.dumps(stats) + f"; grads mode sg max_abs_err {sg_err}, planes "
+                        + json.dumps(g_stats))
+        if not (stats["ok"] and g_stats["ok"] and sg_err == 0.0):
+            raise AssertionError(f"the kernel's two fans disagree with their plain version ({label})")
+        if label.startswith("two") and torch.equal(got.color, fast.color):
+            raise AssertionError("the Cornell frame through the two fans equals the parallelogram test's bit for bit: "
+                                 "the kernel ignores fast_quads")
+        max_err = max(max_err, stats["max_abs_err"], g_stats["max_abs_err"], sg_err)
 
     # ---- 4. the serving path: progressive render through the kernel -------
     renderer = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=BOUNCES), SIZE, SIZE)
@@ -2077,16 +2137,22 @@ def main() -> int:
     ms_frame = cuda_ms(lambda: renderer.render_sample(camera), iters=20, warmup=3)
     rays = SIZE * SIZE * BOUNCES
     lanes = []
-    trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes)
+    trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes, fast_quads=None)
     nq, ns = scene.quads.v0.shape[0], scene.spheres.color.shape[0]
     flop, nbytes = kernel_work(lanes, nq, ns, SIZE * SIZE)
     bound_ms, bound_by = bound(flop, nbytes)
+    fans_flop, fans_bytes = kernel_work(lanes, nq, ns, SIZE * SIZE, as_fans=True)
+    fans_ms = bound(fans_flop, fans_bytes)[0]
     live = [int(c.live) for c in lanes]
+    par = sum(int(c.parallelogram_tests) for c in lanes)
+    if par != sum(live) * nq:
+        raise AssertionError(f"the plain run made {par} parallelogram tests, not one per live lane and quad")
     phase("timing", f"{card}: kernel {ms_kernel:.3f} ms/frame ({rays / ms_kernel / 1e3:.1f} Mrays/s), "
                     f"plain {ms_plain:.3f} ms/frame ({rays / ms_plain / 1e3:.1f} Mrays/s), "
                     f"progressive frame through the kernel {ms_frame:.3f} ms "
                     f"({SIZE}x{SIZE}, {BOUNCES} bounces); live lanes per bounce {live}, "
-                    f"{flop / 1e9:.4f} GFLOP + {nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms ({bound_by})")
+                    f"{flop / 1e9:.4f} GFLOP + {nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms ({bound_by}); counted "
+                    f"as the two fans {fans_flop / 1e9:.4f} GFLOP -> {fans_ms:.4f} ms")
 
     # ---- 6. grads-mode kernel against its plain version and the forward ---
     grad_err = 0.0
@@ -2234,16 +2300,32 @@ def main() -> int:
     ms_plain_step = cuda_ms(plain_step, iters=2, warmup=1)
     host_ms, busy_ms, rows = profiled_step(lambda: bench_step(True), iters=3)
     top = "; ".join(f"{k[:60]} {ms:.4f} ms x{n:g}" for k, ms, n in rows[:10])
+    from bpt_tpu_torch.tools.ab_time import step_counts
+
+    step_ops, step_syncs = step_counts(lambda: bench_step(True))
     phase("step-profile", f"{card}: fwd+bwd step under torch.profiler: host {host_ms:.3f} ms, device busy "
                           f"{busy_ms:.3f} ms ({100 * (1 - busy_ms / host_ms):.1f}% idle), {len(rows)} kernels; "
-                          f"largest per step: {top}")
+                          f"largest per step: {top}; {step_ops} device operations and {step_syncs} host "
+                          f"synchronizations a step (before the parallelogram test: {PARENT_STEP_OPS} and "
+                          f"{PARENT_STEP_SYNCS} under torch {PARENT_STEP_TORCH})")
+    same_torch = torch.__version__ == PARENT_STEP_TORCH
+    if not same_torch:
+        phase("step-profile", f"torch {torch.__version__}: the device operations are not compared with the "
+                              f"parent's {PARENT_STEP_OPS}, counted under torch {PARENT_STEP_TORCH}; count the "
+                              f"parent's with tools/ab_time.py --only nomesh")
+    if step_ops <= 0 or (same_torch and step_ops > PARENT_STEP_OPS) or step_syncs > PARENT_STEP_SYNCS:
+        raise AssertionError(f"the fwd+bwd step makes {step_ops} device operations and {step_syncs} host "
+                             f"synchronizations, more than {PARENT_STEP_OPS} and {PARENT_STEP_SYNCS}")
     glanes = []
-    _, gsg, _ = trace_image(bscene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True, lane_counts=glanes)
+    _, gsg, _ = trace_image(bscene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True, lane_counts=glanes,
+                            fast_quads=None)
     gflop, gbytes = kernel_work(glanes, nq, ns, SIZE * SIZE)
     n_obj = nq + ns
-    gflop += gsg[:n_obj].sum().item() + 2 * (gsg[n_obj:] > 0).sum().item()  # the planes' adds
+    plane_adds = gsg[:n_obj].sum().item() + 2 * (gsg[n_obj:] > 0).sum().item()  # the planes' adds
+    gflop += plane_adds
     gbytes += gsg.shape[0] * 4 * SIZE * SIZE
     grad_bound_ms, grad_bound_by = bound(gflop, gbytes)
+    grad_fans_ms = bound(kernel_work(glanes, nq, ns, SIZE * SIZE, as_fans=True)[0] + plane_adds, gbytes)[0]
     plain_rays = GRAD_SIZE * GRAD_SIZE * BOUNCES * BENCH_FRAMES
     phase("grad-timing", f"{card}: {SIZE}x{SIZE}, {BOUNCES} bounces, {BENCH_FRAMES} frames: fwd+bwd step "
                          f"{ms_step:.3f} ms ({bench_rays / ms_step / 1e3:.1f} Mrays/s, peak {peak_gb:.3f} GB), "
@@ -2253,7 +2335,8 @@ def main() -> int:
                          f"{ms_grad_plain:.3f} ms; backward's torch part {ms_bwd:.3f} ms/frame; plain route "
                          f"fwd+bwd step at {GRAD_SIZE}x{GRAD_SIZE} {ms_plain_step:.3f} ms "
                          f"({plain_rays / ms_plain_step / 1e3:.1f} Mrays/s); grads bound: {gflop / 1e9:.4f} GFLOP + "
-                         f"{gbytes / 1e6:.3f} MB -> {grad_bound_ms:.4f} ms ({grad_bound_by})")
+                         f"{gbytes / 1e6:.3f} MB -> {grad_bound_ms:.4f} ms ({grad_bound_by}), as the two fans "
+                         f"{grad_fans_ms:.4f} ms")
 
     kernels = [{
         "name": "megakernel_cornell",
@@ -2268,6 +2351,7 @@ def main() -> int:
         "plain_ms": ms_plain,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_fans_ms": fans_ms,
         "library_ms": None,
     }, {
         "name": "megakernel_cornell_grads",
@@ -2281,6 +2365,7 @@ def main() -> int:
         "plain_ms": ms_grad_plain,
         "bound_ms": grad_bound_ms,
         "bound_by": grad_bound_by,
+        "bound_fans_ms": grad_fans_ms,
         "library_ms": None,
     }]
 
@@ -2415,16 +2500,21 @@ def main() -> int:
         f_frame = cuda_ms(lambda: frenderer.render_sample(mcam), iters=10, warmup=2)
         flanes = []
         _, fsg, _ = trace_image(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True,
-                                lane_counts=flanes)
+                                lane_counts=flanes, fast_quads=None)
         n_q = tscene.quads.v0.shape[0]
         n_s = 0 if tscene.spheres is None else tscene.spheres.color.shape[0]
         n_qd = 0 if tscene.quadrics is None else tscene.quadrics.color.shape[0]
         fflop, fbytes = kernel_work(flanes, n_q, n_s, SIZE * SIZE, n_qd, sky=fam == "sky")
         f_bound, f_by = bound(fflop, fbytes)
         n_obj = n_q + n_s + n_qd
-        gflop_f = fflop + fsg[:n_obj].sum().item() + 2 * (fsg[n_obj:] > 0).sum().item()
+        plane_adds = fsg[:n_obj].sum().item() + 2 * (fsg[n_obj:] > 0).sum().item()
+        gflop_f = fflop + plane_adds
         gbytes_f = fbytes + fsg.shape[0] * 4 * SIZE * SIZE
         g_bound, g_by = bound(gflop_f, gbytes_f)
+        fans_flop = kernel_work(flanes, n_q, n_s, SIZE * SIZE, n_qd, sky=fam == "sky", as_fans=True)[0]
+        f_fans, g_fans = bound(fans_flop, fbytes)[0], bound(fans_flop + plane_adds, gbytes_f)[0]
+        if sum(int(c.parallelogram_tests) for c in flanes) != sum(int(c.live) for c in flanes) * n_q:
+            raise AssertionError(f"{fam}: the plain run did not take the parallelogram test on every live lane")
         steps = [int(c.torus_steps) for c in flanes]
         misses = [int(c.misses) for c in flanes]
         phase(f"timing-{fam}", f"{card}: {SIZE}x{SIZE}, {BOUNCES} bounces: forward kernel {f_ms:.3f} ms/frame "
@@ -2435,7 +2525,8 @@ def main() -> int:
                                f"{[int(c.live) for c in flanes]}, misses {misses}, torus steps {steps}; forward "
                                f"{fflop / 1e9:.4f} GFLOP + {fbytes / 1e6:.3f} MB -> bound {f_bound:.4f} ms ({f_by}); "
                                f"grads {gflop_f / 1e9:.4f} GFLOP + {gbytes_f / 1e6:.3f} MB -> bound {g_bound:.4f} ms "
-                               f"({g_by})")
+                               f"({g_by}); counted as the two fans: forward {fans_flop / 1e9:.4f} GFLOP -> "
+                               f"{f_fans:.4f} ms, grads {g_fans:.4f} ms")
         kernels += [{
             "name": f"megakernel_{fam}",
             "route": "cuda",
@@ -2448,6 +2539,7 @@ def main() -> int:
             "plain_ms": f_plain,
             "bound_ms": f_bound,
             "bound_by": f_by,
+            "bound_fans_ms": f_fans,
             "library_ms": None,
         }, {
             "name": f"megakernel_{fam}_grads",
@@ -2461,6 +2553,7 @@ def main() -> int:
             "plain_ms": g_plain,
             "bound_ms": g_bound,
             "bound_by": g_by,
+            "bound_fans_ms": g_fans,
             "library_ms": None,
         }]
 

@@ -155,10 +155,11 @@ def test_differentiable_without_grad_is_the_forward():
     """With nothing requiring a gradient the differentiable call is the plain
     forward (JAX's custom_vjp runs its primal), and the grads mode's 11
     planes equal the forward's; so is the staged pool of one frame
-    (reorder=True)."""
+    (reorder=True).  The plain forward takes the kernel's quad test
+    (``fast_quads=None``: the parallelogram test on the Cornell box)."""
     scene, cam = _port_inputs()
     cfg, bn = IntegratorConfig(bounces=BOUNCES), torch.as_tensor(BN)
-    plain = trace_image(scene, cam, cfg, RES, RES, 2.0, RV, bn)
+    plain = trace_image(scene, cam, cfg, RES, RES, 2.0, RV, bn, fast_quads=None)
     fused = megakernel.trace_image_fused(scene, cam, cfg, RES, RES, 2.0, RV, bn, differentiable=True)
     result, sg, deferred = megakernel.trace_image_fused_grads(scene, cam, cfg, RES, RES, 2.0, RV, bn)
     for a, b, c in zip(plain, fused, result):

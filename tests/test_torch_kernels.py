@@ -359,6 +359,63 @@ def test_cuda_quadric_and_sky_grads_kernels_match_plain_version(cuda_device, cas
         torch.testing.assert_close(a, c, rtol=0, atol=0)
 
 
+def _no_mesh_cases(device):
+    return {"cornell": (cornell_scene(right_sphere_mat=TRANSPARENT, device=device), cornell_camera(device=device),
+                        IntegratorConfig(bounces=4)),
+            **{k: v for k, v in _quadric_and_sky_cases(device).items() if k in ("quadric", "sky")}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grads", [False, True])
+@pytest.mark.parametrize("case", ["cornell", "quadric", "sky"])
+def test_cuda_no_mesh_kernels_take_the_parallelogram_test(cuda_device, case, grads):
+    """96x64, 4 bounces, frame 2: the six instantiations without a mesh
+    with fast_quads=True equal their plain versions (which make one
+    parallelogram test per live lane and quad) bit for bit, on every plane;
+    with fast_quads=False (the two fans) they do too, and the two frames
+    differ, so the kernel honours the switch."""
+    scene, cam, cfg = _no_mesh_cases(cuda_device)[case]
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    kernel = megakernel.trace_image_fused_grads if grads else megakernel.trace_image_fused
+    plain = megakernel.trace_image_fused_grads_reference if grads else megakernel.trace_image_fused_reference
+    frames = {}
+    for fast in (True, False):
+        got = kernel(scene, cam, cfg, 96, 64, 2.0, RV, bn, fast_quads=fast)
+        lanes = []
+        ref = plain(scene, cam, cfg, 96, 64, 2.0, RV, bn, lane_counts=lanes, fast_quads=fast)
+        torch.cuda.synchronize()
+        n_q = scene.quads.v0.shape[0]
+        assert [int(c.parallelogram_tests) for c in lanes] == [int(c.live) * n_q if fast else 0 for c in lanes]
+        got, ref = (got[0], ref[0]) if grads else (got, ref)
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        frames[fast] = got.color
+    assert not torch.equal(frames[True], frames[False])
+
+
+@pytest.mark.cuda
+def test_cuda_sheared_quad_takes_the_fans(cuda_device):
+    """A Cornell box whose first quad is sheared (no parallelogram): the
+    forward and grads kernels decide the two fans and equal their plain
+    versions bit for bit; fast_quads=True raises before any launch."""
+    scene, cam, cfg = _no_mesh_cases(cuda_device)["cornell"]
+    v2 = scene.quads.v2.clone()
+    v2[0] += torch.tensor([5.0, 0.0, 0.0], device=cuda_device)
+    scene = scene._replace(quads=scene.quads._replace(v2=v2))
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    got = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    g_got, g_sg, _ = megakernel.trace_image_fused_grads(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    g_ref, g_sg_ref, _ = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+    torch.cuda.synchronize()
+    for a, b in list(zip(got, ref)) + list(zip(g_got, g_ref)) + [(g_sg, g_sg_ref)]:
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    before = megakernel.LAUNCHES["cornell"]
+    with pytest.raises(ValueError, match="parallelogram"):
+        megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn, fast_quads=True)
+    assert megakernel.LAUNCHES["cornell"] == before
+
+
 @pytest.mark.cuda
 def test_cuda_wrapper_limits(cuda_device):
     """No quads, or a quadric count other than 0 or 12, raises in the

@@ -27,7 +27,7 @@ from bpt_tpu_torch.camera import Camera, generate_rays
 from bpt_tpu_torch.core.rng import rng_seed
 from bpt_tpu_torch.integrator.frame import pixel_grid
 from bpt_tpu_torch.integrator.intersect import scene_intersect
-from bpt_tpu_torch.kernels import megakernel
+from bpt_tpu_torch.kernels import launch_args, megakernel
 from bpt_tpu_torch.integrator import IntegratorConfig
 from bpt_tpu_torch.kernels import build
 from bpt_tpu_torch.scenes import cornell, gltf_scene, quadric_geometry, sky_scene
@@ -131,8 +131,13 @@ def test_scene_intersect_parity(mat):
 
 @pytest.mark.parametrize("mat", [METAL, TRANSPARENT, "quadric"])
 def test_packs_match_the_tpu_kernel_layout(mat):
-    """The kernel's scene and camera packs are the TPU kernel's, float for
-    float (the quadric pack for the quadric scene)."""
+    """The kernel's scene and camera packs hold the TPU kernel's values,
+    float for float (the quadric pack for the quadric scene): the quad row
+    its n, v0..v3, color and material at the columns of
+    ``launch_args.QUAD_COLUMNS`` (its first 15 floats are the parallelogram
+    test's per-quad algebra, held to JAX's expressions in
+    test_torch_fast_quads.py), the sphere row the TPU row's 21 floats and 3
+    more pads, the quadric row the TPU row."""
     if mat == "quadric":
         jscene, jcam = jquadric.quadric_geometry_scene(shape_k=0.35), jquadric.quadric_camera()
     else:
@@ -140,11 +145,20 @@ def test_packs_match_the_tpu_kernel_layout(mat):
     jq, js, jd = jmega.pack_scene(jscene)
     scene = convert.scene_from_numpy(jax.tree.map(np.asarray, jscene))
     q, s, d = megakernel.pack_scene(scene)
-    np.testing.assert_allclose(q.numpy(), np.asarray(jq), rtol=1e-7, atol=0)
-    for got, want in ((s, js), (d, jd)):
-        assert (got is None) == (want is None)
-        if got is not None:
-            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    jq = np.asarray(jq)
+    cols = launch_args.QUAD_COLUMNS
+    assert q.shape == (jq.shape[0], launch_args.QUAD_FLOATS)
+    for col, tpu_col in ((cols["n"], 0), (12, 3), (cols["v1"], 6), (cols["v2"], 9), (cols["v3"], 12),
+                         (cols["color"], 15)):
+        np.testing.assert_allclose(q[:, col:col + 3].numpy(), jq[:, tpu_col:tpu_col + 3], rtol=1e-7, atol=0)
+    np.testing.assert_array_equal(q[:, cols["mat"]].numpy(), jq[:, 18])
+    np.testing.assert_array_equal(q[:, cols["n"] + 3].numpy(), 0.0)
+    if s is not None:
+        np.testing.assert_array_equal(s[:, :21].numpy(), np.asarray(js))
+        np.testing.assert_array_equal(s[:, 21:].numpy(), 0.0)
+    assert (s is None) == (js is None) and (d is None) == (jd is None)
+    if d is not None:
+        np.testing.assert_array_equal(d.numpy(), np.asarray(jd))
     cam = megakernel.pack_camera(convert.camera_from_numpy(jax.tree.map(np.asarray, jcam)), 96, 64)
     np.testing.assert_allclose(cam.numpy(), np.asarray(jmega.pack_camera(jcam, 96, 64)), rtol=1e-7)
 

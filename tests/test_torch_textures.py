@@ -321,14 +321,15 @@ def test_textured_trace_image_matches_jax(jax_renders, case):
 
 def test_trace_image_fused_runs_textured_scenes_on_the_cpu(jax_renders):
     """On CPU tensors trace_image_fused is the plain version for a textured
-    scene too: the same result as trace_image, and no launch counted."""
+    scene too: the same result as trace_image with the kernel's quad test
+    (``fast_quads=None``), and no launch counted."""
     jscene, jcam, _ = jax_renders["varying"]
     scene, cam = convert.scene_from_numpy(_np(jscene)), convert.camera_from_numpy(_np(jcam))
     cfg = IntegratorConfig(**RENDER_CASES["varying"][1])
     assert megakernel.configuration(scene, cfg) == "textured"
     before = dict(megakernel.LAUNCHES)
     got = megakernel.trace_image_fused(scene, cam, cfg, 16, 8, 2.0, RV, torch.as_tensor(BN))
-    ref = trace_image(scene, cam, cfg, 16, 8, 2.0, RV, torch.as_tensor(BN))
+    ref = trace_image(scene, cam, cfg, 16, 8, 2.0, RV, torch.as_tensor(BN), fast_quads=None)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert megakernel.LAUNCHES == before
