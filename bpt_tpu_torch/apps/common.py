@@ -59,3 +59,15 @@ def run_and_save(renderer, camera, args, default_name: str) -> np.ndarray:
           f"in {dt:.2f}s ({rays / dt / 1e6:.1f} Mrays/s; build + warm-up render {warm_s:.2f}s)")
     print(f"wrote {save_image(img, args.out or f'{default_name}.png')}")
     return img
+
+
+def staged_batches(renderer) -> None:
+    """``--reorder``: trace each batch of samples as one staged pool — on
+    the card through ``attach_cuda_path(reorder=True)``, on the CPU through
+    the same batch step's plain phases."""
+    from bpt_tpu_torch.kernels.integration import attach_cuda_path, staged_batch_step
+
+    if renderer.device.type == "cuda":
+        attach_cuda_path(renderer, reorder=True)
+    else:
+        renderer.batch_step = staged_batch_step(renderer)

@@ -1,6 +1,6 @@
 """Demo 4 — a glTF model with its BVH, in the Cornell box.
 
-    python -m bpt_tpu_torch.apps.gltf_model --model teapot --models-dir DIR [--device cpu]
+    python -m bpt_tpu_torch.apps.gltf_model --model teapot --models-dir DIR [--reorder] [--device cpu]
 
 The model presets are the JAX demo's (``apps/gltf_model.py``).  The assets
 are not in the repository: ``--models-dir`` names the directory that holds
@@ -12,7 +12,7 @@ helmet) renders its PBR maps with the metal roughness lobe on
 
 import os
 
-from bpt_tpu_torch.apps.common import base_parser, run_and_save
+from bpt_tpu_torch.apps.common import base_parser, run_and_save, staged_batches
 
 PRESETS = {
     # name: (file, initial_scale, flip_z (RH -> LH))
@@ -28,6 +28,8 @@ def main(argv=None):
     p.add_argument("--model", choices=sorted(PRESETS), default="teapot")
     p.add_argument("--models-dir", default="models", help="directory of the glTF assets")
     p.add_argument("--mat", type=int, default=3, help="model material when untextured")
+    p.add_argument("--reorder", action="store_true",
+                   help="trace each batch of samples as one staged pool (ray reordering + multi-frame lane pools)")
     args = p.parse_args(argv)
 
     from bpt_tpu_torch.integrator import IntegratorConfig
@@ -41,6 +43,8 @@ def main(argv=None):
     mesh = mesh_from_model(model, mat_type=args.mat)
     cfg = IntegratorConfig(bounces=args.bounces, metal_roughness_lobe=model.albedo is not None)
     r = ProgressiveRenderer(gltf_scene(mesh), cfg, args.size, args.size, device=args.device)
+    if args.reorder:
+        staged_batches(r)
     return run_and_save(r, gltf_camera(), args, f"gltf_{args.model}")
 
 

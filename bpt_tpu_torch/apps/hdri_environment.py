@@ -1,6 +1,6 @@
 """Demo 5 — an HDRI environment around a glTF model.
 
-    python -m bpt_tpu_torch.apps.hdri_environment --model duck --models-dir DIR [--nee env] [--device cpu]
+    python -m bpt_tpu_torch.apps.hdri_environment --model duck --models-dir DIR [--nee env] [--reorder] [--device cpu]
 
 The flags are the JAX demo's (``apps/hdri_environment.py``).  ``--hdr``
 takes any equirect Radiance file; without one a procedural sky with a sun
@@ -13,7 +13,7 @@ import os
 
 import numpy as np
 
-from bpt_tpu_torch.apps.common import base_parser, run_and_save
+from bpt_tpu_torch.apps.common import base_parser, run_and_save, staged_batches
 
 
 def synthetic_hdr(h=256, w=512, sun_uv=(0.7, 0.3), sun_power=40.0):
@@ -40,6 +40,8 @@ def main(argv=None):
     p.add_argument("--hdr", default=None, help="path to an equirect .hdr")
     p.add_argument("--hdr-exposure", type=float, default=1.0)
     p.add_argument("--sun-power", type=float, default=4.0)
+    p.add_argument("--reorder", action="store_true",
+                   help="trace each batch of samples as one staged pool (ray reordering + multi-frame lane pools)")
     args = p.parse_args(argv)
 
     from bpt_tpu_torch.integrator import IntegratorConfig
@@ -58,6 +60,8 @@ def main(argv=None):
         metal_roughness_lobe=model.albedo is not None,
     )
     r = ProgressiveRenderer(scene, cfg, args.size, args.size, device=args.device)
+    if args.reorder:
+        staged_batches(r)
     return run_and_save(r, hdri_camera(), args, f"hdri_{args.model}")
 
 

@@ -65,6 +65,13 @@ def rng_next(state: RngState) -> tuple[torch.Tensor, RngState]:
     return value, RngState(sx, sy)
 
 
+def rng_next2(state: RngState) -> tuple[torch.Tensor, torch.Tensor, RngState]:
+    """Two draws: (a, b, new state)."""
+    a, state = rng_next(state)
+    b, state = rng_next(state)
+    return a, b, state
+
+
 # ---------------------------------------------------------------------------
 # Blue-noise decision stream
 # ---------------------------------------------------------------------------

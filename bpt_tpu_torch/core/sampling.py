@@ -1,16 +1,28 @@
 """Direction samplers and the tent reconstruction filter.
 
-Port of the parts of ``bpt_tpu.core.sampling`` the Cornell, quadric and
-sky slices use.
+Port of ``bpt_tpu.core.sampling``.  The integrator draws its uniforms at
+fixed sites and calls the ``*_from_uniforms`` forms; the ``random_*``
+samplers draw their own from an ``RngState``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from bpt_tpu_torch.core.rng import RngState, rng_next
 from bpt_tpu_torch.core.vecmath import mix, normalize, orthonormal_basis, safe_sqrt
 
 TWO_PI = 6.28318530717958648
+
+
+def random_sphere_direction(state: RngState) -> tuple[torch.Tensor, RngState]:
+    """Uniform direction on the sphere; two draws."""
+    u, state = rng_next(state)
+    a, state = rng_next(state)
+    up = u * 2.0 - 1.0
+    over = safe_sqrt(1.0 - up * up)
+    around = a * TWO_PI
+    return normalize(torch.stack([torch.cos(around) * over, up, torch.sin(around) * over], dim=-1)), state
 
 
 def cos_hemisphere_from_uniforms(nl: torch.Tensor, r_: torch.Tensor, p_: torch.Tensor) -> torch.Tensor:
@@ -22,6 +34,13 @@ def cos_hemisphere_from_uniforms(nl: torch.Tensor, r_: torch.Tensor, p_: torch.T
     z = safe_sqrt(1.0 - x * x - y * y)
     u, v = orthonormal_basis(nl)
     return normalize(x[..., None] * u + y[..., None] * v + z[..., None] * nl)
+
+
+def random_cos_weighted_hemisphere(nl: torch.Tensor, state: RngState) -> tuple[torch.Tensor, RngState]:
+    """Cosine-weighted hemisphere about nl; two draws."""
+    r_, state = rng_next(state)
+    p_, state = rng_next(state)
+    return cos_hemisphere_from_uniforms(nl, r_, p_), state
 
 
 def lobe_exponent(roughness) -> torch.Tensor:
@@ -52,6 +71,14 @@ def specular_lobe_from_uniforms(reflection_dir: torch.Tensor, roughness, c_: tor
             + reflection_dir * cos_theta[..., None])
     rough = r.expand(lobe.shape[:-1])[..., None]
     return normalize(mix(reflection_dir, lobe, rough))
+
+
+def random_direction_in_specular_lobe(reflection_dir: torch.Tensor, roughness,
+                                      state: RngState) -> tuple[torch.Tensor, RngState]:
+    """The roughness lobe about reflection_dir; two draws."""
+    c_, state = rng_next(state)
+    p_, state = rng_next(state)
+    return specular_lobe_from_uniforms(reflection_dir, roughness, c_, p_), state
 
 
 def tent_filter(x: torch.Tensor) -> torch.Tensor:

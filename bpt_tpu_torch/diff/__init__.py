@@ -7,9 +7,9 @@ mode (material and emission colors, and through the deferred composition
 the HDR map, its exposure and the albedo and emissive maps).  The wavefront
 one, ``make_render_loss``, is autograd through ``trace_image`` (a mesh's
 walk through the closest-hit query's recompute VJP) and reaches the camera
-and the geometry too.  The boundary-gradient terms
-(``diff/silhouette.py``, ``diff/shadow.py`` in the JAX package) are not
-ported yet.
+and the geometry too.  Neither sees the jump of a moving edge: the
+boundary terms of a sphere's silhouette (``diff.silhouette``) and of its
+shadow under the quad light (``diff.shadow``) add it, in plain torch.
 """
 
 from bpt_tpu_torch.diff.gradients import finite_difference, make_render_loss, value_and_param_grads

@@ -86,6 +86,16 @@ def _cyl_normal(hit):
     return torch.stack([2.0 * hit[..., 0], torch.zeros_like(hit[..., 1]), 2.0 * hit[..., 2]], dim=-1)
 
 
+def sphere_intersect(radius, pos, ro, rd):
+    """World-space sphere of ``radius`` at ``pos``; t only."""
+    ell = ro - pos
+    a = dot(rd, rd)
+    b = 2.0 * dot(rd, ell)
+    c = dot(ell, ell) - radius * radius
+    t0, t1 = solve_quadratic(a, b, c)
+    return torch.where(t0 > 0.0, t0, torch.where(t1 > 0.0, t1, _inf(t1)))
+
+
 def unit_sphere_intersect(ro, rd):
     """Unit sphere at the origin; n = 2 * hit."""
     a = dot(rd, rd)

@@ -1,6 +1,7 @@
-"""Triangle and quad intersectors (port of the Möller–Trumbore part of
-``bpt_tpu.geometry.triangles``): inverse determinant first, backface cull
-via the determinant's sign; and the parallelogram test of the TPU kernel's
+"""Triangle, quad and box intersectors (port of
+``bpt_tpu.geometry.triangles``): Möller–Trumbore with the inverse
+determinant first and the backface cull by the determinant's sign, the
+AABB slab test; and the parallelogram test of the TPU kernel's
 ``fast_quads`` path (``bpt_tpu.kernels.megakernel``), one plane
 intersection and a dual-basis inside test, with its per-quad algebra made
 once per quad geometry (``parallelogram_constants``)."""
@@ -37,6 +38,23 @@ def triangle_intersect(v0, v1, v2, ro, rd, double_sided: bool = False):
     """Möller–Trumbore; returns t (INFINITY on miss)."""
     t, _, _ = _mt_core(v0, v1, v2, ro, rd, double_sided)
     return t
+
+
+def bvh_triangle_intersect(v0, v1, v2, ro, rd, double_sided: bool = False):
+    """Möller–Trumbore with the barycentric (u, v) for attribute lerps:
+    (t, u, v); single-sided culls det < 0."""
+    return _mt_core(v0, v1, v2, ro, rd, double_sided)
+
+
+def bounding_box_intersect(min_corner, max_corner, ro, inv_dir):
+    """AABB slab test: the entry t0, or INFINITY where the box is missed or
+    lies behind the ray (max(t0, 0) > t1).  t0 is negative for an origin
+    inside the box, which must still open it."""
+    near = (min_corner - ro) * inv_dir
+    far = (max_corner - ro) * inv_dir
+    t0 = torch.minimum(near, far).amax(-1)
+    t1 = torch.maximum(near, far).amin(-1)
+    return torch.where(torch.clamp(t0, min=0.0) > t1, torch.full_like(t0, INFINITY), t0)
 
 
 def quad_intersect(v0, v1, v2, v3, ro, rd, double_sided: bool = False):

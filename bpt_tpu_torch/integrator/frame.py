@@ -18,10 +18,12 @@ from bpt_tpu_torch.integrator.radiance import RadianceResult, calculate_radiance
 from bpt_tpu_torch.scenes.types import Scene
 
 
-def pixel_grid(height: int, width: int, device=None):
-    """Absolute integer pixel coords, (H, W) each, bottom-left origin."""
+def pixel_grid(height: int, width: int, device=None, row_offset: int = 0):
+    """Absolute integer pixel coords, (H, W) each, bottom-left origin: rows
+    ``row_offset`` to ``row_offset + height`` of the film."""
     py, px = torch.meshgrid(
-        torch.arange(height, device=device), torch.arange(width, device=device), indexing="ij"
+        torch.arange(row_offset, row_offset + height, device=device), torch.arange(width, device=device),
+        indexing="ij",
     )
     return px, py
 
@@ -79,8 +81,16 @@ def trace_image(
     lane_counts: list | None = None,
     plain_walk: bool = False,
     fast_quads: bool | None = False,
+    tile_rows: int | None = None,
+    row_offset: int = 0,
 ):
     """Trace one 1-sample-per-pixel frame; returns the raw per-pixel result.
+
+    ``width`` and ``height`` are the whole film's (they define the film
+    plane).  A row tile, as the sharded renderer traces it, is ``tile_rows``
+    rows starting at absolute row ``row_offset``: the RNG, the blue noise and
+    the rays are keyed by absolute rows, so a tile equals the same rows of
+    the whole frame.
 
     Runs on the device of ``blue_noise``; ``frame_counter`` is a host number
     and ``rand_vec2`` a host pair in [0, 1).  With ``param_grads=True`` it
@@ -94,7 +104,10 @@ def trace_image(
     with the two triangle fans of the wavefront.
     """
     fast_quads = resolve_fast_quads(scene.quads, fast_quads)
-    px, py = pixel_grid(height, width, blue_noise.device)
+    rows = height if tile_rows is None else tile_rows
+    if rows <= 0 or row_offset < 0 or row_offset + rows > height:
+        raise ValueError(f"rows [{row_offset}, {row_offset + rows}) of a {width}x{height} film")
+    px, py = pixel_grid(rows, width, blue_noise.device, row_offset)
     rng = rng_seed(frame_counter, px, py)
     bn = blue_noise_fetch(blue_noise, px, py, rand_vec2)
     ro, rd, rng = generate_rays(camera, px, py, width, height, rng)
@@ -104,10 +117,18 @@ def trace_image(
 
 
 def render_frame(scene: Scene, camera: Camera, cfg: IntegratorConfig, previous: torch.Tensor,
-                 frame_counter, camera_is_moving: bool, rand_vec2, blue_noise: torch.Tensor) -> torch.Tensor:
-    """One progressive step: previous (H,W,4) buffer -> new (H,W,4) buffer."""
-    height, width = previous.shape[0], previous.shape[1]
-    result = trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise)
+                 frame_counter, camera_is_moving: bool, rand_vec2, blue_noise: torch.Tensor,
+                 full_height: int | None = None, row_offset: int = 0) -> torch.Tensor:
+    """One progressive step: previous (H,W,4) buffer -> new (H,W,4) buffer.
+
+    ``previous`` may be a row tile of a ``full_height``-row film starting at
+    absolute row ``row_offset`` (``trace_image``'s ``tile_rows``); its row
+    count must be even, since the edge detector's 2x2 quads must not
+    straddle tiles."""
+    rows, width = previous.shape[0], previous.shape[1]
+    height = rows if full_height is None else full_height
+    result = trace_image(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
+                         tile_rows=rows, row_offset=row_offset)
     return finish_frame(result, previous, frame_counter, camera_is_moving)
 
 

@@ -195,7 +195,7 @@ def measure(checkout: str, only: str | None = None) -> None:
                 if ev.device_type == DeviceType.CUDA and kernel in ev.key]
         return sum(us for us, _ in rows) / 1e3 / max(sum(n for _, n in rows), 1)
 
-    def event_ms(fn, iters):
+    def event_ms(fn, iters):  # utils.profiling.event_ms, which a checkout measured here may predate
         for _ in range(3):
             fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

@@ -46,21 +46,6 @@ def _device_ms(fn, name: str, per_call: int, iters: int = 2) -> float:
     return sum(us for us, _ in rows) / 1e3 / max(sum(n for _, n in rows), 1) * per_call
 
 
-def _event_ms(fn, iters: int, warmup: int = 1) -> float:
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def _scene(name: str, device):
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
     from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, heightfield_model, mesh_from_model
@@ -81,6 +66,7 @@ def sweep(name: str, size: int, frames: int) -> dict:
     from bpt_tpu_torch.core.rng import blue_noise_table
     from bpt_tpu_torch.integrator import IntegratorConfig
     from bpt_tpu_torch.kernels import megakernel, staged
+    from bpt_tpu_torch.utils.profiling import event_ms
 
     dev = torch.device("cuda")
     bn = torch.as_tensor(blue_noise_table()).to(dev)
@@ -93,7 +79,7 @@ def sweep(name: str, size: int, frames: int) -> dict:
         def pool(record=None, mode=mode):
             return staged.trace_staged(scene, cam, cfg, size, size, fcs, rvs, bn, key_mode=mode, record=record)
 
-        row = {"pool_ms": _event_ms(pool, 5), "phases_device_ms": _device_ms(pool, "phase_kernel", cfg.bounces),
+        row = {"pool_ms": event_ms(pool, 5), "phases_device_ms": _device_ms(pool, "phase_kernel", cfg.bounces),
                "keys_device_ms": sum(_device_ms(pool, kernel, cfg.bounces - 1)
                                      for kernel in ("key_box_kernel", "key_kernel")),
                "keys_ms": 0.0, "sorts_ms": 0.0}
@@ -121,7 +107,7 @@ def sweep(name: str, size: int, frames: int) -> dict:
         return [megakernel.trace_image_fused(scene, cam, cfg, size, size, f, rv, bn) for f, rv in zip(fcs, rvs)]
 
     out["unsorted_phases_device_ms"] = _device_ms(unsorted, "phase_kernel", cfg.bounces)
-    out["k1_frames_ms"] = _event_ms(k1_frames, 5)
+    out["k1_frames_ms"] = event_ms(k1_frames, 5)
     return out
 
 

@@ -87,3 +87,25 @@ def device_trace(logdir: str):
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
+
+
+def event_ms(fn, iters: int = 3, warmup: int = 1, device=None) -> float:
+    """Mean ms per call of ``fn()`` after ``warmup`` calls: CUDA events
+    around the ``iters`` calls on a CUDA ``device``, the host clock
+    otherwise (``device`` None: CUDA when it is initialised)."""
+    for _ in range(warmup):
+        fn()
+    cuda = torch.device(device).type == "cuda" if device is not None else torch.cuda.is_initialized()
+    if not cuda:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / iters
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize(device)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize(device)
+    return start.elapsed_time(end) / iters

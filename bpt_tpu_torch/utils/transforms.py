@@ -45,3 +45,11 @@ def trs_matrix(translation=(0.0, 0.0, 0.0), rotation=(0.0, 0.0, 0.0), scale=(1.0
 def invert_rigid(m: torch.Tensor) -> torch.Tensor:
     """General 4x4 inverse (named for its typical use on TRS matrices)."""
     return torch.linalg.inv(m)
+
+
+def compose(*ms: torch.Tensor) -> torch.Tensor:
+    """ms[0] @ ms[1] @ ... in order."""
+    out = ms[0]
+    for m in ms[1:]:
+        out = out @ m
+    return out

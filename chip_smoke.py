@@ -212,6 +212,32 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   instantiation must keep its loop); a utils.profiling
                   section around a launch waits for the card, and
                   device_trace writes a Chrome trace that holds the kernel.
+37. checkpoint  — a 1024² Cornell ProgressiveRenderer renders 3 frames, is
+                  saved with its generator (utils.checkpoint.save_renderer)
+                  and loaded into a fresh renderer, which renders 2 more:
+                  bit-equal to 5 uninterrupted frames, 10 K1 launches.
+38. sharded     — (a) the capacity mesh and the Cornell box at 1024², 4
+                  bounces, as four 256-row staged pools at row_offset 0,
+                  256, 512, 768 (trace_frames_fused with full_height),
+                  joined bit-equal to the K1 frame and to the four plain
+                  pools on every plane: 16 K2 phase and 12 key launches a
+                  scene, each counted on its own; the pools' phases and
+                  K2's device time against one 1024-row pool, the bound
+                  and the plain pools.  (b) sharded_render_frame, the light
+                  colour's gradient through replicate / sum_over_tiles and
+                  sharded_screen_output under a 1-rank NCCL group (the card
+                  is one GPU: no multi-GPU number), equal to render_frame,
+                  its gradient and screen_output at 1024².  (c) a sharded
+                  wavefront frame on the capacity mesh at 256² through K3
+                  (4 launches), bit-equal to the plain walk, and a row tile
+                  equal to its rows.
+39. boundary    — the silhouette and shadow boundary terms (plain torch, no
+                  kernel) at 64² on the card, finite and within 1e-4
+                  relative of the same call on the CPU.
+40. fidelity    — tools.fidelity on the capacity mesh at 256² (K1 against
+                  the wavefront through K3: its shares of pixels off by more
+                  than 1e-3) and tools.helmet_profile's variants there at
+                  the tool's own size (512², 8-frame pools).
 
 It ends with a JSON line of per-kernel results (one entry per mode and
 configuration, each with its bound, the least time the card could take for
@@ -228,6 +254,8 @@ import time
 
 import numpy as np
 import torch
+
+from bpt_tpu_torch.utils.profiling import event_ms
 
 SIZE = 1024
 BOUNCES = 4
@@ -336,19 +364,6 @@ def compare(got, ref) -> dict:
     ok = (stats["color_close"] > 0.995 and stats["normal_close"] == 1.0 and stats["id_equal"] == 1.0
           and stats["sharp_equal"] > 0.99 and stats["color_bit_equal"] == 1.0 and stats["max_abs_err"] == 0.0)
     return stats | {"ok": ok}
-
-
-def cuda_ms(fn, iters: int, warmup: int) -> float:
-    for _ in range(warmup):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def bound(flop: float, nbytes: float) -> tuple[float, str]:
@@ -663,7 +678,7 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
         def plain(scene=scene, cam=cam, cfg=cfg):
             return megakernel.trace_image_fused_reference(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
 
-        ms = cuda_ms(call, iters=20, warmup=3)
+        ms = event_ms(call, iters=20, warmup=3)
         dev_ms = kernel_device_ms(call, 10, instance(False, cfg.env, cfg.nee, True, False))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -671,7 +686,7 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
         torch.cuda.synchronize()
         peak_kernel = torch.cuda.max_memory_allocated() / 1e9
         torch.cuda.reset_peak_memory_stats()
-        plain_ms = cuda_ms(plain, iters=1, warmup=0)
+        plain_ms = event_ms(plain, iters=1, warmup=0)
         peak_plain = torch.cuda.max_memory_allocated() / 1e9
         lanes = []
         trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes, fast_quads=None)
@@ -881,7 +896,7 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
                                  f"{renderer.device}")
         if not bool(torch.isfinite(img).all()) or img.min().item() < 0.0 or img.max().item() > 1.0:
             raise AssertionError(f"{key}: display is not finite in [0, 1]")
-        frame_ms = cuda_ms(lambda: renderer.render_sample(raised), iters=10, warmup=2)
+        frame_ms = event_ms(lambda: renderer.render_sample(raised), iters=10, warmup=2)
         phase("main-textured", f"{key} {SIZE}x{SIZE}, {SPP} spp: {launches[key]} launches, display in "
                                f"[{img.min().item():.4f}, {img.max().item():.4f}], mean {img.mean().item():.4f}; "
                                f"progressive frame {frame_ms:.3f} ms")
@@ -893,14 +908,14 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
         def call(scene=scene, cfg=cfg):
             return megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
 
-        ms = cuda_ms(call, iters=20, warmup=3)
+        ms = event_ms(call, iters=20, warmup=3)
         dev_ms = kernel_device_ms(call, 10, instance(False, cfg.env, cfg.nee, True, True))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         call()
         torch.cuda.synchronize()
         peak_kernel = torch.cuda.max_memory_allocated() / 1e9
-        plain_ms = cuda_ms(lambda: megakernel.trace_image_fused_reference(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2,
+        plain_ms = event_ms(lambda: megakernel.trace_image_fused_reference(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2,
                                                                           bn), iters=1, warmup=0)
         lanes = lanes_of[key]
         flop, nbytes = kernel_work(lanes, scene.quads.v0.shape[0], scene.spheres.color.shape[0], pixels, mesh=True,
@@ -1074,7 +1089,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
             def call(mesh=mesh, ro=ro, rd=rd, act=act, cull=cull):
                 return closest_hit.closest_hit(ro, rd, cull, act, mesh)
 
-            ch_timing[label] = (cuda_ms(call, iters=20, warmup=3), kernel_device_ms(call, 10, "closest_hit_kernel"))
+            ch_timing[label] = (event_ms(call, iters=20, warmup=3), kernel_device_ms(call, 10, "closest_hit_kernel"))
     # the recompute VJP on the card against the same backward on CPU copies
     ro, rd = primary(cap.mesh, raised)
     ro, rd = ro.clone().requires_grad_(True), rd.clone().requires_grad_(True)
@@ -1107,7 +1122,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
         stats = compare(got, ref)
-        kernel_ms = cuda_ms(lambda: trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn), iters=3, warmup=1)
+        kernel_ms = event_ms(lambda: trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn), iters=3, warmup=1)
         wavefront[key] = (kernel_ms, plain_ms)
         phase("wavefront-mesh", f"{card}: {key} {SIZE}x{SIZE}, {BOUNCES} bounces: trace_image with the kernel walk "
                                 f"{kernel_ms:.3f} ms, with the plain walk {plain_ms:.3f} ms; closest-hit launches per "
@@ -1331,7 +1346,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
         def call(scene=scene, cam=cam, cfg=cfg):
             return megakernel.trace_image_fused_grads(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
 
-        ms = cuda_ms(call, iters=10, warmup=2)
+        ms = event_ms(call, iters=10, warmup=2)
         dev_ms = kernel_device_ms(call, 10, instance(True, cfg.env, cfg.nee, True, textured))
         flop, nbytes = kernel_work(lanes, scene.quads.v0.shape[0], scene.spheres.color.shape[0], pixels,
                                    sky=cfg.env == "sky", mesh=True, hdri=scene.env if cfg.env == "hdri" else None,
@@ -1364,7 +1379,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
 
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(step, iters=5 if fused else 2, warmup=1)
+        ms = event_ms(step, iters=5 if fused else 2, warmup=1)
         peak = torch.cuda.max_memory_allocated() / 1e9
         host_ms, busy_ms, rows = profiled_step(step, iters=2 if fused else 1)
         top = "; ".join(f"{k[:50]} {t:.3f} ms x{n:g}" for k, t, n in rows[:6])
@@ -1380,8 +1395,10 @@ STATE_ROW_BYTES = 56  # the words of a live lane's staged state row that carry s
 PERM_BYTES = 4  # a lane's permutation index: a pool is under 2^31 lanes (torch.sort gives int64)
 
 
-def staged_work(lane_counts, frames: int, lanes: int, scale: int = 1, **kw) -> tuple[float, float]:
-    """(FP32 operations, bytes) of a pool of ``frames`` frames of SIZE² whose
+def staged_work(lane_counts, frames: int, lanes: int, scale: int = 1, pixels: int = SIZE * SIZE,
+                **kw) -> tuple[float, float]:
+    """(FP32 operations, bytes) of a pool of ``frames`` frames of ``pixels``
+    (SIZE² unless told) whose
     plain run reported ``lane_counts`` (per bounce, over the pool): K1's
     work for those frames (``kernel_work``: each input read once, the 11
     planes of every frame written once), plus, at each boundary between
@@ -1391,9 +1408,9 @@ def staged_work(lane_counts, frames: int, lanes: int, scale: int = 1, **kw) -> t
     too).  With ``scale`` > 1 the counts are those of 1 frame of the
     ``frames``: operations and live lanes are scaled by it, and the output
     planes of the other frames added."""
-    flop, nbytes = kernel_work(lane_counts, pixels=SIZE * SIZE * frames // scale, **kw)
+    flop, nbytes = kernel_work(lane_counts, pixels=pixels * frames // scale, **kw)
     flop *= scale
-    nbytes += (scale - 1) * 11 * 4 * SIZE * SIZE
+    nbytes += (scale - 1) * 11 * 4 * pixels
     boundaries = lane_counts[1:]
     nbytes += sum(2 * STATE_ROW_BYTES * scale * int(c.live) + PERM_BYTES * lanes for c in boundaries)
     return flop, nbytes
@@ -1714,8 +1731,8 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
                 trace = megakernel.trace_image_fused_grads if grads else megakernel.trace_image_fused
                 return [trace(scene, cam, cfg4, SIZE, SIZE, f, rv, bn) for f, rv in zip(fcs, rv8)]
 
-            pool_ms, mono_ms = cuda_ms(pool, iters=3, warmup=1), cuda_ms(mono, iters=3, warmup=1)
-            pool_ms2, mono_ms2 = cuda_ms(pool, iters=3, warmup=0), cuda_ms(mono, iters=3, warmup=0)
+            pool_ms, mono_ms = event_ms(pool, iters=3, warmup=1), event_ms(mono, iters=3, warmup=1)
+            pool_ms2, mono_ms2 = event_ms(pool, iters=3, warmup=0), event_ms(mono, iters=3, warmup=0)
             sums = {}
             for _ in range(3):
                 rec = []
@@ -1728,12 +1745,12 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
             sort_ms = [sums[f"sort {b}"] for b in range(1, BOUNCES)]
             kt = {"device": [], "events": [], "rows": [], "plain": [], "bound": [], "live": []}  # per boundary
             for state, boxes in boundary_states(scene, cam, cfg4, fcs, rv8, bn, grads=grads):
-                kt["events"].append(cuda_ms(lambda state=state, boxes=boxes: staged.launch_key(state, boxes=boxes),
+                kt["events"].append(event_ms(lambda state=state, boxes=boxes: staged.launch_key(state, boxes=boxes),
                                             iters=20, warmup=2))
                 kt["device"].append(key_device_ms(lambda state=state, boxes=boxes: staged.launch_key(state,
                                                                                                       boxes=boxes)))
                 kt["rows"].append(key_device_ms(lambda state=state: staged.launch_key(state)))
-                kt["plain"].append(cuda_ms(lambda state=state: staged.sort_key(state), iters=5, warmup=1))
+                kt["plain"].append(event_ms(lambda state=state: staged.sort_key(state), iters=5, warmup=1))
                 kt["bound"].append(bound(*key_work(state))[0])
                 kt["live"].append(int(((state[:, staged.FLAGS_WORD] & 1) != 0).sum().item()))
             key_dev = [sum(d) if d is not None else e for d, e in zip(kt["device"], kt["events"])]
@@ -1811,7 +1828,7 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
             return torch.autograd.grad(out.mean(), [albedo])[0]
 
         torch.cuda.reset_peak_memory_stats()
-        fwd_bwd[reorder] = (cuda_ms(step, iters=3, warmup=1), torch.cuda.max_memory_allocated() / 1e9, step())
+        fwd_bwd[reorder] = (event_ms(step, iters=3, warmup=1), torch.cuda.max_memory_allocated() / 1e9, step())
     g_mono, g_staged = fwd_bwd[False][2], fwd_bwd[True][2]
     rel = ((g_staged - g_mono).abs().max() / g_mono.abs().max()).item()
     phase("timing-staged", f"{card}: textured stand-in fwd+bwd step w.r.t. its {tuple(tscene.mesh.albedo.shape)} "
@@ -1993,7 +2010,7 @@ def loop_cost_path(card: str) -> list:
 
     prof = Profiler()
     big = (320, True, True)
-    event_ms = cuda_ms(lambda: k5.loop_cost(tab, x, LOOP_ITERS, *big), iters=1, warmup=1)
+    launch_ms = event_ms(lambda: k5.loop_cost(tab, x, LOOP_ITERS, *big), iters=1, warmup=1)
     with prof.section("loop_cost 320 ops reduce cond"):
         k5.loop_cost(tab, x, LOOP_ITERS, *big)
     section_ms = prof.sections["loop_cost 320 ops reduce cond"][0] * 1e3
@@ -2007,11 +2024,320 @@ def loop_cost_path(card: str) -> list:
         if in_trace:
             break
     phase("timing-loop-cost", f"utils.profiling: a Profiler section around one 320-op launch {section_ms:.3f} ms "
-                              f"(the launch {event_ms:.3f} ms by CUDA events); device_trace wrote {len(traces)} "
+                              f"(the launch {launch_ms:.3f} ms by CUDA events); device_trace wrote {len(traces)} "
                               f"Chrome trace(s), the kernel in it: {in_trace} (session {session})")
-    if not (section_ms >= 0.9 * event_ms and len(traces) == 1):
+    if not (section_ms >= 0.9 * launch_ms and len(traces) == 1):
         raise AssertionError("utils.profiling: a section did not wait for the card, or device_trace wrote no trace")
     return entries
+
+
+TILES = 4  # the sharded phase's row tiles of the SIZE² film
+BOUNDARY_SIZE = 64
+FIDELITY_SIZE = 256
+PROFILE_SIZE, PROFILE_FRAMES = 512, 8  # tools.helmet_profile's defaults
+
+
+def checkpoint_path(bn: torch.Tensor) -> int:
+    """Phase 37: a 1024² Cornell ProgressiveRenderer on the card renders 3
+    frames, is saved with its generator (utils.checkpoint.save_renderer) and
+    loaded into a fresh renderer that renders 2 more: equal bit for bit to
+    5 uninterrupted frames.  Returns K1's launches in that run."""
+    import tempfile
+
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.renderer import ProgressiveRenderer
+    from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+    from bpt_tpu_torch.utils.checkpoint import load_renderer, save_renderer
+
+    cfg, camera = IntegratorConfig(bounces=BOUNCES), cornell_camera()
+
+    def renderer(seed):
+        return ProgressiveRenderer(cornell_scene(), cfg, SIZE, SIZE, seed=seed)
+
+    megakernel.reset_launches()
+    whole, part = renderer(11), renderer(11)
+    for _ in range(5):
+        whole.render_sample(camera)
+    for _ in range(3):
+        part.render_sample(camera)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = save_renderer(f"{tmp}/renderer.pt", part)
+        resumed = load_renderer(path, renderer(12))
+    for _ in range(2):
+        resumed.render_sample(camera)
+    torch.cuda.synchronize()
+    launches = megakernel.LAUNCHES["cornell"]
+    other = sum(megakernel.LAUNCHES.values()) + sum(megakernel.GRAD_LAUNCHES.values()) - launches
+    same = torch.equal(resumed.state.accum, whole.state.accum)
+    phase("checkpoint", f"{SIZE}x{SIZE}, {BOUNCES} bounces, Cornell: 3 frames, save_renderer / load_renderer into a "
+                        f"fresh renderer (another seed), 2 more: accumulation {'bit-equal' if same else 'DIFFERS'} to "
+                        f"5 uninterrupted frames (sample_counter {resumed.state.sample_counter}); K1 launches "
+                        f"{launches} (others {other})")
+    if not (same and resumed.state.sample_counter == 5.0 and launches == 10 and other == 0):
+        raise AssertionError("a renderer resumed from its checkpoint does not render the frames it would have")
+    return launches
+
+
+def sharded_path(card: str, bn: torch.Tensor, capacity) -> tuple[list, dict]:
+    """Phase 38: row-sharded rendering.  (a) The K2 route: the capacity mesh
+    and the Cornell box at SIZE², 4 bounces, as TILES staged pools of
+    SIZE/TILES rows at their row offsets (trace_frames_fused with
+    full_height), joined bit-equal to the K1 frame and to the plain pools
+    on every plane, each scene's K2 and key launches counted on their own;
+    the pools' phases against one SIZE-row pool (CUDA events, profiler).  (b)
+    sharded_render_frame, the light colour's gradient through replicate /
+    sum_over_tiles and sharded_screen_output under a 1-rank NCCL group
+    (the card is one GPU: no multi-GPU number), equal to render_frame, its
+    gradient and screen_output.  (c) One sharded wavefront frame on the
+    capacity mesh at FIDELITY_SIZE² through K3, equal to trace_image, and a
+    half-film row tile equal to its rows.  Returns the K2 row-pool entries
+    and fields for the K3 and key entries."""
+    import socket
+
+    import torch.distributed as dist
+
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.integrator.frame import render_frame, trace_image
+    from bpt_tpu_torch.kernels import megakernel, staged
+    from bpt_tpu_torch.kernels import traverse as closest_hit
+    from bpt_tpu_torch.parallel import (make_mesh, sharded_render_frame, sharded_screen_output, sharded_trace,
+                                        sum_over_tiles)
+    from bpt_tpu_torch.parallel.multihost import initialize
+    from bpt_tpu_torch.postprocess import screen_output
+    from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
+    from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene
+
+    dev = torch.device("cuda")
+    cfg = IntegratorConfig(bounces=BOUNCES)
+    rows = SIZE // TILES
+    offsets = [i * rows for i in range(TILES)]
+    cells = {"mesh": (gltf_scene(capacity, device=dev), gltf_camera(dev)),
+             "cornell": (cornell_scene(device=dev), cornell_camera(device=dev))}
+
+    # ---- (a) K2 pools at absolute rows --------------------------------------------
+    def tile_pool(scene, cam, r0, record=None, lane_counts=None):
+        return staged.trace_staged(scene, cam, cfg, SIZE, rows, (2.0,), (RAND_VEC2,), bn, row_offset=r0,
+                                   full_height=SIZE, record=record, lane_counts=lane_counts)[0]
+
+    def whole_pool(scene, cam, record=None):
+        return staged.trace_staged(scene, cam, cfg, SIZE, SIZE, (2.0,), (RAND_VEC2,), bn, record=record)[0]
+
+    joined, measured, entries = {}, {}, []
+    for key, (scene, cam) in cells.items():
+        megakernel.reset_launches()
+        tiles = [megakernel.trace_frames_fused(scene, cam, cfg, SIZE, rows, (2.0,), (RAND_VEC2,), bn,
+                                               full_height=SIZE, row_offset=r0) for r0 in offsets]
+        torch.cuda.synchronize()
+        n_phase, n_key = megakernel.STAGED_LAUNCHES[key], sum(staged.KEY_LAUNCHES.values())
+        k1_during = sum(megakernel.LAUNCHES.values())
+        joined[key] = [torch.cat([t[i][0] for t in tiles]) for i in range(5)]
+        ref = megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+        err = max((a - b).abs().max().item() for a, b in zip(joined[key], ref))
+        equal = all(torch.equal(a, b) for a, b in zip(joined[key], ref))
+        phase("sharded", f"(a) {key}: {TILES} staged pools of {rows} rows at row_offset {offsets} of a {SIZE}x{SIZE} "
+                         f"film, joined: {'bit-equal' if equal else 'DIFFERENT'} to the K1 frame on all 5 planes "
+                         f"(max_abs_err {err}); K2 phase launches {n_phase}, key kernel launches {n_key}, K1 "
+                         f"launches while the pools ran {k1_during}")
+        if not equal or n_phase != TILES * BOUNCES:
+            raise AssertionError(f"the row-tile pools of {key} differ from the whole frame or missed K2")
+        if n_key != TILES * (BOUNCES - 1) or k1_during != 0:
+            raise AssertionError(f"the row-tile pools of {key} did not sort through the key kernel alone")
+        measured[key] = (n_phase, n_key, err)
+
+    def phase_sum(run):
+        sums = []
+        for _ in range(3):
+            rec = []
+            run(rec)
+            torch.cuda.synchronize()
+            sums.append(sum(a.elapsed_time(b) for (_, a), (label, b) in zip(rec, rec[1:]) if label.startswith("phase")))
+        return float(np.mean(sums))
+
+    for key, (scene, cam) in cells.items():
+        has_mesh = scene.mesh is not None
+        name = instance(False, "none", "quad", has_mesh, kernel="phase_kernel")
+        tiles_ms = event_ms(lambda: [tile_pool(scene, cam, r0) for r0 in offsets], iters=3, warmup=1)
+        whole_ms = event_ms(lambda: whole_pool(scene, cam), iters=3, warmup=1)
+        tiles_phases = phase_sum(lambda rec: [tile_pool(scene, cam, r0, rec) for r0 in offsets])
+        whole_phases = phase_sum(lambda rec: whole_pool(scene, cam, rec))
+        dev_tiles = kernel_device_ms(lambda: [tile_pool(scene, cam, r0) for r0 in offsets], 2, name)
+        dev_whole = kernel_device_ms(lambda: whole_pool(scene, cam), 2, name)
+        lanes = []
+        t0 = time.perf_counter()
+        plain = [tile_pool(scene, cam, r0, lane_counts=lanes) for r0 in offsets]
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain = [torch.cat([t[i][0] for t in plain]) for i in range(5)]
+        plain_err = max((a - b).abs().max().item() for a, b in zip(joined[key], plain))
+        plain_equal = all(torch.equal(a, b) for a, b in zip(joined[key], plain))
+        phase("sharded", f"(a) {key}: the {TILES} plain pools (trace_phase_reference at the same row offsets), "
+                         f"joined: {'bit-equal' if plain_equal else 'DIFFERENT'} to the joined kernel pools on all "
+                         f"5 planes (max_abs_err {plain_err})")
+        if not plain_equal:
+            raise AssertionError(f"the row-tile kernel pools of {key} differ from their plain version")
+        n_q, n_s = scene.quads.v0.shape[0], 0 if scene.spheres is None else scene.spheres.color.shape[0]
+        flop = nbytes = 0.0
+        for i in range(TILES):  # each tile's pool: its own boundaries
+            f, b = staged_work(lanes[i * BOUNCES:(i + 1) * BOUNCES], 1, SIZE * rows, pixels=SIZE * rows,
+                               n_quads=n_q, n_spheres=n_s, mesh=has_mesh)
+            flop, nbytes = flop + f, nbytes + b
+        bound_ms, bound_by = bound(flop, nbytes)
+        dev_pools = None if dev_tiles is None else dev_tiles * TILES * BOUNCES
+        share = f"{100 * bound_ms / dev_pools:.2f}% of it reached" if dev_pools else "not measured"
+        phase("sharded", f"{card}: (a) {key}, {TILES} pools of {rows} rows against one {SIZE}-row pool: whole pools "
+                         f"{tiles_ms:.3f} against {whole_ms:.3f} ms; their phases (CUDA events) {tiles_phases:.4f} "
+                         f"against {whole_phases:.4f} ms ({100 * (tiles_phases / whole_phases - 1):+.1f}%); K2 device "
+                         f"{dev_tiles} against {dev_whole} ms a launch (profiler), {dev_pools} ms for the {TILES} "
+                         f"pools; {flop / 1e9:.4f} GFLOP + {nbytes / 1e6:.3f} MB -> bound {bound_ms:.4f} ms "
+                         f"({bound_by}), {share}; plain pools {plain_ms:.1f} ms")
+        entries.append({"name": f"staged_rows_{key}", "route": "cuda", "source": "bpt_tpu_torch/csrc/staged.cu",
+                        "replaces": "bpt_tpu/kernels/megakernel.py:2619", "launches": measured[key][0],
+                        "key_launches": measured[key][1], "max_abs_err": max(measured[key][2], plain_err),
+                        "ms": tiles_phases,
+                        "device_ms": dev_pools, "whole_pool_phases_ms": whole_phases,
+                        "whole_pool_device_ms": None if dev_whole is None else dev_whole * BOUNCES,
+                        "pools_ms": tiles_ms, "whole_pool_ms": whole_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
+
+    # ---- (b) the wavefront frame, its gradient and the display under NCCL ---------------
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    initialize(f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        scene, cam = cells["cornell"]
+        prev = torch.zeros((SIZE, SIZE, 4), device=dev)
+        lc0 = torch.tensor([10.0, 10.0, 10.0], device=dev)
+
+        def lit(lc):
+            return scene._replace(quads=scene.quads._replace(color=torch.cat([scene.quads.color[:5], lc[None]])))
+
+        lc = lc0.clone().requires_grad_(True)
+        frame = sharded_render_frame(lit(lc), cam, cfg, prev, 2.0, False, RAND_VEC2, bn, mesh)
+        sum_over_tiles(frame[..., :3].sum(), mesh).div(SIZE * SIZE * 3).backward()
+        lc_ref = lc0.clone().requires_grad_(True)
+        frame_ref = render_frame(lit(lc_ref), cam, cfg, prev, 2.0, False, RAND_VEC2, bn)
+        frame_ref[..., :3].mean().backward()
+        acc, acc_ref = frame.detach(), frame_ref.detach()
+        for f in (2, 3):
+            acc = sharded_render_frame(scene, cam, cfg, acc, float(f + 1), False, RAND_VEC2, bn, mesh)
+            acc_ref = render_frame(scene, cam, cfg, acc_ref, float(f + 1), False, RAND_VEC2, bn)
+        display = sharded_screen_output(acc, 1.0 / 3.0, mesh)
+        rel = ((lc.grad - lc_ref.grad).abs() / lc_ref.grad.abs()).max().item()
+        ok = (torch.equal(frame, frame_ref) and torch.equal(acc, acc_ref) and rel <= 1e-5
+              and torch.equal(display, screen_output(acc_ref, 1.0 / 3.0)))
+        phase("sharded", f"(b) {dist.get_backend()} group of {dist.get_world_size()} rank (the card is one GPU: the "
+                         f"group is 1-way, no multi-GPU number is claimed): sharded_render_frame at {SIZE}x{SIZE} "
+                         f"{'equal' if ok else 'NOT equal'} to render_frame over 3 frames, the light colour's "
+                         f"gradient {lc.grad.tolist()} against {lc_ref.grad.tolist()} (rel {rel:.1e}), "
+                         f"sharded_screen_output against screen_output")
+        if not ok or dist.get_backend() != "nccl":
+            raise AssertionError("the NCCL-sharded frame, gradient or display differs from the single process")
+
+        # ---- (c) the sharded wavefront on the capacity mesh through K3 --------------------
+        scene, cam = cells["mesh"]
+        closest_hit.reset_launches()
+        got = sharded_trace(scene, cam, cfg, FIDELITY_SIZE, FIDELITY_SIZE, 2.0, RAND_VEC2, bn, mesh)
+        torch.cuda.synchronize()
+        k3_launches = closest_hit.LAUNCHES["closest_hit"]
+        ref = trace_image(scene, cam, cfg, FIDELITY_SIZE, FIDELITY_SIZE, 2.0, RAND_VEC2, bn, plain_walk=True)
+        half = FIDELITY_SIZE // 2
+        tile = trace_image(scene, cam, cfg, FIDELITY_SIZE, FIDELITY_SIZE, 2.0, RAND_VEC2, bn, tile_rows=half,
+                           row_offset=half)
+        equal = all(torch.equal(a, b) for a, b in zip(got, ref)) and all(
+            torch.equal(a, b[half:]) for a, b in zip(tile, ref))
+        k3_dev = kernel_device_ms(lambda: sharded_trace(scene, cam, cfg, FIDELITY_SIZE, FIDELITY_SIZE, 2.0,
+                                                        RAND_VEC2, bn, mesh), 2, "closest_hit_kernel")
+        phase("sharded", f"(c) sharded_trace on the capacity mesh at {FIDELITY_SIZE}x{FIDELITY_SIZE}: K3 launches "
+                         f"{k3_launches}, {'bit-equal' if equal else 'DIFFERENT'} to trace_image with the plain walk "
+                         f"(and its top half as a row tile); K3 device {k3_dev} ms a launch (profiler)")
+        if not equal or k3_launches != BOUNCES:
+            raise AssertionError("the sharded wavefront did not go through K3 or differs from the plain walk")
+    finally:
+        dist.destroy_process_group()
+    return entries, {"closest_hit": {"sharded_launches": k3_launches, "sharded_device_ms": k3_dev},
+                     "staged_key": {"rows_launches": sum(m[1] for m in measured.values())}}
+
+
+def boundary_path(bn: torch.Tensor) -> None:
+    """Phase 39: both boundary-gradient terms (diff.silhouette, diff.shadow;
+    plain torch, no kernel) on the card at BOUNDARY_SIZE², the scene of the
+    JAX package's boundary tests, against the same call on the CPU: finite
+    and within 1e-4 relative."""
+    from bpt_tpu_torch.camera import Camera
+    from bpt_tpu_torch.diff.shadow import first_receivers, quad_shadow_boundary_gradient
+    from bpt_tpu_torch.diff.silhouette import sphere_silhouette_gradient
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.scenes.cornell import cornell_scene
+    from bpt_tpu_torch.utils.transforms import invert_rigid, trs_matrix
+
+    base = cornell_scene()
+    inv = base.spheres.inv_matrix.clone()
+    inv[0] = invert_rigid(trs_matrix(translation=(-22.5, -33.9, -10.0), scale=(16.0, 16.0, 16.0)))
+    scene = base._replace(spheres=base.spheres._replace(inv_matrix=inv))
+    cam = Camera.look(position=(0.0, -20.0, -120.0), fov=0.8, focus_distance=113.0)
+    cfg = IntegratorConfig(bounces=2)
+    n = BOUNDARY_SIZE
+    yy, xx = np.mgrid[0:n, 0:n]
+    pix = torch.as_tensor(np.stack([xx.ravel() + 0.5, yy.ravel() + 0.5], -1).astype(np.float32))
+    rows = []
+    for term in ("silhouette", "shadow"):
+        values = []
+        for dev in ("cpu", "cuda"):
+            s, c, b = scene.to(dev), cam.to(dev), bn.to(dev)
+
+            def center(x, dev=dev):
+                return torch.stack([x, torch.tensor(-33.9, device=dev), torch.tensor(-10.0, device=dev)]), 16.0
+
+            def weight(p):
+                return torch.full(p.shape[:-1] + (3,), 1.0 / (n * n * 3), device=p.device)
+
+            if term == "silhouette":
+                v = sphere_silhouette_gradient(lambda th: s, -22.5, center, c, cfg, n, n, weight, 2.0, RAND_VEC2, b,
+                                               n_samples=64, n_paths=2, eps_px=1.4)
+            else:
+                v = quad_shadow_boundary_gradient(lambda th: s, -22.5, center, c, cfg, n, n, weight, pix.to(dev), 2.0,
+                                                  RAND_VEC2, b, n_phi=64)
+            values.append(float(v))
+        rel = abs(values[1] - values[0]) / max(abs(values[0]), 1e-30)
+        rows.append(f"{term} card {values[1]:.9g} / CPU {values[0]:.9g} (rel {rel:.2e})")
+        if not (np.isfinite(values).all() and values[0] != 0.0 and rel <= 1e-4):
+            raise AssertionError(f"the {term} boundary term on the card disagrees with the CPU: " + rows[-1])
+    valid = first_receivers(scene.to("cuda"), cam.to("cuda"), cfg, n, n, pix.cuda(), 2.0, RAND_VEC2, bn)[3]
+    phase("boundary", f"{n}x{n}, 2 bounces, sphere 0 at x -22.5: " + "; ".join(rows)
+                      + f"; NEE receivers {int(valid.sum())} of {n * n}")
+
+
+def fidelity_path(card: str, bn: torch.Tensor, capacity) -> dict:
+    """Phase 40: tools.fidelity's function on the capacity mesh at
+    FIDELITY_SIZE² (the fused route, K1, against the wavefront, K3), and
+    tools.helmet_profile's variants on it at the tool's own size
+    (PROFILE_SIZE², PROFILE_FRAMES-frame pools).  Returns the K1
+    and K3 launches of the fidelity run."""
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.kernels import traverse as closest_hit
+    from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene
+    from bpt_tpu_torch.tools.fidelity import fidelity, line
+    from bpt_tpu_torch.tools.helmet_profile import profile
+
+    scene, cam = gltf_scene(capacity, device=torch.device("cuda")), gltf_camera(torch.device("cuda"))
+    megakernel.reset_launches()
+    closest_hit.reset_launches()
+    f = fidelity(scene, cam, IntegratorConfig(bounces=BOUNCES), FIDELITY_SIZE, bn)
+    torch.cuda.synchronize()
+    launches = {"k1": megakernel.LAUNCHES["mesh"], "k3": closest_hit.LAUNCHES["closest_hit"]}
+    phase("fidelity", line("capacity", FIDELITY_SIZE, BOUNCES, int(capacity.p0.shape[0]), f)
+                      + f"; K1 launches {launches['k1']}, K3 launches {launches['k3']}")
+    if launches != {"k1": 1, "k3": BOUNCES} or not np.isfinite(list(f.values())).all():
+        raise AssertionError("the fidelity tool did not run K1 against the wavefront through K3")
+    rows = profile(scene, cam, PROFILE_SIZE, PROFILE_FRAMES, bn)
+    phase("fidelity", f"{card}: helmet_profile's variants on the capacity mesh at {PROFILE_SIZE}x{PROFILE_SIZE}, "
+                      f"{PROFILE_FRAMES} frames a pool: "
+                      + "; ".join(f"{r['name']} {r['ms']:.3f} ms ({r['mrays']:.1f} Mrays/s)" for r in rows))
+    return launches
 
 
 def main() -> int:
@@ -2129,12 +2455,12 @@ def main() -> int:
 
     # ---- 5. timing ----------------------------------------------------------
     scene = cornell_scene(device=dev)
-    ms_kernel = cuda_ms(lambda: megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn),
+    ms_kernel = event_ms(lambda: megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn),
                         iters=50, warmup=5)
-    ms_plain = cuda_ms(
+    ms_plain = event_ms(
         lambda: megakernel.trace_image_fused_reference(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn),
         iters=5, warmup=2)
-    ms_frame = cuda_ms(lambda: renderer.render_sample(camera), iters=20, warmup=3)
+    ms_frame = event_ms(lambda: renderer.render_sample(camera), iters=20, warmup=3)
     rays = SIZE * SIZE * BOUNCES
     lanes = []
     trace_image(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, lane_counts=lanes, fast_quads=None)
@@ -2267,14 +2593,14 @@ def main() -> int:
         return torch.autograd.grad(loss, [lc])[0] if differentiable else loss
 
     torch.cuda.reset_peak_memory_stats()
-    ms_step = cuda_ms(lambda: bench_step(True), iters=10, warmup=2)
+    ms_step = event_ms(lambda: bench_step(True), iters=10, warmup=2)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     with torch.no_grad():
-        ms_fwd_step = cuda_ms(lambda: bench_step(False), iters=10, warmup=2)
+        ms_fwd_step = event_ms(lambda: bench_step(False), iters=10, warmup=2)
     bench_rays = SIZE * SIZE * BOUNCES * BENCH_FRAMES
-    ms_grad_kernel = cuda_ms(lambda: megakernel.trace_image_fused_grads(bscene, cam, cfg, SIZE, SIZE, 2.0,
+    ms_grad_kernel = event_ms(lambda: megakernel.trace_image_fused_grads(bscene, cam, cfg, SIZE, SIZE, 2.0,
                                                                          RAND_VEC2, bn), iters=50, warmup=5)
-    ms_grad_plain = cuda_ms(lambda: megakernel.trace_image_fused_grads_reference(bscene, cam, cfg, SIZE, SIZE, 2.0,
+    ms_grad_plain = event_ms(lambda: megakernel.trace_image_fused_grads_reference(bscene, cam, cfg, SIZE, SIZE, 2.0,
                                                                                  RAND_VEC2, bn), iters=3, warmup=1)
     dev_fwd = kernel_device_ms(lambda: megakernel.trace_image_fused(bscene, cam, cfg, SIZE, SIZE, 2.0,
                                                                       RAND_VEC2, bn), 20,
@@ -2286,7 +2612,7 @@ def main() -> int:
     one = megakernel.trace_image_fused(bscene._replace(quads=bscene.quads._replace(color=qc)), cam, cfg, SIZE, SIZE,
                                        2.0, RAND_VEC2, bn, differentiable=True)
     one_loss = one.color.mean()
-    ms_bwd = cuda_ms(lambda: torch.autograd.grad(one_loss, [qc], retain_graph=True), iters=20, warmup=3)
+    ms_bwd = event_ms(lambda: torch.autograd.grad(one_loss, [qc], retain_graph=True), iters=20, warmup=3)
     step_frame[0] = 2.0
 
     def plain_step():
@@ -2297,7 +2623,7 @@ def main() -> int:
             acc = acc + trace_image(s, cam, cfg, GRAD_SIZE, GRAD_SIZE, 2.0 + i, RAND_VEC2, bn).color
         return torch.autograd.grad(acc.mean(), [lc])[0]
 
-    ms_plain_step = cuda_ms(plain_step, iters=2, warmup=1)
+    ms_plain_step = event_ms(plain_step, iters=2, warmup=1)
     host_ms, busy_ms, rows = profiled_step(lambda: bench_step(True), iters=3)
     top = "; ".join(f"{k[:60]} {ms:.4f} ms x{n:g}" for k, ms, n in rows[:10])
     from bpt_tpu_torch.tools.ab_time import step_counts
@@ -2489,15 +2815,15 @@ def main() -> int:
         def grads_call():
             return megakernel.trace_image_fused_grads(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
 
-        f_ms = cuda_ms(fwd_call, iters=20, warmup=3)
-        g_ms = cuda_ms(grads_call, iters=20, warmup=3)
-        f_plain = cuda_ms(lambda: megakernel.trace_image_fused_reference(tscene, fcam, fcfg, SIZE, SIZE, 2.0,
+        f_ms = event_ms(fwd_call, iters=20, warmup=3)
+        g_ms = event_ms(grads_call, iters=20, warmup=3)
+        f_plain = event_ms(lambda: megakernel.trace_image_fused_reference(tscene, fcam, fcfg, SIZE, SIZE, 2.0,
                                                                          RAND_VEC2, bn), iters=2, warmup=1)
-        g_plain = cuda_ms(lambda: megakernel.trace_image_fused_grads_reference(tscene, fcam, fcfg, SIZE, SIZE, 2.0,
+        g_plain = event_ms(lambda: megakernel.trace_image_fused_grads_reference(tscene, fcam, fcfg, SIZE, SIZE, 2.0,
                                                                                RAND_VEC2, bn), iters=2, warmup=1)
         f_dev = kernel_device_ms(fwd_call, 10, instance(False, fcfg.env, fcfg.nee, False))
         g_dev = kernel_device_ms(grads_call, 10, instance(True, fcfg.env, fcfg.nee, False))
-        f_frame = cuda_ms(lambda: frenderer.render_sample(mcam), iters=10, warmup=2)
+        f_frame = event_ms(lambda: frenderer.render_sample(mcam), iters=10, warmup=2)
         flanes = []
         _, fsg, _ = trace_image(tscene, fcam, fcfg, SIZE, SIZE, 2.0, RAND_VEC2, bn, param_grads=True,
                                 lane_counts=flanes, fast_quads=None)
@@ -2598,6 +2924,14 @@ def main() -> int:
     kernels += inverse_rendering(card, bn, capacity, stand_in, stand_in_model)
     kernels += staged_path(card, bn, capacity, stand_in)
     kernels += loop_cost_path(card)
+    k1_resumed = checkpoint_path(bn)
+    entries, fields = sharded_path(card, bn, capacity)
+    kernels += entries
+    boundary_path(bn)
+    fields["closest_hit"]["fidelity_launches"] = fidelity_path(card, bn, capacity)["k3"]
+    fields["megakernel_cornell"] = {"checkpoint_launches": k1_resumed}
+    for entry in kernels:
+        entry.update(fields.get(entry["name"], {}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -75,3 +75,60 @@ def test_mesh_demo_clis_write_their_image(app, extra, tmp_path, capsys):
     assert "wrote" in capsys.readouterr().out
     with pytest.raises(FileNotFoundError, match="StanfordBunny"):
         main(argv + ["--model", "bunny"])
+
+
+@pytest.mark.parametrize("app", ["gltf_model", "hdri_environment"])
+def test_mesh_demo_reorder_flag_renders_the_same_image(app, tmp_path):
+    """--reorder traces each batch of samples as one staged pool (here its
+    plain phases on the CPU): the image equals the sample-at-a-time one."""
+    _write_teapot_stand_in(tmp_path / "models")
+    main = importlib.import_module(f"bpt_tpu_torch.apps.{app}").main
+    argv = ["--size", "16", "--spp", "3", "--bounces", "2", "--device", "cpu", "--model", "teapot",
+            "--models-dir", str(tmp_path / "models"), "--out", str(tmp_path / f"{app}.png")]
+    np.testing.assert_array_equal(main(argv + ["--reorder"]), main(argv))
+
+
+def test_debug_low_res_renders_small_and_upscales(tmp_path, capsys):
+    """debug_low_res at --device cpu on the stand-in: a 64 canvas at pixel
+    resolution 0.25 traces 16x16 (size x resolution rounded to a multiple
+    of 8, at least 8) and writes the 4x nearest-neighbour upscale beside
+    it; --mobile runs with eps_intersect 1.0; a missing asset fails with its
+    path."""
+    from bpt_tpu_torch.apps import debug_low_res
+
+    assert [debug_low_res.render_size(s, r) for s, r in ((256, 0.1), (64, 0.25), (40, 0.1), (1024, 0.5))] == \
+        [24, 16, 8, 512]
+    _write_teapot_stand_in(tmp_path / "models")
+    argv = ["--size", "64", "--pixel-resolution", "0.25", "--spp", "2", "--bounces", "2", "--device", "cpu",
+            "--models-dir", str(tmp_path / "models"), "--out", str(tmp_path / "low.png")]
+    up = debug_low_res.main(argv)
+    out = capsys.readouterr().out
+    assert "rendering 16x16" in out and "output 64x64" in out
+    assert up.shape == (64, 64, 3) and np.isfinite(up).all() and up.max() > 0.0
+    blocks = up.reshape(16, 4, 16, 4, 3)
+    assert (blocks == blocks[:, :1, :, :1]).all()  # each traced pixel fills a 4x4 block
+    assert (tmp_path / "low.png").exists() and any(p.name.startswith("low_upscaled") for p in tmp_path.iterdir())
+    mobile = debug_low_res.main(argv + ["--mobile"])
+    assert mobile.shape == (64, 64, 3) and np.isfinite(mobile).all()
+    with pytest.raises(FileNotFoundError, match="StanfordBunny"):
+        debug_low_res.main(argv + ["--model", "bunny"])
+
+
+def test_fidelity_and_helmet_profile_tools(tmp_path, capsys):
+    """The two tools on the stand-in at --device cpu (the plain versions of
+    both routes: no difference above 1e-3 may appear between them), and each
+    fails naming a missing asset."""
+    from bpt_tpu_torch.tools import fidelity, helmet_profile
+
+    _write_teapot_stand_in(tmp_path / "models")
+    common = ["--models-dir", str(tmp_path / "models"), "--device", "cpu", "--bounces", "2"]
+    f = fidelity.main(["--model", "teapot", "--size", "16"] + common)
+    assert "teapot 16x16 b=2 tris=16" in capsys.readouterr().out
+    assert f["pct"] == f["bake_pct"] + f["flip_pct"] and 0.0 <= f["pct"] <= 100.0 and f["max"] >= f["mean"] >= 0.0
+    rows = helmet_profile.main(["--model", "teapot", "--size", "8", "--frames", "2", "--iters", "1",
+                                "--models-dir", str(tmp_path / "models"), "--device", "cpu"])
+    assert [r["name"] for r in rows][-1] == "monolithic x2 b=4" and len(rows) == 7
+    assert all(r["ms"] > 0 and r["mrays"] > 0 for r in rows)
+    for main, asset in ((fidelity.main, "DamagedHelmet"), (helmet_profile.main, "DamagedHelmet")):
+        with pytest.raises(FileNotFoundError, match=asset):
+            main(["--model", "helmet", "--models-dir", str(tmp_path / "models"), "--device", "cpu"])
