@@ -78,8 +78,9 @@
 // the sun lobe's powf per bounce.  Mesh: the BVH walk's dependent gathers
 // and the warp divergence of the walks (csrc/bvh.cuh); HDRI: the equirect
 // gathers and the CDF searches (csrc/hdri.cuh); textured: on top of the
-// walk, four bilinear samples (4 taps of dependent scalar loads each) per
-// PBR hit from maps larger than the L2 cache (csrc/textures.cuh).  Without
+// walk, up to four bilinear samples per mesh hit (one 64-byte record of four
+// float4 loads each) from texel tables larger than the L2 cache
+// (csrc/textures.cuh).  Without
 // a mesh it moves almost no memory: a few hundred floats of scene
 // constants, one blue-noise texel and 11 output floats per pixel.  The grads mode adds
 // n_sg * 4 bytes per pixel.
@@ -172,8 +173,13 @@ __device__ __forceinline__ void trace_pixel(const TraceArgs& a) {
 // 3 blocks at 80 registers or no bound (bpt_tpu_torch/tools/ab_time.py
 // --only nomesh over variant checkouts; PERF.md keeps the numbers): with
 // the parallelogram quad test the extra warps hide more latency than the
-// spills cost.  A mesh configuration keeps the compiler's own choice: a
-// register bound there costs more than it gains.
+// spills cost.  An untextured mesh configuration keeps the compiler's own
+// choice: a register bound there costs more than it gains.  A textured one
+// is a kernel of its own, so that its register policy is its own: at (256,
+// 4) it takes 64 registers and spills 200-290 bytes to L1, and runs faster
+// than at (256, 3) (80 registers) and than with the compiler's 88-96
+// registers (2 blocks an SM): the texel loads' latency wants the other
+// blocks' warps (tools/ab_time.py --only textured; PERF.md keeps the numbers).
 template <bool kGrads, int kEnv, int kNee>
 __global__ void __launch_bounds__(256, 4) trace_kernel(const TraceArgs a) {
   trace_pixel<kGrads, kEnv, kNee, false, false>(a);
@@ -184,13 +190,20 @@ __global__ void trace_kernel(const TraceArgs a) {
   trace_pixel<kGrads, kEnv, kNee, true, kTextured>(a);
 }
 
+template <bool kGrads, int kEnv, int kNee>
+__global__ void __launch_bounds__(256, 4) trace_kernel_textured(const TraceArgs a) {
+  trace_pixel<kGrads, kEnv, kNee, true, true>(a);
+}
+
 template <bool kGrads, int kEnv, int kNee, bool kMesh, bool kTextured = false>
 int launch_cfg(const TraceArgs& a, void* stream) {
   const dim3 block(16, 16);
   const dim3 grid((a.width + block.x - 1) / block.x, (a.height + block.y - 1) / block.y);
   const size_t smem = sizeof(float) * scene_floats(a, kMesh);
-  if constexpr (kMesh) {
-    trace_kernel<kGrads, kEnv, kNee, kTextured><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  if constexpr (kTextured) {
+    trace_kernel_textured<kGrads, kEnv, kNee><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  } else if constexpr (kMesh) {
+    trace_kernel<kGrads, kEnv, kNee, false><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
   } else {
     trace_kernel<kGrads, kEnv, kNee><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(a);
   }

@@ -43,7 +43,7 @@ struct TraceArgs {
   float* out_sg;
   const float2* mesh_uvs;  // textured: uv0, uv1, uv2 per triangle
   float* out_def;  // grads mode: the deferred planes (n_def, H, W), or null
-  const float* tex[4];  // textured: albedo, normal, metallic-roughness, emissive (h, w, 3) maps (or null)
+  const float4* tex[4];  // textured: albedo, normal, metallic-roughness, emissive texel tables (or null)
   int nq, ns, nqd;
   int bn_ox, bn_oy, width, height, bounces;
   float eps;
@@ -54,6 +54,11 @@ struct TraceArgs {
   int metal_roughness_lobe;
   int fast_quads;  // every quad is a parallelogram: the parallelogram test, else the two triangle fans
 };
+
+// Map i's texel table (csrc/textures.cuh).
+__device__ __forceinline__ TexMap tex_map(const TraceArgs& a, int i) {
+  return TexMap{a.tex[i], a.tex_h[i], a.tex_w[i]};
+}
 
 constexpr uint32_t kMagic = 1103515245u;
 
@@ -474,9 +479,10 @@ __device__ __forceinline__ bool trace_bounces(const TraceArgs& a, const SceneCon
         t_best = mh.t;
         V3 n_o = mesh_normal(a.mesh_normals, mh);
         if constexpr (kTextured) {  // the normal map perturbs the object-space normal
-          mesh_uv(a.mesh_uvs, mh.tri, mh.u, mh.v, &hu, &hv);
-          if (a.tex[kTexNormal]) n_o = perturb_normal(n_o, a.tex[kTexNormal], a.tex_h[kTexNormal],
-                                                      a.tex_w[kTexNormal], hu, hv);
+          if (!p.sample_light) {  // a shadow ray ends here: no output reads its UV or its normal
+            mesh_uv(a.mesh_uvs, mh.tri, mh.u, mh.v, &hu, &hv);
+            if (a.tex[kTexNormal]) n_o = perturb_normal(n_o, tex_map(a, kTexNormal), hu, hv);
+          }
         }
         nrm = normalize(xform_normal(c.mesh_inv, n_o));
         hc = v3(1.0f, 1.0f, 1.0f);
@@ -569,14 +575,18 @@ __device__ __forceinline__ bool trace_bounces(const TraceArgs& a, const SceneCon
     if constexpr (kTextured) {
       if (mat == kPbr) {
         pbr_hit = true;
+        // each map is loaded and combined in turn (loading every tap first held more registers and ran
+        // slower): the albedo (composed outside in the grads mode), the emissive map on a specular path
+        // only (an emissive texel ends only a specular path), the metallic-roughness map
+        const bool glow = a.tex[kTexEmissive] != nullptr && p.spec;
         if constexpr (kDeferTex) {
           hc = v3(1.0f, 1.0f, 1.0f);  // the albedo factor is composed outside
         } else {
-          hc = sample_linear(a.tex[kTexAlbedo], a.tex_h[kTexAlbedo], a.tex_w[kTexAlbedo], hu, hv);
+          hc = combine_linear(fetch_taps(tex_map(a, kTexAlbedo), hu, hv));
         }
-        if (a.tex[kTexEmissive]) {  // an emissive texel ends a specular path, tested before the class
-          const V3 em = sample_linear(a.tex[kTexEmissive], a.tex_h[kTexEmissive], a.tex_w[kTexEmissive], hu, hv);
-          if (p.spec && fmaxf(fmaxf(em.x, em.y), em.z) > 0.01f) {
+        if (glow) {  // an emissive texel ends a specular path, tested before the class
+          const V3 em = combine_linear(fetch_taps(tex_map(a, kTexEmissive), hu, hv));
+          if (fmaxf(fmaxf(em.x, em.y), em.z) > 0.01f) {
             p.sharp = 1.01f;
             if constexpr (kDeferTex) {  // the emission is composed outside: its weight and uv
               put_def3(def_tex + 2 * bounces, p.mask);
@@ -591,10 +601,10 @@ __device__ __forceinline__ bool trace_bounces(const TraceArgs& a, const SceneCon
         }
         mat = kDiffuse;
         if (a.tex[kTexMetalRough]) {  // roughness (G): CLEARCOAT; metalness (B) overrides it: METAL
-          const Taps t = bilinear_taps(a.tex_h[kTexMetalRough], a.tex_w[kTexMetalRough], hu, hv);
-          mr_g = srgb_linear(tap_channel(a.tex[kTexMetalRough], t, 1));
+          const Texels mr = fetch_taps(tex_map(a, kTexMetalRough), hu, hv);
+          mr_g = srgb_linear(tap_channel(mr.c00.y, mr.c01.y, mr.c10.y, mr.c11.y, mr));
           if (mr_g > 0.01f) mat = kClearcoat;
-          if (srgb_linear(tap_channel(a.tex[kTexMetalRough], t, 2)) > 0.01f) mat = kMetal;
+          if (srgb_linear(tap_channel(mr.c00.z, mr.c01.z, mr.c10.z, mr.c11.z, mr)) > 0.01f) mat = kMetal;
         }
       }
     }

@@ -217,7 +217,9 @@ __device__ __forceinline__ void write_warp_box(const StagedArgs& s, const RowOut
 }
 
 // The kernels: without a mesh 3 blocks of 256 threads an SM (80 registers;
-// they spill up to 68 bytes to L1), with one the compiler's own choice.
+// they spill up to 68 bytes to L1), with an untextured one the compiler's
+// own choice, with a textured one 4 blocks (64 registers; they spill up to
+// 480 bytes), K1's textured policy (csrc/megakernel.cu).
 // (256, 2) removes the spills but is 6-9% slower in the Cornell and sky
 // pools' phases (PERF.md, K2's row), and (256, 4), K1's bound, spills
 // 218-234 bytes and is 12% slower.
@@ -233,6 +235,12 @@ __global__ void phase_kernel(const StagedArgs s) {
   if (s.boxes) write_warp_box(s, r);
 }
 
+template <bool kGrads, int kEnv, int kNee>
+__global__ void __launch_bounds__(256, 4) phase_kernel_textured(const StagedArgs s) {
+  const RowOut r = phase_lane<kGrads, kEnv, kNee, true, true>(s);
+  if (s.boxes) write_warp_box(s, r);
+}
+
 // Phase 0 runs K1's launch shape, 16x16 pixel tiles (a grid of tiles per
 // frame, the frames along z), so that a warp's first rays are coherent;
 // a later phase one thread per sorted lane, 256 a block.
@@ -242,8 +250,10 @@ int launch_cfg(const StagedArgs& s, void* stream) {
   const dim3 grid = s.lo == 0 ? dim3((s.t.width + 15) / 16, (s.t.height + 15) / 16, s.frames)
                               : dim3((unsigned)((s.lanes + 255) / 256));
   const size_t smem = sizeof(float) * scene_floats(s.t, kMesh);
-  if constexpr (kMesh) {
-    phase_kernel<kGrads, kEnv, kNee, kTextured><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(s);
+  if constexpr (kTextured) {
+    phase_kernel_textured<kGrads, kEnv, kNee><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(s);
+  } else if constexpr (kMesh) {
+    phase_kernel<kGrads, kEnv, kNee, false><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(s);
   } else {
     phase_kernel<kGrads, kEnv, kNee><<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(s);
   }

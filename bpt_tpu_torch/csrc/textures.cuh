@@ -20,17 +20,24 @@
 // 2.2f) as PyTorch's CUDA pow computes torch.pow(x, 2.2), and the lobe's
 // exponent 1 / (exp(7 - 7 sqrt(r)) + 1) per lane.
 //
-// What bounds it on this card: each tap is three dependent-address 4-byte
-// loads (two for the metallic-roughness map, whose R channel no branch
-// reads) from a map that does not fit the L1 (a 2048² map is 50 MB),
-// divergent across a warp whose lanes hit different places; bytes move only
-// for the texels the lanes touch.  The kernel reads the maps as the scene
-// holds them, (H, W, 3) float32, through the read-only path (__ldg), so a
-// textured mesh keeps one copy of each map on the card.  Hardware texture
-// filtering is not used: its 8-bit fractional weights cannot reproduce the
-// plain version's float weights.  Wider loads (a padded float4 layout),
-// caching texels in shared memory, half-precision maps and sorting hits by
-// UV are later work.
+// The maps come as a texel table per map (bpt_tpu_torch/textures.py
+// texel_quads, made once per map set by kernels/launch_args.py
+// texel_table_of): the reference's quad_pack, the 2x2 footprint whose first
+// tap is texel (y, x) stored at (y, x) as four 16-byte slots (three channels
+// and a zero), so a sample is four aligned float4 loads (__ldg) from one
+// 64-byte record, where it was twelve dependent scalar loads from two rows
+// of the map.  The table holds four times the map's texels; the floats are
+// the map's own and the combine keeps tap_channel's order, so the kernel
+// computes what the plain version computes.
+//
+// What bounds it on this card: the taps' loads, divergent across a warp
+// whose lanes hit different places in tables larger than the 50 MB L2 (the
+// stand-in's four 2048² maps make 1074 MB of tables), and their latency,
+// which the textured kernels hide with 4 blocks of 256 threads an SM
+// (csrc/megakernel.cu).  A hit samples only the maps an output reads
+// (csrc/path.cuh): the UV and the normal map not on a shadow ray, the
+// emissive map only on a specular path, the albedo not in the grads mode.  Hardware texture filtering is not used: its 8-bit
+// fractional weights cannot reproduce the plain version's float weights.
 #pragma once
 
 #include "vec.cuh"
@@ -45,42 +52,48 @@ __device__ __forceinline__ int wrap(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
-// The four taps of a bilinear sample with REPEAT wrap of an (h, w) map at
-// (u, v), v = 0 at row 0: the float offsets of texels (y0, x0), (y0, x1),
-// (y1, x0), (y1, x1) in an (h, w, 3) map and the weights fx, fy.
-struct Taps {
-  int i00, i01, i10, i11;
+// One map's texel table and the map's (h, w).
+struct TexMap {
+  const float4* quads;
+  int h, w;
+};
+
+// A sample's four taps as loaded, (y0, x0), (y0, x1), (y1, x0), (y1, x1),
+// and the weights fx, fy.
+struct Texels {
+  float4 c00, c01, c10, c11;
   float fx, fy;
 };
 
-__device__ __forceinline__ Taps bilinear_taps(int h, int w, float u, float v) {
-  const float x = u * (float)w - 0.5f;
-  const float y = v * (float)h - 0.5f;
+// The bilinear sample with REPEAT wrap of an (h, w) map at (u, v), v = 0 at
+// row 0: the record of its first tap (y0, x0), the floored modulo on both
+// axes, holds all four.
+__device__ __forceinline__ Texels fetch_taps(const TexMap& m, float u, float v) {
+  const float x = u * (float)m.w - 0.5f;
+  const float y = v * (float)m.h - 0.5f;
   const float x0 = floorf(x), y0 = floorf(y);
-  const int x0i = wrap((int)x0, w), x1i = wrap(x0i + 1, w);
-  const int y0i = wrap((int)y0, h), y1i = wrap(y0i + 1, h);
-  return Taps{(y0i * w + x0i) * 3, (y0i * w + x1i) * 3, (y1i * w + x0i) * 3, (y1i * w + x1i) * 3, x - x0, y - y0};
+  const float4* rec = m.quads + (wrap((int)y0, m.h) * m.w + wrap((int)x0, m.w)) * 4;
+  return Texels{__ldg(rec), __ldg(rec + 1), __ldg(rec + 2), __ldg(rec + 3), x - x0, y - y0};
 }
 
-// Channel c of the sample: (c00 (1 - fx) + c01 fx) (1 - fy) + (c10 (1 - fx) + c11 fx) fy.
-__device__ __forceinline__ float tap_channel(const float* __restrict__ tex, const Taps& t, int c) {
+// One channel of the sample: (c00 (1 - fx) + c01 fx) (1 - fy) + (c10 (1 - fx) + c11 fx) fy.
+__device__ __forceinline__ float tap_channel(float c00, float c01, float c10, float c11, const Texels& t) {
   const float gx = 1.0f - t.fx, gy = 1.0f - t.fy;
-  return (__ldg(tex + t.i00 + c) * gx + __ldg(tex + t.i01 + c) * t.fx) * gy +
-         (__ldg(tex + t.i10 + c) * gx + __ldg(tex + t.i11 + c) * t.fx) * t.fy;
+  return (c00 * gx + c01 * t.fx) * gy + (c10 * gx + c11 * t.fx) * t.fy;
 }
 
-// The RGB bilinear sample of an (h, w, 3) map at (u, v).
-__device__ __forceinline__ V3 sample_bilinear(const float* __restrict__ tex, int h, int w, float u, float v) {
-  const Taps t = bilinear_taps(h, w, u, v);
-  return v3(tap_channel(tex, t, 0), tap_channel(tex, t, 1), tap_channel(tex, t, 2));
+// The RGB bilinear sample of loaded taps.
+__device__ __forceinline__ V3 combine(const Texels& t) {
+  return v3(tap_channel(t.c00.x, t.c01.x, t.c10.x, t.c11.x, t), tap_channel(t.c00.y, t.c01.y, t.c10.y, t.c11.y, t),
+            tap_channel(t.c00.z, t.c01.z, t.c10.z, t.c11.z, t));
 }
 
 // An sRGB-encoded value decoded to linear: powf(max(x, 0), 2.2f).
 __device__ __forceinline__ float srgb_linear(float x) { return powf(fmaxf(x, 0.0f), 2.2f); }
 
-// The RGB sample decoded to linear.
-__device__ __forceinline__ V3 sample_linear(const float* __restrict__ tex, int h, int w, float u, float v) {
-  const V3 c = sample_bilinear(tex, h, w, u, v);
+// The RGB sample of loaded taps decoded to linear.
+__device__ __forceinline__ V3 combine_linear(const Texels& t) {
+  const V3 c = combine(t);
   return v3(srgb_linear(c.x), srgb_linear(c.y), srgb_linear(c.z));
 }
 
@@ -104,13 +117,13 @@ __device__ __forceinline__ void mesh_uv(const float2* __restrict__ uvs, int tri,
 // frame S = unit(cross(up, n)), T = cross(n, S), up = (0, 1, 0) where
 // |n.y| < 0.9, else (1, 0, 0); the texel m = unit(2 sample - 1);
 // unit(S m.x + T m.y + n m.z).
-__device__ __forceinline__ V3 perturb_normal(V3 n_obj, const float* __restrict__ tex, int h, int w, float u,
-                                             float v) {
+__device__ __forceinline__ V3 perturb_normal(V3 n_obj, const TexMap& map, float u, float v) {
+  const Texels taps = fetch_taps(map, u, v);
   const V3 nl = unit_div(n_obj);
   const V3 up = fabsf(nl.y) < 0.9f ? v3(0.0f, 1.0f, 0.0f) : v3(1.0f, 0.0f, 0.0f);
   const V3 s = unit_div(cross(up, nl));
   const V3 t = cross(nl, s);
-  const V3 c = sample_bilinear(tex, h, w, u, v);
+  const V3 c = combine(taps);
   const V3 m = unit_div(v3(c.x * 2.0f - 1.0f, c.y * 2.0f - 1.0f, c.z * 2.0f - 1.0f));
   return unit_div(add(add(mul(s, m.x), mul(t, m.y)), mul(nl, m.z)));
 }

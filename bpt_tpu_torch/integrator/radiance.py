@@ -114,11 +114,14 @@ class LaneCounts(NamedTuple):
     ``emissive_hits``, the PBR hits an emissive texel ended; ``lobe_draws``,
     the METAL bounces that drew the roughness lobe with a roughness above 0;
     ``texel_samples``, per map (albedo, normal, metallic-roughness,
-    emissive) the bilinear samples taken, (4,): the normal map at every live
-    mesh hit, the albedo and the emissive map at every PBR hit, the
+    emissive) the bilinear samples an output reads, (4,): the normal map at
+    every live mesh hit but a shadow ray's (which ends there, its normal
+    unread), the albedo at every PBR hit, the emissive map at every PBR hit
+    on a specular path (the only one its texel can end), the
     metallic-roughness map at every PBR hit that did not end (0 for a map
     the mesh lacks); and ``texel_reads``, per map the (H, W) bool mask of the
-    texels those samples read, or None.
+    texels those samples read, or None.  That is the work of the function
+    whatever computes it: the plain version samples every lane.
 
     ``parallelogram_tests``: the quad tests of live lanes that the
     parallelogram test made (live lanes x quads when ``fast_quads`` ran it,
@@ -164,10 +167,12 @@ def _where3(c, a, b):
 
 
 def _texel_counts(counts: LaneCounts, mesh, uv, mesh_won, pbr_hits, pbr_lanes, emissive_hit, mat, mr_g,
-                  lobe: bool) -> LaneCounts:
-    """``counts`` with one bounce's texel work filled in (see LaneCounts)."""
+                  lobe: bool, spec) -> LaneCounts:
+    """``counts`` with one bounce's texel work filled in (see LaneCounts);
+    ``mesh_won`` the live lanes whose mesh hit is not a shadow ray's, ``spec``
+    the lanes on a specular path."""
     maps = [getattr(mesh, name) for name in MAP_FIELDS]
-    sampled = (pbr_hits, mesh_won, pbr_lanes, pbr_hits)  # the lanes that sample each map
+    sampled = (pbr_hits, mesh_won, pbr_lanes, pbr_hits & spec)  # the lanes whose sample of each map is read
     reads = tuple(None if tex is None else texels_read(tex, uv[lanes]) for tex, lanes in zip(maps, sampled))
     samples = torch.stack([lanes.sum() * (tex is not None) for tex, lanes in zip(maps, sampled)])
     classes = torch.stack([(pbr_lanes & (mat == m)).sum() for m in (DIFFUSE, CLEARCOAT_DIFFUSE, METAL)])
@@ -322,7 +327,8 @@ def run_bounces(scene: Scene, cfg: IntegratorConfig, state: PathState, lo: int, 
                                           tuple(mesh_steps[2:]) if mesh_steps else None,
                                           parallelogram_tests=alive.sum() * (scene.quads.v0.shape[0] if
                                                                              quad_tests == ["parallelogram"] else 0)))
-            mesh_won = alive & ~miss & (hit.object_id == mesh_id)  # the lanes whose normal-map texel is sampled
+            # the lanes whose normal-map sample is read: a shadow ray that ends on the mesh reads none
+            mesh_won = alive & ~miss & (hit.object_id == mesh_id) & ~sample_light
 
         n = normalize(hit.normal)
         nl = face_forward(n, rd)
@@ -430,7 +436,7 @@ def run_bounces(scene: Scene, cfg: IntegratorConfig, state: PathState, lo: int, 
             pbr_hits = is_pbr = emissive_hit = torch.zeros_like(alive)
         if textured and lane_counts is not None:
             lane_counts[-1] = _texel_counts(lane_counts[-1], scene.mesh, hit.uv, mesh_won, pbr_hits, is_pbr,
-                                            emissive_hit, mat, mr_g, cfg.metal_roughness_lobe)
+                                            emissive_hit, mat, mr_g, cfg.metal_roughness_lobe, spec)
 
         # ---- fixed-schedule RNG draws for this bounce ----------------------
         gate1, bn = bn_next(bn)

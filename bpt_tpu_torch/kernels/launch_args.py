@@ -4,8 +4,8 @@ K1 (``csrc/megakernel.cu``) and K2 (``csrc/staged.cu``) take the same
 argument block, ``TraceArgs`` of ``csrc/path.cuh`` (K2 wraps it in its
 ``StagedArgs``): the scene block (the camera, the parameters and the packed
 quads, spheres, quadrics and mesh constants, one contiguous float32
-tensor), the mesh tables and maps, the blue-noise table, the output planes
-and the switch of the parallelogram quad test.  ``trace_args`` packs and checks
+tensor), the mesh tables, the maps' texel table, the blue-noise table, the
+output planes and the switch of the parallelogram quad test.  ``trace_args`` packs and checks
 one launch's block; ``empty_outputs`` / ``outputs_result`` make a launch's
 output planes and read them back as a RadianceResult.  Both wrappers
 (``kernels/megakernel.py``, ``kernels/staged.py``) import this module, so
@@ -15,6 +15,7 @@ the format lives in one place.
 from __future__ import annotations
 
 import ctypes
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -23,11 +24,12 @@ from bpt_tpu_torch import sky
 from bpt_tpu_torch.camera import Camera, film_extents
 from bpt_tpu_torch.core.sampling import lobe_exponent
 from bpt_tpu_torch.core.vecmath import normalize
-from bpt_tpu_torch.geometry.triangles import cached_on, parallelogram_constants, resolve_fast_quads
+from bpt_tpu_torch.geometry.triangles import _version, cached_on, parallelogram_constants, resolve_fast_quads
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.radiance import RadianceResult, deferred_layout
 from bpt_tpu_torch.scenes.types import (MAP_FIELDS, PBR_MATERIAL, Scene, check_walk_tables, is_textured,
                                         kernel_tables_of)
+from bpt_tpu_torch.textures import texel_quads
 
 #: The kernel's configurations, as ``configuration`` names them.
 CONFIGURATIONS = ("cornell", "quadric", "sky", "mesh", "hdri", "textured")
@@ -211,6 +213,42 @@ def pack_mesh(mesh):
     return consts, kernel_tables_of(mesh)
 
 
+_TEXEL_TABLES: OrderedDict = OrderedDict()
+#: Texel tables kept, the least recently used dropped first: a forward and
+#: a grads table (without the albedo) for each of two map sets.
+_TEXEL_TABLE_SIZE = 4
+
+
+def texel_table_of(mesh, albedo: bool = True) -> tuple:
+    """The texel tables of the mesh's maps in ``MAP_FIELDS`` order
+    (``textures.texel_quads``, None for a map the mesh lacks), made once per
+    map set on the maps' device.  They are keyed on the map tensors
+    themselves and their in-place versions: a map that is replaced or edited
+    in place (an optimiser's step on the albedo) is repacked before the next
+    launch that reads it, and the set's stale tables are dropped then.
+    ``albedo=False`` (the grads mode, which composes the albedo outside the
+    kernel) leaves the albedo out: it is neither packed nor read.  Raises
+    ValueError for a map that is not (H, W, 3) or whose table the kernel's
+    32-bit offsets cannot address."""
+    maps = tuple(None if name == "albedo" and not albedo else getattr(mesh, name) for name in MAP_FIELDS)
+    key = tuple(None if t is None else id(t) for t in maps)
+    versions = tuple(None if t is None else _version(t) for t in maps)
+    hit = _TEXEL_TABLES.get(key)
+    if hit is not None and all(a is b for a, b in zip(hit[0], maps)) and hit[1] == versions:
+        _TEXEL_TABLES.move_to_end(key)
+        return hit[2]
+    for name, t in zip(MAP_FIELDS, maps):
+        if t is not None and (t.dim() != 3 or t.shape[-1] != 3 or 4 * t.shape[0] * t.shape[1] >= 2 ** 31):
+            raise ValueError(f"{name} must be (H, W, 3) with 4 H W below 2**31 (its texel table's 16-byte slots, "
+                             f"which the kernel addresses with 32-bit offsets), got {tuple(t.shape)}")
+    tables = tuple(None if t is None else texel_quads(t) for t in maps)
+    _TEXEL_TABLES.pop(key, None)
+    _TEXEL_TABLES[key] = (maps, versions, tables)
+    if len(_TEXEL_TABLES) > _TEXEL_TABLE_SIZE:
+        _TEXEL_TABLES.popitem(last=False)
+    return tables
+
+
 def pack_camera(camera: Camera, width: int, height: int) -> torch.Tensor:
     """(16,) float32: position, right, up, forward, ulen, vlen, aperture, focus."""
     ulen, vlen = film_extents(camera, width, height)
@@ -271,7 +309,8 @@ def trace_args(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, 
         if not 0 <= light < nq:
             raise ValueError(f"light_index {cfg.light_index} out of range for {nq} quads")
     textured = is_textured(scene.mesh)
-    maps = [getattr(scene.mesh, m) if textured else None for m in MAP_FIELDS]
+    grads = outputs.get("out_sg") is not None
+    maps = [getattr(scene.mesh, m) if textured and not (grads and m == "albedo") else None for m in MAP_FIELDS]
     env = scene.env if cfg.env == "hdri" else None
     hdr = (None,) * 4 if env is None else (env.hdr_image,) + tuple(env.env_cdf or (None,) * 3)
     if cfg.nee != "env":
@@ -297,18 +336,17 @@ def trace_args(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, 
     for key, t in zip(MAP_FIELDS, maps):
         if t is not None:
             check_tensor(key, t, device)
-            if t.dim() != 3 or t.shape[-1] != 3 or t.numel() >= 2 ** 31:
-                raise ValueError(f"{key} must be (H, W, 3) with fewer than 2**31 floats, got {tuple(t.shape)}")
+    texels = texel_table_of(scene.mesh, albedo=not grads) if textured else None
     ptrs = {key: (0 if t is None else t.data_ptr()) for key, t in (tensors | outputs).items()}
     args = TraceArgs(**ptrs, nq=nq, ns=ns, nqd=nqd, width=width, height=height, bounces=cfg.bounces,
                      eps=cfg.eps_intersect, light_index=light, diffuse_indirect_max=cfg.diffuse_indirect_max,
                      camera_is_moving=int(cfg.camera_is_moving), transparent_tint=int(cfg.transparent_tint),
                      metal_roughness_lobe=int(cfg.metal_roughness_lobe), fast_quads=int(fast_quads))
-    for i, t in enumerate(maps):
-        if t is not None:
-            args.tex[i], args.tex_h[i], args.tex_w[i] = t.data_ptr(), t.shape[0], t.shape[1]
+    for i, quads in enumerate(texels if textured else ()):
+        if quads is not None:
+            args.tex[i], args.tex_h[i], args.tex_w[i] = quads.data_ptr(), quads.shape[0], quads.shape[1]
     mesh_arg = 0 if scene.mesh is None else 2 if textured else 1
-    return args, mesh_arg, (tensors, maps)
+    return args, mesh_arg, (tensors, texels)
 
 
 def plane_counts(scene: Scene, cfg: IntegratorConfig) -> tuple[int, int]:

@@ -68,7 +68,8 @@ class MeshTables(NamedTuple):
     inner step and none at a leaf.  A triangle is three 16-byte records, one
     vertex each, a normal record its three vertex normals.  A textured mesh
     (an albedo or a normal map) adds its 24-byte UV record (uv0, uv1, uv2);
-    the kernel reads the maps themselves from the mesh, (H, W, 3) float32.
+    the kernel reads the maps from a texel table of their own, made once per
+    map set (``kernels/launch_args.py`` ``texel_table_of``).
     ``source`` holds the soup and BVH tensors the tables were made from
     (references, no copy), each with its version counter then, so that
     tables that no longer match their mesh, replaced or edited in place, are

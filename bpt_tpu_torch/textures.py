@@ -4,10 +4,11 @@ Port of ``bpt_tpu.textures``: ``sample_bilinear``, ``sample_nearest`` and
 ``perturb_normal`` are the plain PyTorch versions of what the CUDA kernel
 does per lane (``csrc/textures.cuh``), in the same operation order.  A map
 is (H, W, C) float32 with v = 0 at row 0.  The reference's ``quad_pack``
-and ``sample_bilinear_packed`` are not carried: they pack 2x2 texel quads
-because a TPU gather costs the same per row whatever its width, and the
-packed lookup is bit-equal to the raw one.  A GPU thread fetches its four
-taps itself.
+(2x2 texel quads in one row, because a TPU gather costs the same per row
+whatever its width) returns in the kernels' texel table: ``texel_quads``
+packs each map's footprints as 16-byte slots, so that a GPU thread loads a
+sample's four taps from one 64-byte record, and ``sample_table`` is that
+table's plain sampler, bit-equal to ``sample_bilinear``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,11 @@ def _texel_coords(tex: torch.Tensor, uv: torch.Tensor):
     """The bilinear taps' integer rows and columns (int32, then the floored
     modulo of ``jnp.mod``: a UV below 0 or above 1 wraps) and the weights
     fx, fy."""
-    h, w = tex.shape[0], tex.shape[1]
+    return _coords(tex.shape[0], tex.shape[1], uv)
+
+
+def _coords(h: int, w: int, uv: torch.Tensor):
+    """``_texel_coords`` of an (h, w) map."""
     x = uv[..., 0] * w - 0.5
     y = uv[..., 1] * h - 0.5
     x0 = torch.floor(x)
@@ -55,6 +60,34 @@ def sample_bilinear(tex: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     c01 = gather_texels(tex, y0i, x1i)
     c10 = gather_texels(tex, y1i, x0i)
     c11 = gather_texels(tex, y1i, x1i)
+    return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
+
+
+def texel_quads(tex: torch.Tensor) -> torch.Tensor:
+    """The kernels' texel table of one (H, W, 3) map (csrc/textures.cuh):
+    the reference's ``quad_pack`` footprints as 16-byte slots, (H, W, 4, 4)
+    float32 on the map's device.  Record [y, x] holds texels (y, x),
+    (y, x + 1), (y + 1, x) and (y + 1, x + 1) with REPEAT wrap, each its
+    three channels and a zero: the four taps of every sample whose first
+    tap is (y, x).  The same floats as the map; no gradient flows through
+    it."""
+    with torch.no_grad():
+        quads = torch.zeros(tex.shape[:2] + (4, 4), dtype=torch.float32, device=tex.device)
+        down = torch.roll(tex, -1, 0)
+        for k, t in enumerate((tex, torch.roll(tex, -1, 1), down, torch.roll(down, -1, 1))):
+            quads[:, :, k, :3] = t
+    return quads
+
+
+def sample_table(quads: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """``sample_bilinear`` of a map read from its texel table (``texel_quads``),
+    (..., 2) UVs -> (..., 3): one record gathered per sample, its taps
+    combined in ``sample_bilinear``'s order, so the same floats come out.
+    The plain version of the kernels' texel fetch, for the tests."""
+    h, w = quads.shape[0], quads.shape[1]
+    x0i, _, y0i, _, fx, fy = _coords(h, w, uv)
+    rec = quads.reshape(h * w, 16).index_select(0, (y0i * w + x0i).reshape(-1)).reshape(y0i.shape + (4, 4))
+    c00, c01, c10, c11 = (rec[..., k, :3] for k in range(4))
     return (c00 * (1 - fx) + c01 * fx) * (1 - fy) + (c10 * (1 - fx) + c11 * fx) * fy
 
 

@@ -60,6 +60,38 @@ tree made by a patch or a one-line edit, run from the repository's root:
     v k2_bound_4 && sed -i 's/(256, 3) phase_kernel/(256, 4) phase_kernel/' \
         _scratch/k2_bound_4/bpt_tpu_torch/csrc/staged.cu
 
+    python -m bpt_tpu_torch.tools.ab_time --only textured PARENT . V1 V1 . PARENT
+
+times the textured configurations (the checkout's
+chip_smoke.textured_stand_in, four 2048² maps, from chip_smoke.py's raised
+camera at 1024², 4 bounces, frame 2): K1's glTF, HDRI sun and HDRI env
+configurations, forward and grads (device ms per launch, 20 launches
+each); K2's 8-frame pool of the glTF configuration, forward and grads (the
+phases' device ms, and the pool's CUDA-event ms); as controls the same
+mesh and view untextured, forward and grads, and its 8-frame K2 pool; and
+the registers and spills of every textured instantiation of K1 and K2 with
+a digest of the SASS of every other instantiation (``cuobjdump -sass``),
+which shows whether the untextured kernels compiled to the same code.  The
+variants of the texel path that were measured and not kept:
+
+    v texel_interleaved && p texel_interleaved texel_interleaved
+    v texel_per_map && p texel_per_map texel_interleaved && p texel_per_map texel_per_map
+    v texel_quad_interleaved && p texel_quad_interleaved texel_interleaved \
+        && p texel_quad_interleaved texel_quad_interleaved
+    v texel_ungated && p texel_ungated texel_ungated
+    v texel_batched && p texel_batched texel_batched
+    v tex_bound_3 && sed -i 's/(256, 4) \\(trace\\|phase\\)_kernel_textured/(256, 3) \\1_kernel_textured/' \
+        _scratch/tex_bound_3/bpt_tpu_torch/csrc/megakernel.cu _scratch/tex_bound_3/bpt_tpu_torch/csrc/staged.cu
+
+(tex_no_bound likewise with the bound taken out).  texel_interleaved
+interleaves the maps of one size into one record per texel, a 16-byte
+slot each (the record's length a field of the argument block: the untextured
+K2 instantiations' argument offsets move); on top of it texel_per_map gives
+each map a table of 16-byte texels of its own, and texel_quad_interleaved
+interleaves the maps' quad records; texel_ungated samples the normal map on
+shadow rays and the emissive map on every PBR hit; texel_batched loads
+every tap of a PBR hit before the first combine.
+
 scene_scalar reads the scene block from shared memory by scalar loads
 (the parameter pack and the sphere rows without their 16-byte pads);
 scene_constant_bank, on top of it, reads the block from a ``__constant__``
@@ -257,6 +289,41 @@ def measure(checkout: str, only: str | None = None) -> None:
         numbers["step_device_ops"], numbers["step_host_syncs"] = ops, syncs
         return numbers
 
+    def textured_numbers() -> dict:
+        """K1's textured configurations forward and grads, K2's 8-frame
+        textured pools, and the same mesh and view untextured."""
+        from bpt_tpu_torch.kernels import staged
+
+        stand_in = mesh_from_model(chip_smoke.textured_stand_in(heightfield_model()), mat_type=1,
+                                   use_native="require")
+        raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0).to(dev)
+        hdri_scene_ = hdri_scene(stand_in, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev)
+        lobe = dict(bounces=4, env="hdri", diffuse_indirect_max=2, metal_roughness_lobe=True)
+        gltf = gltf_scene(stand_in, device=dev)
+        bare = gltf._replace(mesh=gltf.mesh._replace(albedo=None, normal_map=None, metallic_roughness=None,
+                                                     emissive=None))
+        cases = {"textured": (gltf, IntegratorConfig(bounces=4, metal_roughness_lobe=True)),
+                 "textured_hdri_sun": (hdri_scene_, IntegratorConfig(nee="sun", sun_weight_mode="hdri",
+                                                                     sun_lobe_roughness=0.03, **lobe)),
+                 "textured_hdri_env": (hdri_scene_, IntegratorConfig(nee="env", **lobe)),
+                 "untextured": (bare, IntegratorConfig(bounces=4))}
+        numbers = {}
+        for name, (fscene, fcfg) in cases.items():
+            for mode, k1 in (("fwd", megakernel.trace_image_fused), ("grads", megakernel.trace_image_fused_grads)):
+                numbers[f"{name}_{mode}_device_ms"] = device_ms(
+                    lambda: k1(fscene, raised, fcfg, size, size, 2.0, rv, bn), 20)
+        fcs = [2.0 + i for i in range(8)]
+        rvs = [np.array([(i * 0.173) % 1.0, (i * 0.519) % 1.0], np.float32) for i in range(8)]
+        for name, pscene, pcfg, pgrads in (("textured", gltf, cases["textured"][1], False),
+                                          ("textured_grads", gltf, cases["textured"][1], True),
+                                          ("untextured", bare, cases["untextured"][1], False)):
+            def pool():
+                return staged.trace_staged(pscene, raised, pcfg, size, size, fcs, rvs, bn, grads=pgrads)
+
+            numbers[f"pool_{name}_phases_device_ms"] = device_ms(pool, 2, "phase_kernel") * pcfg.bounces
+            numbers[f"pool_{name}_ms"] = event_ms(pool, 3)
+        return numbers
+
     if only == "closest_hit":
         numbers = closest_hit_ms(mesh_from_model(heightfield_model(), mat_type=1, use_native="require"))
         print_numbers(checkout, numbers)
@@ -267,6 +334,14 @@ def measure(checkout: str, only: str | None = None) -> None:
 
         logs = [f"{build.build(name)}.log" for name in ("megakernel", "staged")]
         print_numbers(checkout, numbers, logs)
+        return
+    if only == "textured":
+        numbers = textured_numbers()
+        from bpt_tpu_torch.kernels import build
+
+        libs = [build.build(name) for name in ("megakernel", "staged")]
+        print_numbers(checkout, numbers, [f"{lib}.log" for lib in libs], textured=True)
+        print(f"{checkout}: sass of the other instantiations: {sass_digests(libs)}", flush=True)
         return
     renderer = ProgressiveRenderer(cornell_scene(), cfg, size, size, device=dev)
     camera = cornell_camera()
@@ -362,19 +437,26 @@ def measure(checkout: str, only: str | None = None) -> None:
     print_numbers(checkout, numbers)
 
 
-def ptxas_report(log: str) -> list[str]:
+def ptxas_report(log: str, textured: bool = False) -> list[str]:
     """The no-mesh instantiations of K1 (``trace_kernel``) and K2
     (``phase_kernel``) in a build log of nvcc -Xptxas -v, one string each:
     "trace_kernel<grads,env,nee>: N registers, F B stack, S/L B spill
-    stores/loads"."""
+    stores/loads"; with ``textured`` the textured ones instead (the parent
+    of the texel table named them ``trace_kernel<grads,env,nee,true>``)."""
     import re
 
-    entry = re.compile(r"Compiling entry function '\w*?(trace_kernel|phase_kernel)ILb([01])ELi(\d)ELi(\d)EEEv")
+    if textured:
+        entry = re.compile(r"Compiling entry function '\w*?(trace_kernel_textured|phase_kernel_textured|trace_kernel|"
+                           r"phase_kernel)ILb([01])ELi(\d)ELi(\d)E(?:Lb1E)?EEvN")
+        keep = re.compile(r"_texturedI|Lb1EEEvN")
+    else:
+        entry = re.compile(r"Compiling entry function '\w*?(trace_kernel|phase_kernel)ILb([01])ELi(\d)ELi(\d)EEEv")
+        keep = re.compile(".")
     out, name, spill = [], None, ""
     for line in log.splitlines():
         m = entry.search(line)
         if "Compiling entry function" in line:
-            name = f"{m.group(1)}<{m.group(2)},{m.group(3)},{m.group(4)}>" if m else None
+            name = f"{m.group(1)}<{m.group(2)},{m.group(3)},{m.group(4)}>" if m and keep.search(line) else None
             spill = ""
         elif name and "stack frame" in line:
             frame, stores, loads = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
@@ -386,18 +468,42 @@ def ptxas_report(log: str) -> list[str]:
     return out
 
 
-def print_numbers(checkout: str, numbers: dict, logs=None) -> None:
+def sass_digests(libs) -> str:
+    """A digest of each library's SASS (``cuobjdump -sass``) over every
+    function but the textured instantiations of K1 and K2, and the number
+    of those functions: equal digests in two checkouts mean the same code.
+    The instructions are read without their encodings, and the addresses of
+    the module's constants (bank 4, laid out over every function of the
+    library) and the file hash in the names are masked."""
+    import hashlib
+    import re
+
+    out = []
+    for lib in libs:
+        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)], capture_output=True, text=True,
+                              check=True).stdout
+        sass = re.sub(r"/\* 0x[0-9a-f]+ \*/", "", sass)
+        sass = re.sub(r"c\[0x4\]\[0x[0-9a-f]+\]", "c[0x4][*]", sass)
+        sass = re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]+", r"_GLOBAL__N_\1", sass)
+        functions = re.split(r"\n\s*Function : ", sass)[1:]
+        kept = sorted(f for f in functions if not re.match(r"\S*(_texturedI|Lb1EEEvN)", f))
+        out.append(f"{Path(lib).name.split('-')[0]} {len(kept)} functions "
+                   f"{hashlib.sha256(''.join(kept).encode()).hexdigest()[:16]}")
+    return "; ".join(out)
+
+
+def print_numbers(checkout: str, numbers: dict, logs=None, textured: bool = False) -> None:
     """One line: the checkout, its numbers, and what nvcc reported for its
     builds (registers, shared memory, stack, spills): every line of the
     checkout's build logs, or with ``logs`` the no-mesh instantiations of
-    those logs (``ptxas_report``)."""
+    those logs (``ptxas_report``; the textured ones with ``textured``)."""
     build = []
     if logs is None:
         for log in sorted(glob.glob(str(Path(checkout) / "bpt_tpu_torch" / "_build" / "*.log"))):
             build += [line.strip() for line in open(log) if "registers" in line or "stack frame" in line]
     else:
         for log in logs:
-            build += ptxas_report(Path(log).read_text())
+            build += ptxas_report(Path(log).read_text(), textured)
     print(f"{checkout}: " + " ".join(f"{k} {v:.4f}" for k, v in numbers.items())
           + (f" | build: {'; '.join(build)}" if build else ""), flush=True)
 
@@ -409,8 +515,8 @@ def main(argv=None) -> int:
         return 0
     only = None
     if argv[:1] == ["--only"]:
-        if argv[1] not in ("closest_hit", "nomesh"):
-            print("--only takes closest_hit or nomesh", file=sys.stderr)
+        if argv[1] not in ("closest_hit", "nomesh", "textured"):
+            print("--only takes closest_hit, nomesh or textured", file=sys.stderr)
             return 2
         only, argv = argv[1], argv[2:]
     if not argv:

@@ -102,9 +102,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   with env NEE, the lobe on.  The plain runs' lane counts
                   must show every PBR class, emissive terminations, texel
                   samples of all four maps and lobe draws with a roughness
-                  above 0.  Then the stand-in with its normal map alone
-                  (no albedo: the mesh's own material, TRANSPARENT), bit for
-                  bit, sampling the normal map only.
+                  above 0; the same under the sky with sun NEE.  Then the
+                  stand-in with its normal map alone (no albedo: the mesh's
+                  own material, TRANSPARENT), bit for bit, sampling the
+                  normal map only.  The texel tables' build time and memory
+                  (forward: every map; grads: no albedo); then at 256²,
+                  forward and grads bit for bit, the stand-in with maps of
+                  three sizes (the albedo and metallic-roughness maps 2048²,
+                  the normal map 1024², the emissive map 512x1024), and
+                  with its albedo halved in place and its normal map
+                  replaced between two launches (repacked: the second
+                  launch differs from the first).
 20. main-textured — ProgressiveRenderer renders 8 spp of each at 1024²: 8
                   launches of the textured configuration, a finite display.
 21. timing-textured — device time (torch.profiler), time through the
@@ -189,7 +197,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   key kernel alone.
 33. timing-staged — 8 frames in one pool (1024², 4 bounces) against 8 K1
                   launches on the Cornell box (forward and grads), the
-                  capacity mesh and its rugged variant: pool ms and
+                  capacity mesh, its rugged variant and the textured
+                  stand-in (forward and grads): pool ms and
                   Mrays/s, each phase, sort key and torch.sort (CUDA
                   events), K2's device time (torch.profiler), its bound and
                   share; on each boundary's state, the key kernel's device
@@ -328,9 +337,12 @@ NEE = {"quad": 0, "sun": 1, "env": 2}
 def instance(grads: bool, env: str, nee: str, mesh: bool, textured: bool = False, kernel: str = "trace_kernel") -> str:
     """The profiler's name of one template instantiation of K1 (``kernel``
     "trace_kernel") or K2 ("phase_kernel"): the kernels without a mesh take
-    (grads, env, nee), those with one (grads, env, nee, textured)."""
-    args = [str(grads).lower(), str(ENV[env]), str(NEE[nee])] + ([str(textured).lower()] if mesh else [])
-    return f"{kernel}<{', '.join(args)}>"
+    (grads, env, nee), those with an untextured one (grads, env, nee,
+    false); a textured mesh's are kernels of their own ("trace_kernel_textured",
+    "phase_kernel_textured") of (grads, env, nee)."""
+    args = [str(grads).lower(), str(ENV[env]), str(NEE[nee])] + ([str(textured).lower()] if mesh and not textured
+                                                                 else [])
+    return f"{kernel}{'_textured' if textured else ''}<{', '.join(args)}>"
 
 
 def phase(name: str, msg: str) -> None:
@@ -398,7 +410,9 @@ def kernel_work(lane_counts, n_quads: int, n_spheres: int, pixels: int, n_quadri
     planes is written once.  Sphere normals of closer hits, quadric and
     mesh normals, NEE draws and all but the cheapest shading branch are left
     out, so the operation count is a lower bound.  With ``textured``, the
-    texel samples (per map), their decode and the normal map's frame, the
+    texel samples an output reads (per map: ``LaneCounts.texel_samples``,
+    no normal-map sample on a shadow ray, no emissive sample off a specular
+    path), their decode and the normal map's frame, the
     UV of each PBR hit and the lobe draws add their operations, and each
     distinct texel the samples read (12 bytes, RGB; 8 of the
     metallic-roughness map, whose G and B are all the decode reads) and the
@@ -625,7 +639,7 @@ def mesh_and_hdri(card: str, bn: torch.Tensor) -> tuple:
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         stats = compare(got, ref)
-        mesh_id = float(sum(g.color.shape[0] for g in (scene.spheres, scene.quads)))
+        mesh_id = float(sum(g.color.shape[0] for g in (scene.spheres, scene.quads) if g is not None))
         share = (ref.object_id == mesh_id).float().mean().item()
         misses = (ref.object_id < -1.0).float().mean().item()
         extra = (f"mesh first hits {share:.4f}, env first-hit misses {misses:.4f}, shadow rays that reached the "
@@ -793,6 +807,71 @@ def textured_stand_in(model, size: int = 2048, seed: int = 6):
     return model._replace(uv0=uv(model.p0), uv1=uv(model.p1), uv2=uv(model.p2), **maps)
 
 
+def textured_parity(scene, cam, cfg, size: int, bn: torch.Tensor, label: str):
+    """K1's forward and grads kernels on a textured ``scene`` against their
+    plain versions at size², frame 2: every plane bit for bit (raises
+    otherwise).  Returns (max abs error, the forward kernel's result)."""
+    from bpt_tpu_torch.kernels import megakernel
+
+    got = megakernel.trace_image_fused(scene, cam, cfg, size, size, 2.0, RAND_VEC2, bn)
+    ref = megakernel.trace_image_fused_reference(scene, cam, cfg, size, size, 2.0, RAND_VEC2, bn)
+    g, sg, deferred = megakernel.trace_image_fused_grads(scene, cam, cfg, size, size, 2.0, RAND_VEC2, bn)
+    r, sg_ref, deferred_ref = megakernel.trace_image_fused_grads_reference(scene, cam, cfg, size, size, 2.0,
+                                                                           RAND_VEC2, bn)
+    torch.cuda.synchronize()
+    pairs = list(zip(got, ref)) + list(zip(tuple(g) + (sg, deferred), tuple(r) + (sg_ref, deferred_ref)))
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    stats = compare(got, ref)
+    phase("parity-textured", f"{label}: forward and grads {size}x{size}, every plane vs plain max_abs_err {err}; "
+                             + json.dumps(stats))
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"textured kernel disagrees with its plain version ({label})")
+    return err, got
+
+
+def texel_table_cases(gltf, cam, bn: torch.Tensor) -> dict:
+    """Phase 19's texel-table cases on the stand-in ``gltf`` (on the card):
+    the tables' build time and memory, maps of three sizes, and maps edited
+    between two launches.  Returns their max abs errors."""
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.kernels import launch_args
+    from bpt_tpu_torch.scenes.types import MAP_FIELDS
+    from bpt_tpu_torch.textures import texel_quads
+
+    mesh = gltf.mesh
+    for label, maps in (("forward", [getattr(mesh, m) for m in MAP_FIELDS]),
+                        ("grads", [None] + [getattr(mesh, m) for m in MAP_FIELDS[1:]])):
+        [texel_quads(t) for t in maps if t is not None]  # warm: the allocator's first blocks
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tables = [texel_quads(t) for t in maps if t is not None]
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        table_mb = sum(q.numel() * 4 for q in tables) / 1e6
+        map_mb = sum(t.numel() * 4 for t in maps if t is not None) / 1e6
+        names = ", ".join(m for m, t in zip(MAP_FIELDS, maps) if t is not None)
+        phase("parity-textured", f"texel tables, {label} ({names}): {[tuple(q.shape) for q in tables]}, "
+                                 f"{table_mb:.1f} MB for {map_mb:.1f} MB of maps, built in {build_ms:.3f} ms")
+        del tables
+    cfg = IntegratorConfig(bounces=BOUNCES, metal_roughness_lobe=True)
+    errs = {}
+    mixed = gltf._replace(mesh=mesh._replace(normal_map=mesh.normal_map[::2, ::2].contiguous(),
+                                             emissive=mesh.emissive[::4, ::2].contiguous()))
+    tables = launch_args.texel_table_of(mixed.mesh)
+    errs["textured_mixed_sizes"], _ = textured_parity(mixed, cam, cfg, GRAD_SIZE, bn, "maps of three sizes, tables "
+                                                      f"{[tuple(q.shape) for q in tables]}")
+    edited = gltf._replace(mesh=mesh._replace(albedo=mesh.albedo.clone(), normal_map=mesh.normal_map.clone()))
+    _, first = textured_parity(edited, cam, cfg, GRAD_SIZE, bn, "maps before the edit")
+    edited.mesh.albedo.mul_(0.5)
+    flipped = torch.flip(edited.mesh.normal_map, (1,)).contiguous()
+    edited = edited._replace(mesh=edited.mesh._replace(normal_map=flipped))
+    errs["textured_edited_maps"], second = textured_parity(edited, cam, cfg, GRAD_SIZE, bn,
+                                                           "the albedo halved in place, the normal map replaced")
+    if torch.equal(first.color, second.color) or torch.equal(first.object_normal, second.object_normal):
+        raise AssertionError("the edited maps were not repacked: the launch after the edit equals the one before")
+    return errs
+
+
 def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
     """Phases 19-22: the textured configuration and the camera cases.
     Returns the textured entry of the kernels line, the textured stand-in's
@@ -805,6 +884,7 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
     from bpt_tpu_torch.scenes.gltf_scene import gltf_scene, hdri_scene, heightfield_model, mesh_from_model
+    from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene
     from bpt_tpu_torch.scenes.types import DIFFUSE, MAP_FIELDS, TRANSPARENT
 
     dev = torch.device("cuda")
@@ -814,26 +894,28 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
     gltf = gltf_scene(mesh, device=dev)
     hdri = hdri_scene(mesh, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev)  # the sun above the horizon
     table_mb = sum(t.numel() * 4 for t in megakernel.pack_mesh(gltf.mesh)[1][:4] if t is not None) / 1e6
-    map_mb = sum(getattr(gltf.mesh, m).numel() * 4 for m in MAP_FIELDS) / 1e6
+    map_mb = sum(getattr(gltf.mesh, m).numel() * 4 for m in MAP_FIELDS) / 1e6  # the texel table: below
     shapes = [tuple(getattr(model, m).shape) for m in MAP_FIELDS]
     phase("parity-textured", f"stand-in: {model.p0.shape[0]} triangles, maps {shapes}, u in "
                              f"[{model.uv0[:, 0].min():.2f}, {model.uv0[:, 0].max():.2f}], v in "
                              f"[{model.uv0[:, 1].min():.2f}, {model.uv0[:, 1].max():.2f}], kernel tables "
-                             f"{table_mb:.1f} MB, maps {map_mb:.1f} MB (one copy, read by the kernel), built in "
+                             f"{table_mb:.1f} MB, maps {map_mb:.1f} MB, built in "
                              f"{time.perf_counter() - t0:.1f} s")
     raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0)
     hdri_base = dict(bounces=BOUNCES, env="hdri", diffuse_indirect_max=2, metal_roughness_lobe=True)
     host_hdri = hdri_scene(mesh, synthetic_hdr(sun_uv=(0.7, 0.7)))
+    sky_cfg = IntegratorConfig(bounces=BOUNCES, env="sky", nee="sun", metal_roughness_lobe=True)
     cases = [  # (key, scene on the card, scene on the host, cfg)
         ("textured", gltf, gltf_scene(mesh), IntegratorConfig(bounces=BOUNCES, metal_roughness_lobe=True)),
         ("textured_hdri_sun", hdri, host_hdri,
          IntegratorConfig(nee="sun", sun_weight_mode="hdri", sun_lobe_roughness=0.03, **hdri_base)),
         ("textured_hdri_env", hdri, host_hdri, IntegratorConfig(nee="env", **hdri_base)),
     ]
+    sky_case = ("textured_sky", physical_sky_scene(device=dev)._replace(mesh=gltf.mesh), None, sky_cfg)
     pixels, rays = SIZE * SIZE, SIZE * SIZE * BOUNCES
     cam = raised.to(dev)
     errs, lanes_of = {}, {}
-    for key, scene, _, cfg in cases:
+    for key, scene, _, cfg in cases + [sky_case]:
         if megakernel.configuration(scene, cfg) != "textured":
             raise AssertionError(f"{key} does not run the textured configuration")
         got = megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
@@ -843,7 +925,7 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
         torch.cuda.synchronize()
         plain_s = time.perf_counter() - t0
         stats = compare(got, ref)
-        mesh_id = float(sum(g.color.shape[0] for g in (scene.spheres, scene.quads)))
+        mesh_id = float(sum(g.color.shape[0] for g in (scene.spheres, scene.quads) if g is not None))
         share = (ref.object_id == mesh_id).float().mean().item()
         classes = [int(x) for x in sum(c.pbr_classes for c in lanes)]
         emissive = sum(int(c.emissive_hits) for c in lanes)
@@ -851,7 +933,9 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
         samples = [int(x) for x in sum(c.texel_samples for c in lanes)]
         phase("parity-textured", f"{key}: mesh first hits {share:.4f}; PBR hits decided DIFFUSE / CLEARCOAT / METAL "
                                  f"{classes}, emissive terminations {emissive}, lobe draws with roughness > 0 {lobe}, "
-                                 f"texel samples (albedo, normal, metallic-roughness, emissive) {samples}, distinct "
+                                 f"texel samples an output reads (albedo, normal, metallic-roughness, emissive; "
+                                 f"the normal map on no shadow ray, the emissive map on specular paths) {samples}, "
+                                 f"distinct "
                                  f"texels read {texels_read(lanes)}; plain {plain_s:.2f} s; " + json.dumps(stats))
         if not stats["ok"]:
             raise AssertionError(f"textured kernel disagrees with its plain version ({key})")
@@ -881,6 +965,7 @@ def textured_and_camera(card: str, bn: torch.Tensor) -> tuple:
         raise AssertionError(f"normal map only: texel samples {samples}, PBR hits {classes}")
     errs["textured_normal_only"] = stats["max_abs_err"]
     del bump, got, ref
+    errs.update(texel_table_cases(gltf, cam, bn))
 
     # ---- 20. the serving path ------------------------------------------------
     launches = {}
@@ -1147,6 +1232,8 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
         ("textured", tex, raised, lobe_cfg),
         ("textured_hdri_sun", hdri_tex, raised, dataclasses.replace(sun_cfg, **lobe)),
         ("textured_hdri_env", hdri_tex, raised, dataclasses.replace(env_cfg, **lobe)),
+        ("textured_sky", physical_sky_scene(device=dev)._replace(mesh=tex.mesh), raised,
+         IntegratorConfig(bounces=BOUNCES, env="sky", nee="sun", **lobe)),
     ]
     grads_info = {}
     for key, scene, cam, cfg in grads_cases:
@@ -1188,6 +1275,8 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
             raise AssertionError(f"the grads kernel disagrees or a branch did not fire ({key})")
         grads_info[key] = dict(scene=scene, cam=cam, cfg=cfg, lanes=lanes, sg=sg_ref, deferred=deferred_ref,
                                plain_ms=plain_ms, err=max(stats["max_abs_err"], plane_err))
+
+    grads_info.pop("textured_sky")  # held to its plain version only: the trainings and timings below leave it out
 
     # ---- 26. the fused gradient on a textured HDRI scene at 256² ---------------------
     gscene, gcam, gcfg = hdri_tex, raised, grads_info["textured_hdri_sun"]["cfg"]
@@ -1505,6 +1594,10 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
         "textured": (tex_scene, raised, lobe_cfg),
         "textured_hdri_sun": (hdri_scene(stand_in, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev), raised,
                               IntegratorConfig(**sun, **hdri_base, metal_roughness_lobe=True)),
+        "textured_hdri_env": (hdri_scene(stand_in, synthetic_hdr(sun_uv=(0.7, 0.7)), device=dev), raised,
+                              IntegratorConfig(nee="env", **hdri_base, metal_roughness_lobe=True)),
+        "textured_sky": (physical_sky_scene(device=dev)._replace(mesh=tex_scene.mesh), raised,
+                         IntegratorConfig(bounces=BOUNCES, env="sky", nee="sun", metal_roughness_lobe=True)),
     }
     frames, rvs = (2.0, 3.0), (RAND_VEC2, np.array([0.6, 0.1], np.float32))
     lanes2 = 2 * SIZE * SIZE
@@ -1716,20 +1809,22 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
     lanes8 = BENCH_FRAMES * SIZE * SIZE
     rays8 = lanes8 * BOUNCES
     rugged = mesh_from_model(heightfield_model(rugged=True), mat_type=DIFFUSE, use_native="require")
-    cells = {"cornell": (configs["cornell_transparent"][0], cornell_camera(device=dev)),
-             "mesh": (mesh_scene, gltf_camera(device=dev)),
-             "mesh_rugged": (gltf_scene(rugged, device=dev), gltf_camera(device=dev))}
+    cells = {"cornell": (configs["cornell_transparent"][0], cornell_camera(device=dev), cfg4),
+             "mesh": (mesh_scene, gltf_camera(device=dev), cfg4),
+             "mesh_rugged": (gltf_scene(rugged, device=dev), gltf_camera(device=dev), cfg4),
+             "textured": configs["textured"]}
     timed = {}
-    for key, (scene, cam) in cells.items():
+    for key, (scene, cam, ccfg) in cells.items():
         has_mesh = scene.mesh is not None
-        grads_modes = (False, True) if key == "cornell" else (False,)
+        textured = megakernel.configuration(scene, ccfg) == "textured"
+        grads_modes = (False, True) if key in ("cornell", "textured") else (False,)
         for grads in grads_modes:
-            def pool(record=None, scene=scene, cam=cam, grads=grads):
-                return staged.trace_staged(scene, cam, cfg4, SIZE, SIZE, fcs, rv8, bn, record=record, grads=grads)
+            def pool(record=None, scene=scene, cam=cam, ccfg=ccfg, grads=grads):
+                return staged.trace_staged(scene, cam, ccfg, SIZE, SIZE, fcs, rv8, bn, record=record, grads=grads)
 
-            def mono(scene=scene, cam=cam, grads=grads):
+            def mono(scene=scene, cam=cam, ccfg=ccfg, grads=grads):
                 trace = megakernel.trace_image_fused_grads if grads else megakernel.trace_image_fused
-                return [trace(scene, cam, cfg4, SIZE, SIZE, f, rv, bn) for f, rv in zip(fcs, rv8)]
+                return [trace(scene, cam, ccfg, SIZE, SIZE, f, rv, bn) for f, rv in zip(fcs, rv8)]
 
             pool_ms, mono_ms = event_ms(pool, iters=3, warmup=1), event_ms(mono, iters=3, warmup=1)
             pool_ms2, mono_ms2 = event_ms(pool, iters=3, warmup=0), event_ms(mono, iters=3, warmup=0)
@@ -1744,7 +1839,7 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
             key_ms = [sums[f"key {b}"] for b in range(1, BOUNCES)]
             sort_ms = [sums[f"sort {b}"] for b in range(1, BOUNCES)]
             kt = {"device": [], "events": [], "rows": [], "plain": [], "bound": [], "live": []}  # per boundary
-            for state, boxes in boundary_states(scene, cam, cfg4, fcs, rv8, bn, grads=grads):
+            for state, boxes in boundary_states(scene, cam, ccfg, fcs, rv8, bn, grads=grads):
                 kt["events"].append(event_ms(lambda state=state, boxes=boxes: staged.launch_key(state, boxes=boxes),
                                             iters=20, warmup=2))
                 kt["device"].append(key_device_ms(lambda state=state, boxes=boxes: staged.launch_key(state,
@@ -1754,22 +1849,23 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
                 kt["bound"].append(bound(*key_work(state))[0])
                 kt["live"].append(int(((state[:, staged.FLAGS_WORD] & 1) != 0).sum().item()))
             key_dev = [sum(d) if d is not None else e for d, e in zip(kt["device"], kt["events"])]
-            dev_k2 = kernel_device_ms(pool, 2, instance(grads, "none", "quad", has_mesh, kernel="phase_kernel"))
-            dev_k1 = kernel_device_ms(mono, 2, instance(grads, "none", "quad", has_mesh))
+            dev_k2 = kernel_device_ms(pool, 2, instance(grads, "none", "quad", has_mesh, textured, "phase_kernel"))
+            dev_k1 = kernel_device_ms(mono, 2, instance(grads, "none", "quad", has_mesh, textured))
             lanes = []
             scale = BENCH_FRAMES if has_mesh else 1  # the plain walk takes seconds a frame: frame 2's counts, x 8
             t0 = time.perf_counter()
-            plain_out = staged.trace_staged(scene, cam, cfg4, SIZE, SIZE, fcs[:BENCH_FRAMES // scale],
+            plain_out = staged.trace_staged(scene, cam, ccfg, SIZE, SIZE, fcs[:BENCH_FRAMES // scale],
                                             rv8[:BENCH_FRAMES // scale], bn, lane_counts=lanes,
                                             grads=grads)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
             n_q, n_s = scene.quads.v0.shape[0], 0 if scene.spheres is None else scene.spheres.color.shape[0]
-            flop, nbytes = staged_work(lanes, BENCH_FRAMES, lanes8, scale, n_quads=n_q, n_spheres=n_s, mesh=has_mesh)
-            if grads:  # the sg planes: one add per counted hit, each plane written once
+            flop, nbytes = staged_work(lanes, BENCH_FRAMES, lanes8, scale, n_quads=n_q, n_spheres=n_s, mesh=has_mesh,
+                                       textured=textured, deferred=grads)
+            if grads:  # the sg and deferred planes: one add per counted hit, each plane written once
                 sg, n_obj = plain_out[1], n_q + n_s
-                flop += sg[:n_obj].sum().item() + 2 * (sg[n_obj:] > 0).sum().item()
-                nbytes += 4 * lanes8 * sg.shape[0]
+                flop += scale * (sg[:n_obj].sum().item() + 2 * (sg[n_obj:] > 0).sum().item())
+                nbytes += 4 * lanes8 * (sg.shape[0] + plain_out[2].shape[0])
             bound_ms, bound_by = bound(flop, nbytes)
             k2_ms = sum(phase_ms)
             dev_pool = None if dev_k2 is None else dev_k2 * BOUNCES
@@ -1804,7 +1900,9 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
     entries = [dict(name="staged_cornell", launches=main_launches["cornell"], **common, **timed["cornell"]),
                dict(name="staged_cornell_grads", launches=train_launches, **common, **timed["cornell grads"]),
                dict(name="staged_mesh", launches=main_launches["mesh"], **common, **timed["mesh"],
-                    **{f"rugged_{k}": v for k, v in timed["mesh_rugged"].items()})]
+                    **{f"rugged_{k}": v for k, v in timed["mesh_rugged"].items()},
+                    **{f"textured_{k}": v for k, v in timed["textured"].items()},
+                    **{f"textured_grads_{k}": v for k, v in timed["textured grads"].items()})]
     mesh_key = timed["mesh"]  # the 8-frame capacity pool: per key, the mean of its three boundaries
     entries.append(dict(name="staged_key", route="cuda", source="bpt_tpu_torch/csrc/sort_key.cu",
                         replaces="bpt_tpu/kernels/megakernel.py:2631", launches=main_keys, max_abs_err=key_err,

@@ -771,6 +771,20 @@ def textured_model(mr=None, emissive=None, varying=False, normal=False, T=128, a
                      uv2=uv[:, 2], albedo=albedo_map, normal_map=nmap, metallic_roughness=mrm, emissive=em)
 
 
+def mixed_size_model() -> GLTFModel:
+    """``textured_model(varying=True, normal=True)`` with maps of three
+    sizes: a 24x40 albedo and emissive map (10% of its texels lit), which
+    share one record of the texel table, the 16x16 normal map, and the
+    metallic-roughness map cut to its first row (1x16)."""
+    m = textured_model(varying=True, normal=True)
+    rng = np.random.default_rng(11)
+    albedo = rng.uniform(0.1, 1.0, (24, 40, 3)).astype(np.float32)
+    lit = rng.uniform(0, 1, (24, 40, 1)) < 0.1
+    emissive = np.where(lit, np.array([0.9, 0.6, 0.3], np.float32), 0.0).astype(np.float32)
+    return m._replace(albedo=albedo, emissive=emissive,
+                      metallic_roughness=np.ascontiguousarray(m.metallic_roughness[:1]))
+
+
 def _textured_cases(device):
     """The textured blob in front of each demo camera: the glTF box with the
     lobe (the demo's configuration) and without it (a constant clearcoat
@@ -789,6 +803,10 @@ def _textured_cases(device):
         mesh=gltf_scene(mesh_from_model(varying, **sky), device=device).mesh)
     return {
         "gltf-lobe": (gltf_scene(mesh_from_model(varying, **box), device=device), gltf_camera(device=device), lobe),
+        "mixed-sizes": (gltf_scene(mesh_from_model(mixed_size_model(), **box), device=device),
+                        gltf_camera(device=device), lobe),
+        "edited-albedo": (gltf_scene(mesh_from_model(varying, **box), device=device), gltf_camera(device=device),
+                          lobe),
         "gltf-glow": (gltf_scene(mesh_from_model(textured_model(mr=(0.0, 0.25, 0.0), emissive=(0.4, 0.2, 0.1),
                                                                 normal=True), **box), device=device),
                       gltf_camera(device=device), IntegratorConfig(bounces=4)),
@@ -810,9 +828,17 @@ def _textured_cases(device):
     }
 
 
+def _edit_maps(scene):
+    """The textured scene with its albedo halved in place and its normal map
+    replaced by a flipped copy: the next launch must repack both."""
+    mesh = scene.mesh
+    mesh.albedo.mul_(0.5)
+    return scene._replace(mesh=mesh._replace(normal_map=torch.flip(mesh.normal_map, dims=(1,)).contiguous()))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["gltf-lobe", "gltf-glow", "hdri-sun", "hdri-env", "sky", "normal-only-transparent",
-                                  "normal-only-diffuse", "dof", "moving"])
+                                  "normal-only-diffuse", "dof", "moving", "mixed-sizes", "edited-albedo"])
 def test_cuda_textured_and_camera_cases_match_plain_version(cuda_device, case):
     """64x64, 4 bounces, frame 2: the textured configuration (under quad,
     sun and env NEE, with and without the metal roughness lobe, and with a
@@ -822,19 +848,30 @@ def test_cuda_textured_and_camera_cases_match_plain_version(cuda_device, case):
     claims: every PBR class, emissive terminations and lobe draws with a
     roughness above 0 (varying maps); with a normal map alone, normal-map
     samples and no PBR hit; the lens is open; the moving flag changes the
-    sharpness flags."""
+    sharpness flags.  With maps of three sizes (two of them sharing the
+    texel table's records, one a single row), and after the albedo is
+    edited in place and the normal map replaced between two launches (the
+    second launch repacks both and differs from the first)."""
     scene, cam, cfg = _textured_cases(cuda_device)[case]
     bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
     name = megakernel.configuration(scene, cfg)
     assert name == ("cornell" if case in ("dof", "moving") else "textured")
-    before = megakernel.LAUNCHES[name]
-    got = megakernel.trace_image_fused(scene, cam, cfg, 64, 64, 2.0, RV, bn)
-    assert megakernel.LAUNCHES[name] == before + 1
-    counts = []
-    ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 64, 64, 2.0, RV, bn, lane_counts=counts)
-    torch.cuda.synchronize()
-    for a, b in zip(got, ref):
-        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    runs = []
+    for _ in range(2 if case == "edited-albedo" else 1):
+        if runs:
+            scene = _edit_maps(scene)
+        before = megakernel.LAUNCHES[name]
+        got = megakernel.trace_image_fused(scene, cam, cfg, 64, 64, 2.0, RV, bn)
+        assert megakernel.LAUNCHES[name] == before + 1
+        counts = []
+        ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 64, 64, 2.0, RV, bn, lane_counts=counts)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        runs.append(got)
+    if len(runs) == 2:
+        assert not torch.equal(runs[0].color, runs[1].color)
+        assert not torch.equal(runs[0].object_normal, runs[1].object_normal)
     if case.startswith("normal-only"):
         samples = sum(c.texel_samples for c in counts).tolist()
         assert samples[1] > 0 and sum(samples) == samples[1], samples
@@ -854,15 +891,19 @@ def test_cuda_textured_and_camera_cases_match_plain_version(cuda_device, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["gltf-lobe", "gltf-glow", "hdri-sun", "hdri-env", "sky", "normal-only-transparent",
-                                  "normal-only-diffuse"])
+                                  "normal-only-diffuse", "mixed-sizes", "edited-albedo"])
 def test_cuda_textured_grads_kernels_match_plain_version(cuda_device, case):
     """The grads mode of the textured configuration under quad, sun and env
     NEE: every plane equal to the plain version's bit for bit, the composed
     color within float rounding of the forward kernel's; the plain run
     shows albedo factors deferred (and emissive terminations where the maps
-    glow)."""
+    glow).  With maps of three sizes, and after an edit of the albedo (which
+    the grads kernel does not read; the composition does) and of the normal
+    map between two launches."""
     scene, cam, cfg = _textured_cases(cuda_device)[case]
     counts = _grads_case_check(scene, cam, cfg, cuda_device)
+    if case == "edited-albedo":
+        counts = _grads_case_check(_edit_maps(scene), cam, cfg, cuda_device)
     if not case.startswith("normal-only"):
         assert sum(int(c.emissive_hits) for c in counts) > 0
         assert sum(sum(c.pbr_classes.tolist()) for c in counts) > 0
