@@ -83,19 +83,32 @@ _CACHE: OrderedDict = OrderedDict()
 _CACHE_SIZE = 64
 
 
-def _version(t: torch.Tensor) -> int:
+def _version(t: torch.Tensor) -> int | None:
+    """``t``'s in-place version, the one key of the port's table caches
+    (this module's, ``scenes.types.resident_tables``,
+    ``kernels.launch_args.texel_table_of``); None for a tensor that keeps
+    no version counter, one made under ``torch.inference_mode``.  Such a
+    tensor can still be edited in place inside inference mode, unseen, so
+    a result made from it must never be served again."""
     try:
         return t._version
-    except RuntimeError:  # an inference tensor keeps no version counter (and cannot be edited in place)
-        return -1
+    except RuntimeError:
+        return None
 
 
 def cached_on(tensors: tuple, tag: str, make):
     """``make()``, made once per set of tensor objects (and their in-place
     edits) and ``tag``, kept while it is among the ``_CACHE_SIZE`` most
     recently used.  The cache holds the tensors themselves: an ``id``
-    alone can be reused by another object once the first is freed."""
-    key = (tag,) + tuple((id(t), _version(t)) for t in tensors)
+    alone can be reused by another object once the first is freed.  Made
+    anew on every call, and not kept, where a tensor has no version
+    (``_version``).  A result made under ``torch.inference_mode`` is an
+    inference tensor, which autograd cannot save: it is served only inside
+    inference mode."""
+    versions = tuple(_version(t) for t in tensors)
+    if None in versions:
+        return make()
+    key = (tag, torch.is_inference_mode_enabled()) + tuple(zip(map(id, tensors), versions))
     hit = _CACHE.get(key)
     if hit is not None and all(a is b for a, b in zip(hit[0], tensors)):
         _CACHE.move_to_end(key)

@@ -225,7 +225,9 @@ def texel_table_of(mesh, albedo: bool = True) -> tuple:
     map set on the maps' device.  They are keyed on the map tensors
     themselves and their in-place versions: a map that is replaced or edited
     in place (an optimiser's step on the albedo) is repacked before the next
-    launch that reads it, and the set's stale tables are dropped then.
+    launch that reads it, and the set's stale tables are dropped then.  A
+    map without a version (an inference tensor, ``triangles._version``) has
+    its set packed anew on every call, and not kept.
     ``albedo=False`` (the grads mode, which composes the albedo outside the
     kernel) leaves the albedo out: it is neither packed nor read.  Raises
     ValueError for a map that is not (H, W, 3) or whose table the kernel's
@@ -233,7 +235,8 @@ def texel_table_of(mesh, albedo: bool = True) -> tuple:
     maps = tuple(None if name == "albedo" and not albedo else getattr(mesh, name) for name in MAP_FIELDS)
     key = tuple(None if t is None else id(t) for t in maps)
     versions = tuple(None if t is None else _version(t) for t in maps)
-    hit = _TEXEL_TABLES.get(key)
+    unversioned = any(t is not None and v is None for t, v in zip(maps, versions))
+    hit = None if unversioned else _TEXEL_TABLES.get(key)
     if hit is not None and all(a is b for a, b in zip(hit[0], maps)) and hit[1] == versions:
         _TEXEL_TABLES.move_to_end(key)
         return hit[2]
@@ -242,6 +245,8 @@ def texel_table_of(mesh, albedo: bool = True) -> tuple:
             raise ValueError(f"{name} must be (H, W, 3) with 4 H W below 2**31 (its texel table's 16-byte slots, "
                              f"which the kernel addresses with 32-bit offsets), got {tuple(t.shape)}")
     tables = tuple(None if t is None else texel_quads(t) for t in maps)
+    if unversioned:
+        return tables
     _TEXEL_TABLES.pop(key, None)
     _TEXEL_TABLES[key] = (maps, versions, tables)
     if len(_TEXEL_TABLES) > _TEXEL_TABLE_SIZE:

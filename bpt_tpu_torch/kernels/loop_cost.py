@@ -19,8 +19,9 @@ rounded FMA, so both versions and JAX agree bit for bit.  The constants are
 the float32 roundings of JAX's weakly typed Python floats.
 
 ``loop_cost(tab, x, n_iter, n_ops, use_reduce, use_cond)`` launches the
-kernel on CUDA tensors (one block; ``CONFIGS`` lists the instantiations)
-and runs ``loop_cost_reference`` on CPU tensors.  A failed build or launch,
+kernel on CUDA tensors (``CONFIGS`` lists the instantiations; each is one
+thread-block cluster whose blocks share the tile's rows, ``mapping`` says
+how many) and runs ``loop_cost_reference`` on CPU tensors.  A failed build or launch,
 a configuration without an instantiation, or a tensor of another dtype,
 shape or device raises.
 """
@@ -95,7 +96,20 @@ def _library() -> ctypes.CDLL:
     p = ctypes.c_void_p
     lib.bpt_loop_cost.argtypes = [p, p, p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, p]
     lib.bpt_loop_cost.restype = ctypes.c_int
+    lib.bpt_loop_cost_cluster.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
+    lib.bpt_loop_cost_cluster.restype = ctypes.c_int
     return lib
+
+
+def mapping(config: tuple) -> tuple[int, int]:
+    """(blocks of the cluster, tile values per thread) of the kernel's
+    instantiation for ``config`` = (n_ops, use_reduce, use_cond), as
+    csrc/loop_cost.cu keeps it: the cluster's blocks split the tile's 8
+    rows, each thread holds its column's share.  Builds the kernel."""
+    if config not in LAUNCHES:
+        raise ValueError(f"no kernel instantiation for (n_ops, use_reduce, use_cond) = {config}")
+    cluster = _library().bpt_loop_cost_cluster(config[0], int(config[1]), int(config[2]))
+    return cluster, TILE[0] // cluster
 
 
 def _check(tab: torch.Tensor, x: torch.Tensor, n_iter: int) -> None:

@@ -17,6 +17,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from bpt_tpu_torch.geometry.triangles import _version
+
 # Material type ids (the reference's enum values).  Only the ids the ported
 # families dispatch on are carried; PBR_MATERIAL is a textured mesh's, decided
 # per texel into DIFFUSE, CLEARCOAT_DIFFUSE or METAL.
@@ -73,7 +75,8 @@ class MeshTables(NamedTuple):
     ``source`` holds the soup and BVH tensors the tables were made from
     (references, no copy), each with its version counter then, so that
     tables that no longer match their mesh, replaced or edited in place, are
-    never used."""
+    never used; tables made from inference tensors, which keep no version
+    counter, are used by no later call."""
 
     nodes: torch.Tensor  # (R, 4, 4): R = T for a BVH of one triangle per leaf
     tris: torch.Tensor  # (T, 3, 4)
@@ -175,7 +178,7 @@ def mesh_tables(mesh: TriangleMesh) -> MeshTables:
     tris = torch.stack([rows(p, zeros) for p in (mesh.p0, mesh.p1, mesh.p2)], dim=1).view(torch.float32)
     normals = torch.stack([rows(n, zeros) for n in (mesh.n0, mesh.n1, mesh.n2)], dim=1).view(torch.float32)
     tables = MeshTables(nodes, tris, normals,
-                        source=tuple((t, t._version) for t in (getattr(mesh, f) for f in TABLE_SOURCE_FIELDS)))
+                        source=tuple((t, _version(t)) for t in (getattr(mesh, f) for f in TABLE_SOURCE_FIELDS)))
     if not is_textured(mesh):
         return tables
     uvs = torch.stack([mesh.uv0, mesh.uv1, mesh.uv2], dim=1).to(torch.float32).contiguous()
@@ -201,11 +204,13 @@ def check_walk_tables(tables: MeshTables) -> None:
 def resident_tables(mesh: TriangleMesh) -> Optional[MeshTables]:
     """The mesh's ``kernel_tables`` if they were made from the soup and BVH
     tensors it holds now, unedited since (and carry the UV records a
-    textured mesh needs), else None."""
+    textured mesh needs), else None: always None where a source tensor has
+    no version (an inference tensor, ``geometry.triangles._version``)."""
     tables = mesh.kernel_tables
     if tables is None or len(tables.source) != len(TABLE_SOURCE_FIELDS):
         return None
-    if not all(t is getattr(mesh, f) and v == t._version for (t, v), f in zip(tables.source, TABLE_SOURCE_FIELDS)):
+    if not all(v is not None and t is getattr(mesh, f) and v == _version(t)
+               for (t, v), f in zip(tables.source, TABLE_SOURCE_FIELDS)):
         return None
     return None if is_textured(mesh) and tables.uvs is None else tables
 
@@ -244,7 +249,9 @@ class Scene(NamedTuple):
         keeps its kernel tables where its soup and BVH were already there and
         the tables were made from them (an inverse-rendering step moves the
         scene every step: 84 MB of tables for a 524,288-triangle mesh), and
-        gets new ones otherwise; elsewhere they are dropped."""
+        gets new ones otherwise, except where a source tensor keeps no
+        version (an inference tensor): no cache serves such tables, so each
+        launch makes its own; elsewhere they are dropped."""
 
         def field(t, name):
             if t is None or name == "kernel_tables":
@@ -262,9 +269,11 @@ class Scene(NamedTuple):
 
         scene = Scene(*(move(group) for group in self))
         if scene.mesh is not None and torch.device(device).type == "cuda":
-            tables = resident_tables(scene.mesh._replace(kernel_tables=self.mesh.kernel_tables))
-            scene = scene._replace(mesh=scene.mesh._replace(
-                kernel_tables=mesh_tables(scene.mesh) if tables is None else tables))
+            mesh = scene.mesh._replace(kernel_tables=self.mesh.kernel_tables)
+            tables = resident_tables(mesh)
+            if tables is None and all(_version(getattr(mesh, f)) is not None for f in TABLE_SOURCE_FIELDS):
+                tables = mesh_tables(mesh)
+            scene = scene._replace(mesh=mesh._replace(kernel_tables=tables))
         return scene
 
 

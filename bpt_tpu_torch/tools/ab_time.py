@@ -97,14 +97,36 @@ scene_scalar reads the scene block from shared memory by scalar loads
 scene_constant_bank, on top of it, reads the block from a ``__constant__``
 bank filled by a device-to-device copy on the launch's stream before each
 launch; the other three change a register bound.
+
+    python -m bpt_tpu_torch.tools.ab_time --only loop_cost PARENT . V1 V1 . PARENT
+
+times K5's seven configurations: ns/iter by CUDA events and device ms a
+launch by the profiler, 5 launches of 4000 iterations each (the tool's
+default), with each checkout's mapping (blocks of the cluster x tile
+values a thread; a checkout from before the cluster, one block x 8),
+ptxas's registers for each instantiation and a digest of the SASS of the
+other four libraries (K1, K2, the sort key, K3).  The mappings measured
+and not kept: every configuration on 1, 2, 4 or 8 blocks, and the vote
+through a cluster barrier a trip instead of iteration-tagged words:
+
+    for n in 1 2 4 8; do v loop_cost_cluster$n && p loop_cost_cluster$n loop_cost_cluster$n; done
+    v loop_cost_barrier && p loop_cost_barrier loop_cost_barrier \
+        && p loop_cost_barrier loop_cost_cluster8
+
+(copy the other four libraries of ``_build/`` into each such checkout to
+spare their builds: same sources, same hashes).
 """
 
 from __future__ import annotations
 
 import glob
+import re
 import subprocess
 import sys
 from pathlib import Path
+
+
+LOOP_ITERS = 4000  # K5's iterations a launch, the tool's default
 
 
 def bounce_rays(scene, cam, cfg, size: int, rand_vec2, bn, bounce: int) -> tuple:
@@ -184,7 +206,9 @@ def cornell_step(megakernel, scene, cam, cfg, size: int, frames: int, bn, rv):
 def measure(checkout: str, only: str | None = None) -> None:
     """One checkout, in this process: print one line of numbers (``only``
     "closest_hit": the closest-hit kernel's alone; "nomesh": K1 without a
-    mesh, K2's Cornell and sky pools and the Cornell step's counts)."""
+    mesh, K2's Cornell and sky pools and the Cornell step's counts;
+    "textured": the textured configurations; "loop_cost": K5's seven
+    configurations)."""
     sys.path.insert(0, checkout)
     import numpy as np
     import torch
@@ -324,6 +348,35 @@ def measure(checkout: str, only: str | None = None) -> None:
             numbers[f"pool_{name}_ms"] = event_ms(pool, 3)
         return numbers
 
+    if only == "loop_cost":
+        from bpt_tpu_torch.kernels import build
+        from bpt_tpu_torch.kernels import loop_cost as k5
+        from bpt_tpu_torch.tools import loop_cost as tool
+
+        tab, x = torch.from_numpy(tool.table()).to(dev), torch.from_numpy(tool.tile_input(0)).to(dev)
+        numbers, mappings = {}, []
+        for config in k5.CONFIGS:
+            n_ops, red, cond = config
+            name = f"ops{n_ops}_r{int(red)}_c{int(cond)}"
+
+            def launch():
+                return k5.loop_cost(tab, x, LOOP_ITERS, *config)
+
+            numbers[f"{name}_ns_per_iter"] = event_ms(launch, 5) * 1e6 / LOOP_ITERS
+            numbers[f"{name}_device_ms"] = device_ms(
+                launch, 5, f"loop_cost_kernel<{n_ops}, {str(red).lower()}, {str(cond).lower()}")
+            mapping = getattr(k5, "mapping", None)  # a checkout before the cluster mapping: one block
+            cluster, values = mapping(config) if mapping else (1, 8)
+            mappings.append(f"{name} {cluster}x{values}")
+        print_numbers(checkout, numbers, [])
+        log = Path(f"{build.build(k5.KERNEL)}.log").read_text().splitlines()
+        entry = re.compile(r"loop_cost_kernelILi(\d+)ELb([01])ELb([01])E(?:Li(\d)E)?")
+        ptxas = [("<" + ",".join(g for g in entry.search(line).groups() if g) + ">") if "Compiling entry" in line
+                 else line.split(":", 1)[-1].strip() for line in log if "Compiling entry" in line or "Used" in line]
+        others = [build.build(name) for name in ("megakernel", "staged", "sort_key", "closest_hit")]
+        print(f"{checkout}: mapping (blocks x values a thread): {', '.join(mappings)}; ptxas: {' '.join(ptxas)}; "
+              f"sass of the other kernels: {sass_digests(others)}", flush=True)
+        return
     if only == "closest_hit":
         numbers = closest_hit_ms(mesh_from_model(heightfield_model(), mat_type=1, use_native="require"))
         print_numbers(checkout, numbers)
@@ -515,8 +568,8 @@ def main(argv=None) -> int:
         return 0
     only = None
     if argv[:1] == ["--only"]:
-        if argv[1] not in ("closest_hit", "nomesh", "textured"):
-            print("--only takes closest_hit, nomesh or textured", file=sys.stderr)
+        if argv[1] not in ("closest_hit", "nomesh", "textured", "loop_cost"):
+            print("--only takes closest_hit, nomesh, textured or loop_cost", file=sys.stderr)
             return 2
         only, argv = argv[1], argv[2:]
     if not argv:

@@ -121,6 +121,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   UV records read added) and its share, peak device memory.
 22. parity-camera — the Cornell kernel with a thin lens (aperture 1, focus
                   100) and with camera_is_moving, bit for bit at 1024².
+22b. inference-mode — K1 under torch.inference_mode on the capacity mesh
+                  and on the textured stand-in, scenes moved to the card
+                  inside it (inference tensors: Scene.to makes no tables
+                  for them, each launch makes its own), bit-equal to the frames of the same scenes
+                  made outside it; CUDA-event times of one mesh_tables
+                  build, one texel-table build and a K1 launch with
+                  resident tables, under no_grad and under inference_mode.
 23. parity-closest-hit — the closest-hit kernel against the plain walk, bit
                   for bit in t, tri, u and v, at 1024²: the capacity mesh's
                   primary rays from the glTF and the raised camera, bounce
@@ -208,17 +215,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   fwd+bwd step
                   w.r.t. its albedo map, staged against monolithic.
 34. parity-loop-cost — K5 (csrc/loop_cost.cu, the walk-loop cost
-                  microbenchmark) in its seven configurations against its
-                  plain version on the card, bit for bit, at 50 iterations:
-                  on the tool's inputs, and on a seeded table whose rows grow
-                  or shrink the tile (the any-reduce both set and clear).
+                  microbenchmark, each configuration one thread-block
+                  cluster) in its seven configurations against its plain
+                  version on the card, bit for bit, at 50 iterations: on the
+                  tool's inputs, and on a seeded table whose rows grow or
+                  shrink the tile (the any-reduce both set and clear); and
+                  at 4 iterations on a shrinking table with one rising
+                  element placed in each of the tile's 8 rows in turn (the
+                  flag set by one block of the cluster alone).
 35. main-loop-cost — the tool's main path, `python -m
                   bpt_tpu_torch.tools.loop_cost --iters 4000`: every
                   configuration launched, the outputs what its data give.
-36. timing-loop-cost — per configuration: ns/iter (CUDA events), device
+36. timing-loop-cost — per configuration: its mapping (blocks of the
+                  cluster, values a thread), ns/iter (CUDA events), device
                   time (torch.profiler), bound and share, the plain version's
                   ns/iter, the SASS's instruction counts (cuobjdump; each
-                  instantiation must keep its loop); a utils.profiling
+                  instantiation must keep its loop); the cost of one chain
+                  step (ns and cycles at the SM clock read under K5's load,
+                  from the slope of the CUDA-event ns/iter between ops 100
+                  and 320) and each
+                  configuration's chain floor; a utils.profiling
                   section around a launch waits for the card, and
                   device_trace writes a Chrome trace that holds the kernel.
 37. checkpoint  — a 1024² Cornell ProgressiveRenderer renders 3 frames, is
@@ -256,6 +272,7 @@ the same work), the card's name and power limit, and a last JSON line
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -1083,6 +1100,67 @@ def closest_hit_work(ro, rd, cull: bool, active, mesh) -> tuple[float, float, li
                "p99_steps": walking.quantile(0.99).item() if walking.numel() else 0.0,
                "max_steps": int(walking.max().item()) if walking.numel() else 0}
     return flop, nbytes, [visits, tests], lengths
+
+
+def inference_mode_path(card: str, bn: torch.Tensor, capacity, stand_in) -> None:
+    """Phase 22b: K1 under torch.inference_mode on the capacity mesh (glTF
+    camera) and on the textured stand-in (the raised camera, the lobe on).
+    Their tensors moved to the card inside inference mode keep no version
+    counter, so every launch makes the mesh's kernel tables (and the
+    stand-in's texel tables) anew: each frame is bit-equal to the frame of
+    the same scene made outside inference mode, whose tables stay resident.
+    Times (CUDA events) one mesh_tables build, one texel-table build and a
+    K1 launch in each mode, and under torch.no_grad."""
+    from bpt_tpu_torch.camera import Camera
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.kernels import launch_args, megakernel
+    from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene
+    from bpt_tpu_torch.scenes.types import mesh_tables
+
+    dev = torch.device("cuda")
+    raised = Camera.look(position=(0.0, 10.0, -70.0), pitch=0.5, fov=0.8, focus_distance=113.0).to(dev)
+    cases = (("capacity", capacity, gltf_camera(dev), IntegratorConfig(bounces=BOUNCES), "mesh"),
+             ("textured stand-in", stand_in, raised, IntegratorConfig(bounces=BOUNCES, metal_roughness_lobe=True),
+              "textured"))
+    for label, model_mesh, cam, cfg, family in cases:
+        outside = gltf_scene(model_mesh, device=dev)
+        with torch.inference_mode():
+            inside = gltf_scene(model_mesh, device=dev)
+        if outside.mesh.kernel_tables is None or inside.mesh.kernel_tables is not None:
+            raise AssertionError(f"inference mode, {label}: Scene.to made tables for inference tensors, or none "
+                                 f"for normal ones")
+
+        def frame(scene, mode=None):
+            def call():
+                with mode() if mode else contextlib.nullcontext():
+                    return megakernel.trace_image_fused(scene, cam, cfg, SIZE, SIZE, 2.0, RAND_VEC2, bn)
+            return call
+
+        def in_inference(fn):
+            def call():
+                with torch.inference_mode():
+                    return fn()
+            return call
+
+        want = frame(outside)()
+        before = megakernel.LAUNCHES[family]
+        got = frame(inside, torch.inference_mode)()
+        torch.cuda.synchronize()
+        if megakernel.LAUNCHES[family] != before + 1 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"inference mode, {label}: the K1 frame is not the frame made outside it")
+        resident_ms = event_ms(frame(outside), iters=5, warmup=1)
+        no_grad_ms = event_ms(frame(outside, torch.no_grad), iters=5, warmup=1)
+        inference_ms = event_ms(frame(inside, torch.inference_mode), iters=5, warmup=1)
+        tables_ms = event_ms(in_inference(lambda: mesh_tables(inside.mesh)), iters=5, warmup=1)
+        line = (f"{card}: {label}, {int(model_mesh.p0.shape[0])} triangles, {SIZE}x{SIZE}, {BOUNCES} bounces: "
+                f"K1 frame under inference_mode bit-equal to the frame outside it; a K1 launch "
+                f"{resident_ms:.3f} ms with resident tables, {no_grad_ms:.3f} ms under no_grad, {inference_ms:.3f} ms "
+                f"under inference_mode (tables made each launch); one mesh_tables build {tables_ms:.3f} ms")
+        if family == "textured":
+            texels_ms = event_ms(in_inference(lambda: launch_args.texel_table_of(inside.mesh)), iters=5, warmup=1)
+            line += f", one texel-table build (4 maps) {texels_ms:.3f} ms"
+        phase("inference-mode", line + " (CUDA events)")
+        del outside, inside, got, want
 
 
 def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_model) -> list:
@@ -1941,6 +2019,8 @@ def staged_path(card: str, bn: torch.Tensor, capacity, stand_in) -> list:
 
 
 LOOP_PARITY_ITERS = 50  # the plain version launches some two dozen torch ops per step: keep it short
+LOOP_RISE_ITERS = 4  # per placement of the one rising element (8 placements)
+LOOP_CLOCK_ITERS, LOOP_CLOCK_LAUNCHES = 50_000, 20  # the load under which the SM clock is read
 LOOP_ITERS = 4000  # the tool's default
 LOOP_SASS_OPS = ("FFMA", "FMUL", "FMNMX", "LDS", "BAR", "VOTE", "BRA", "FSEL", "FSETP")
 
@@ -1986,6 +2066,27 @@ def loop_cost_sass(library) -> dict:
     return out
 
 
+def loop_cost_rise_inputs(seed: int = 9) -> list:
+    """[(label, tab, x)] of float32 numpy inputs for K5: a seeded table
+    whose every entry lies in [0.997, 0.999], so that each step shrinks a
+    positive value, and for each of the tile's 8 rows a positive seeded
+    tile with one negative element in that row, the one element that rises.
+    The any-reduce is then set by the block that holds that row alone,
+    whatever the cluster's mapping (block b holds rows [b V, b V + V)): a
+    block-local vote would scale that block's share alone."""
+    from bpt_tpu_torch.kernels.loop_cost import TAB_SHAPE, TILE
+
+    rng = np.random.default_rng(seed)
+    tab = (0.998 + rng.uniform(-1e-3, 1e-3, TAB_SHAPE)).astype(np.float32)
+    base = rng.uniform(0.5, 1.5, TILE).astype(np.float32)
+    inputs = []
+    for row in range(TILE[0]):
+        x = base.copy()
+        x[row, (37 * row + 11) % TILE[1]] = -1.0
+        inputs.append((f"row {row} rises", tab, x))
+    return inputs
+
+
 def loop_cost_work(n_iter: int, n_ops: int, use_reduce: bool) -> tuple[float, float]:
     """(FP32 operations, bytes) of one launch: per element and iteration an
     FMA (2) and a multiply (1) per step, and with the reduce the multiply by
@@ -2015,19 +2116,21 @@ def loop_cost_path(card: str) -> list:
     # ---- 34. parity: kernel against plain on the card, bit for bit ----------
     rng = np.random.default_rng(9)
     shrink = np.where(rng.random((64, 1)) < 0.5, -2e-3, 0.0)  # rows that shrink the tile: the flag clears
-    inputs = {"tool": (tool.table(), tool.tile_input(0)),
-              "seeded": ((1.0 + rng.uniform(-1e-3, 1e-3, k5.TAB_SHAPE) + shrink).astype(np.float32),
-                         rng.uniform(0.5, 1.5, k5.TILE).astype(np.float32))}
+    inputs = [("tool", tool.table(), tool.tile_input(0), LOOP_PARITY_ITERS),
+              ("seeded", (1.0 + rng.uniform(-1e-3, 1e-3, k5.TAB_SHAPE) + shrink).astype(np.float32),
+               rng.uniform(0.5, 1.5, k5.TILE).astype(np.float32), LOOP_PARITY_ITERS)]
+    inputs += [(label, tab_np, x_np, LOOP_RISE_ITERS) for label, tab_np, x_np in loop_cost_rise_inputs()]
     errs, plain = {}, {}
     for config in k5.CONFIGS:
-        for label, (tab_np, x_np) in inputs.items():
+        rises = []
+        for label, tab_np, x_np, n_iter in inputs:
             tab, x = torch.from_numpy(tab_np).to(dev), torch.from_numpy(x_np).to(dev)
-            got = k5.loop_cost(tab, x, LOOP_PARITY_ITERS, *config)
+            got = k5.loop_cost(tab, x, n_iter, *config)
             flags = []
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             torch.cuda.synchronize()
             start.record()
-            ref = k5.loop_cost_reference(tab, x, LOOP_PARITY_ITERS, *config, flags=flags)
+            ref = k5.loop_cost_reference(tab, x, n_iter, *config, flags=flags)
             end.record()
             torch.cuda.synchronize()
             if label == "tool":
@@ -2036,13 +2139,23 @@ def loop_cost_path(card: str) -> list:
             err = (got[differ] - ref[differ]).abs().max().item() if bool(differ.any()) else 0.0
             errs[config] = max(errs.get(config, 0.0), err)
             set_flags = sum(bool(f) for f in flags)
+            if not torch.equal(got, ref):
+                raise AssertionError(f"loop_cost kernel {config} disagrees with its plain version ({label} inputs)")
+            if label.endswith("rises"):
+                rises.append(set_flags)
+                continue
             phase("parity-loop-cost", f"ops {config[0]} reduce {int(config[1])} cond {int(config[2])}, {label} "
-                                      f"inputs, {LOOP_PARITY_ITERS} iterations: bit-equal "
+                                      f"inputs, {n_iter} iterations: bit-equal "
                                       f"{bool(torch.equal(got, ref))}, finite {bool(torch.isfinite(got).all())}, "
                                       f"max_abs_err {err}" + (f", flag set in {set_flags} of {len(flags)} iterations"
                                                               if config[1] else ""))
-            if not torch.equal(got, ref):
-                raise AssertionError(f"loop_cost kernel {config} disagrees with its plain version ({label} inputs)")
+        if config[1] and rises != [LOOP_RISE_ITERS] * len(rises):
+            raise AssertionError(f"loop_cost {config}: the one rising element did not set the flag: {rises}")
+        phase("parity-loop-cost", f"ops {config[0]} reduce {int(config[1])} cond {int(config[2])}, one rising "
+                                  f"element in each of the tile's {len(rises)} rows in turn (the shrinking table), "
+                                  f"{LOOP_RISE_ITERS} iterations each: bit-equal in all"
+                                  + (f", flag set in {sum(rises)} of {LOOP_RISE_ITERS * len(rises)} iterations"
+                                     if config[1] else ""))
 
     # ---- 35. the tool's main path: its seven configurations on the card -------
     k5.reset_launches()
@@ -2062,22 +2175,27 @@ def loop_cost_path(card: str) -> list:
 
     # ---- 36. timing: ns/iter, device time, bound and share; SASS; a trace ----
     sass = loop_cost_sass(build.build(k5.KERNEL))
+    tab, x = torch.from_numpy(tool.table()).to(dev), torch.from_numpy(tool.tile_input(0)).to(dev)
+    for _ in range(LOOP_CLOCK_LAUNCHES):  # the card under K5's load while nvidia-smi reads its SM clock
+        k5.loop_cost(tab, x, LOOP_CLOCK_ITERS, 320, False, False)
     clocks = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                             capture_output=True, text=True, timeout=60).stdout.strip()
-    tab, x = torch.from_numpy(tool.table()).to(dev), torch.from_numpy(tool.tile_input(0)).to(dev)
+    torch.cuda.synchronize()
     entries = []
     for r in results:
         config = r["config"]
         n_ops, red, cond = config
-        name = f"loop_cost_kernel<{n_ops},{str(red).lower()},{str(cond).lower()}>"
+        cluster, values = k5.mapping(config)
+        name = f"loop_cost_kernel<{n_ops},{str(red).lower()},{str(cond).lower()},{cluster}>"
         dev_ms = kernel_device_ms(lambda: k5.loop_cost(tab, x, LOOP_ITERS, *config), iters=3, name=name, tries=5)
         flop, nbytes = loop_cost_work(LOOP_ITERS, n_ops, red)
         bound_ms, bound_by = bound(flop, nbytes)
         share = 100 * bound_ms / (dev_ms or r["ms"])
         plain_ns = plain[config] * 1e6 / LOOP_PARITY_ITERS
         code = sass.get(config)
-        phase("timing-loop-cost", f"{card} (SM clock now, max: {clocks}): ops {n_ops} reduce {int(red)} cond "
-                                  f"{int(cond)}, {LOOP_ITERS} iterations: {r['ns_per_iter']:.2f} ns/iter, "
+        phase("timing-loop-cost", f"{card} (SM clock under K5's load, max: {clocks}): ops {n_ops} reduce {int(red)} "
+                                  f"cond {int(cond)}, a cluster of {cluster} block(s) x 256 threads, {values} "
+                                  f"value(s) a thread, {LOOP_ITERS} iterations: {r['ns_per_iter']:.2f} ns/iter, "
                                   f"{r['ms']:.4f} ms a launch (CUDA events over 5 launches), device {dev_ms} ms "
                                   f"(profiler); {flop / 1e9:.4f} GFLOP + {nbytes / 1e3:.3f} KB -> bound "
                                   f"{bound_ms:.6f} ms ({bound_by}), {share:.4f}% of it reached; plain version "
@@ -2096,6 +2214,7 @@ def loop_cost_path(card: str) -> list:
             "device_ms": dev_ms,
             "n_iter": LOOP_ITERS,
             "ns_per_iter": r["ns_per_iter"],
+            "mapping": {"cluster": cluster, "values_per_thread": values},
             "plain_ms": plain[config],
             "plain_n_iter": LOOP_PARITY_ITERS,
             "plain_ns_per_iter": plain_ns,
@@ -2105,6 +2224,22 @@ def loop_cost_path(card: str) -> list:
             "library_ms": None,
             "sass": code,
         })
+    # the dependency chain's floor: n_iter x n_ops x the cost of one chain step, that step from the slope
+    # of the CUDA-event time per iteration between ops 100 and ops 320: both are timed alike, so a
+    # launch's fixed cost cancels, and events are read in every run where late in this process a
+    # profiler session may record only part of a launch
+    per_iter = {r["config"]: r["ns_per_iter"] for r in results}
+    step_ns = (per_iter[(320, False, False)] - per_iter[(100, False, False)]) / 220
+    sm_mhz = float(clocks.split(",")[0].split()[0])
+    for entry, r in zip(entries, results):
+        entry["chain_floor_ms"] = LOOP_ITERS * r["config"][0] * step_ns / 1e6
+    phase("timing-loop-cost", f"{card}: a chain step costs {step_ns:.4f} ns = {step_ns * sm_mhz / 1e3:.3f} cycles at "
+                              f"the SM clock under load ({sm_mhz:.0f} MHz; slope of the CUDA-event ns/iter from ops 100 to "
+                              f"ops 320); "
+                              f"chain floor n_iter x n_ops x step at {LOOP_ITERS} iterations: "
+                              + "; ".join(f"{r['config']} {e['chain_floor_ms']:.4f} ms (measured "
+                                          f"{e['device_ms'] or e['ms']:.4f} ms, roofline bound {e['bound_ms']:.6f} ms)"
+                                          for e, r in zip(entries, results)))
 
     prof = Profiler()
     big = (320, True, True)
@@ -3019,6 +3154,7 @@ def main() -> int:
     kernels += entries
     entries, stand_in_model, stand_in = textured_and_camera(card, bn)
     kernels += entries
+    inference_mode_path(card, bn, capacity, stand_in)
     kernels += inverse_rendering(card, bn, capacity, stand_in, stand_in_model)
     kernels += staged_path(card, bn, capacity, stand_in)
     kernels += loop_cost_path(card)

@@ -30,7 +30,7 @@ from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, hdri_camera
 from bpt_tpu_torch.scenes.quadric_geometry import quadric_camera, quadric_geometry_scene
 from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene, sky_camera
 from bpt_tpu_torch.scenes.types import DIFFUSE, METAL, TRANSPARENT
-from chip_smoke import doubled_model, one_triangle_model, tied_lanes
+from chip_smoke import doubled_model, loop_cost_rise_inputs, one_triangle_model, tied_lanes
 
 torch.set_num_threads(2)
 
@@ -414,6 +414,51 @@ def test_cuda_sheared_quad_takes_the_fans(cuda_device):
     with pytest.raises(ValueError, match="parallelogram"):
         megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn, fast_quads=True)
     assert megakernel.LAUNCHES["cornell"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_under_inference_mode_sees_a_moved_light(cuda_device):
+    """Under torch.inference_mode, on a Cornell box of inference tensors on
+    the card: a K1 frame, the light quad (quad 5) moved in place by 5 along
+    its first edge, another K1 frame.  The second frame is bit-equal to its
+    plain version and to the frame of a freshly built moved scene, and
+    differs from the first.  A mesh scene moved to the card under inference
+    mode (Scene.to) gets no tables, since no cache may serve tables made
+    from inference tensors; the launch makes its own, and its K1 frame
+    equals its plain version."""
+    bn = torch.as_tensor(blue_noise_table()).to(cuda_device)
+    cfg = IntegratorConfig(bounces=4)
+    with torch.inference_mode():
+        scene, cam = cornell_scene(device=cuda_device), cornell_camera(device=cuda_device)
+        first = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+        q = scene.quads
+        e1 = q.v1[5] - q.v0[5]
+        shift = 5.0 * e1 / torch.linalg.norm(e1)
+        for v in (q.v0, q.v1, q.v2, q.v3):
+            v[5].add_(shift)
+        before = megakernel.LAUNCHES["cornell"]
+        got = megakernel.trace_image_fused(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+        assert megakernel.LAUNCHES["cornell"] == before + 1
+        ref = megakernel.trace_image_fused_reference(scene, cam, cfg, 96, 64, 2.0, RV, bn)
+        fresh_quads = cornell_scene(device=cuda_device).quads
+        fresh_quads = fresh_quads._replace(**{n: getattr(fresh_quads, n).clone() for n in ("v0", "v1", "v2", "v3")})
+        for v in (fresh_quads.v0, fresh_quads.v1, fresh_quads.v2, fresh_quads.v3):
+            v[5] += shift
+        fresh = megakernel.trace_image_fused(scene._replace(quads=fresh_quads), cam, cfg, 96, 64, 2.0, RV, bn)
+        mesh_scene = gltf_scene(mesh_from_model(blob_model(), mat_type=DIFFUSE, rotation=(0.3, 0.5, 0.0),
+                                                scale=(1.5, 1.5, 1.5), translation=(0.0, -20.0, -85.0)),
+                                device=cuda_device)
+        assert mesh_scene.mesh.kernel_tables is None
+        mesh_got = megakernel.trace_image_fused(mesh_scene, gltf_camera(device=cuda_device), cfg, 64, 64, 2.0, RV, bn)
+        mesh_ref = megakernel.trace_image_fused_reference(mesh_scene, gltf_camera(device=cuda_device), cfg, 64, 64,
+                                                          2.0, RV, bn)
+    torch.cuda.synchronize()
+    for a, b, c in zip(got, ref, fresh):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    assert not torch.equal(first.color, got.color)
+    for a, b in zip(mesh_got, mesh_ref):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
@@ -1139,17 +1184,25 @@ def _loop_cost_inputs(device, seed=0):
                                     (40, True, False), (40, True, True), (320, True, True)])
 def test_cuda_loop_cost_matches_plain_version(cuda_device, config):
     """K5 in each instantiation equals its plain version on the card bit for
-    bit (an explicit FMA in both), 30 iterations, one launch each."""
+    bit (an explicit FMA in both), 30 iterations, one launch each; and, 4
+    iterations each, on chip_smoke's shrinking table with one rising
+    element in each of the tile's 8 rows in turn, where the any-reduce is
+    set by one block of the cluster alone (every iteration's flag set)."""
     from bpt_tpu_torch.kernels import loop_cost as k5
 
-    for tab, x in _loop_cost_inputs(cuda_device):
+    rises = [(tuple(torch.from_numpy(a).to(cuda_device) for a in (tab, x)), 4)
+             for _, tab, x in loop_cost_rise_inputs()]
+    for (tab, x), n_iter in [(pair, 30) for pair in _loop_cost_inputs(cuda_device)] + rises:
         before = k5.LAUNCHES[config]
-        got = k5.loop_cost(tab, x, 30, *config)
+        got = k5.loop_cost(tab, x, n_iter, *config)
         assert k5.LAUNCHES[config] == before + 1
-        ref = k5.loop_cost_reference(tab, x, 30, *config)
+        flags = []
+        ref = k5.loop_cost_reference(tab, x, n_iter, *config, flags=flags)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
         assert bool(torch.isfinite(got).all()) and (config[0] == 0) == bool(torch.equal(got, x))
+        if n_iter == 4 and config[1]:
+            assert [bool(f) for f in flags] == [True] * 4
 
 
 @pytest.mark.cuda
