@@ -1,0 +1,1 @@
+"""Frozen copies of bpt_tpu_torch modules (the benchmark's plain reference)."""
