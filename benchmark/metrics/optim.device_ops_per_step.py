@@ -1,0 +1,15 @@
+"""The device operations (kernels, copies, memsets) launched inside the
+port's ``bpt.optim.step`` spans, from either thread (autograd's included),
+over those spans.
+
+Read from ``benchmark.program_spans``' window with the port's spans on;
+None outside a traced run or where the port has no spans."""
+
+from benchmark.program_spans import program_trace
+
+
+def read(ctx):
+    trace = program_trace(ctx)
+    if trace is None:
+        return None
+    return trace.per_unit("ops", ("bpt.optim.step",), "bpt.optim.step")

@@ -1,0 +1,14 @@
+"""The device's idle time begun inside the port's ``bpt.optim.step`` spans
+(one Adam step of ``diff.inverse.optimize``), over those spans, in ms.
+
+Read from ``benchmark.program_spans``' window with the port's spans on;
+None outside a traced run or where the port has no spans."""
+
+from benchmark.program_spans import program_trace
+
+
+def read(ctx):
+    trace = program_trace(ctx)
+    if trace is None:
+        return None
+    return trace.per_unit("idle_ms", ("bpt.optim.step",), "bpt.optim.step")

@@ -20,6 +20,7 @@ from bpt_tpu_torch.device import default_device
 from bpt_tpu_torch.integrator.config import IntegratorConfig
 from bpt_tpu_torch.integrator.frame import trace_image
 from bpt_tpu_torch.kernels.megakernel import trace_frames_fused, trace_image_fused
+from bpt_tpu_torch.utils.profiling import span
 
 _RAND_VEC2 = np.array([0.3, 0.7], np.float32)
 
@@ -99,17 +100,21 @@ def optimize(
     opt = torch.optim.Adam(list(params.values()), lr=lr, betas=(0.9, 0.999), eps=1e-8)
     losses = []
     for _ in range(steps):
-        opt.zero_grad(set_to_none=True)
-        scene, camera = build_scene(params)
-        img = render_avg(scene.to(device), camera.to(device), cfg, size, frames, _RAND_VEC2, bn, fused=fused,
-                         reorder=reorder)
-        loss = torch.mean((img - target) ** 2)
-        loss.backward()
-        opt.step()
-        if param_clip is not None:
-            with torch.no_grad():
-                clipped = param_clip(params)
-                for k, p in params.items():
-                    p.copy_(clipped[k])
-        losses.append(loss.detach())
+        with span("bpt.optim.step"):
+            opt.zero_grad(set_to_none=True)
+            with span("bpt.optim.forward"):
+                scene, camera = build_scene(params)
+                img = render_avg(scene.to(device), camera.to(device), cfg, size, frames, _RAND_VEC2, bn, fused=fused,
+                                 reorder=reorder)
+                loss = torch.mean((img - target) ** 2)
+            with span("bpt.optim.backward"):
+                loss.backward()
+            with span("bpt.optim.update"):
+                opt.step()
+                if param_clip is not None:
+                    with torch.no_grad():
+                        clipped = param_clip(params)
+                        for k, p in params.items():
+                            p.copy_(clipped[k])
+            losses.append(loss.detach())
     return OptimizeResult(params={k: p.detach() for k, p in params.items()}, losses=torch.stack(losses))

@@ -21,6 +21,7 @@ from bpt_tpu_torch.integrator.frame import finish_frame
 from bpt_tpu_torch.integrator.radiance import RadianceResult, check_supported
 from bpt_tpu_torch.kernels.megakernel import trace_frames_fused
 from bpt_tpu_torch.renderer import ProgressiveRenderer, RenderState
+from bpt_tpu_torch.utils.profiling import span, spanned
 
 
 def staged_batch_step(renderer: ProgressiveRenderer):
@@ -29,6 +30,7 @@ def staged_batch_step(renderer: ProgressiveRenderer):
     .. + k) traced as one pool, then ``finish_frame`` for each in order."""
     height, width = renderer.height, renderer.width
 
+    @spanned("bpt.staged.batch")
     def step(scene, camera, cfg, state: RenderState, rand_vec2s, blue_noise) -> RenderState:
         k = len(rand_vec2s)
         counters = [state.frame_counter + 1.0 + i for i in range(k)]
@@ -36,7 +38,8 @@ def staged_batch_step(renderer: ProgressiveRenderer):
                                   fast_quads=renderer.fast_quads)
         accum = state.accum
         for i, frame_counter in enumerate(counters):
-            accum = finish_frame(RadianceResult(*(t[i] for t in pool)), accum, frame_counter, False)
+            with span("bpt.renderer.finish"):
+                accum = finish_frame(RadianceResult(*(t[i] for t in pool)), accum, frame_counter, False)
         return RenderState(accum=accum, sample_counter=state.sample_counter + k, frame_counter=counters[-1])
 
     return step

@@ -54,6 +54,7 @@ from bpt_tpu_torch.kernels.launch_args import (  # noqa: F401  (pack_*, plane_co
 from bpt_tpu_torch.kernels.staged import KEY_LAUNCHES, STAGED_GRAD_LAUNCHES, STAGED_LAUNCHES
 from bpt_tpu_torch.scenes.types import Scene, is_textured
 from bpt_tpu_torch.textures import sample_bilinear
+from bpt_tpu_torch.utils.profiling import spanned
 
 KERNEL = "megakernel"
 #: Launches of the forward kernel per configuration.
@@ -111,6 +112,7 @@ def _check_call(scene: Scene, cfg: IntegratorConfig, width: int, height: int, bl
         raise ValueError(f"trace_image_fused runs on CPU or CUDA tensors, not {blue_noise.device}")
 
 
+@spanned("bpt.kernels.k1")
 def _launch(scene: Scene, camera: Camera, cfg: IntegratorConfig, width: int, height: int, frame_counter,
             rand_vec2, blue_noise: torch.Tensor, grads: bool, fast_quads: bool | None):
     """Pack, check and launch one kernel configuration on the current
@@ -160,6 +162,7 @@ def _pixel_sum(planes: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     return torch.bmm(rows.transpose(0, 1), values.reshape(rows.shape[1], rows.shape[2], -1)).sum(0)
 
 
+@spanned("bpt.replay.compose")
 def compose_deferred(result: RadianceResult, deferred: torch.Tensor, scene: Scene,
                      cfg: IntegratorConfig) -> RadianceResult:
     """The grads mode's color with what it defers composed back in torch,
@@ -222,6 +225,7 @@ class _PathReplay(torch.autograd.Function):
     """
 
     @staticmethod
+    @spanned("bpt.replay.forward")
     def forward(ctx, quad_color, sphere_color, quadric_color, scene, cfg, trace):
         spheres = None if scene.spheres is None else scene.spheres._replace(color=sphere_color)
         quadrics = None if scene.quadrics is None else scene.quadrics._replace(color=quadric_color)
@@ -238,6 +242,7 @@ class _PathReplay(torch.autograd.Function):
         return tuple(result) + (deferred,)
 
     @staticmethod
+    @spanned("bpt.replay.backward")
     def backward(ctx, g_color, g_normal, g_ocolor, g_oid, g_sharp, g_deferred):
         color, oid, sg, colors, deferred = ctx.saved_tensors
         n_obj = colors.shape[0]

@@ -46,6 +46,7 @@ from bpt_tpu_torch.geometry.triangles import resolve_fast_quads
 from bpt_tpu_torch.integrator.radiance import PathState, check_supported, deferred_layout, init_paths, run_bounces
 from bpt_tpu_torch.kernels import build, launch_args
 from bpt_tpu_torch.scenes.types import is_textured
+from bpt_tpu_torch.utils.profiling import span, spanned
 
 KERNEL = "staged"
 KEY_KERNEL = "sort_key"
@@ -351,6 +352,7 @@ def phase_boxes(pool: Pool, lo: int, device) -> torch.Tensor:
     return torch.empty((blocks * 8, 6), dtype=torch.float32, device=device)
 
 
+@spanned("bpt.kernels.k2")
 def launch_phase(scene, camera, cfg, pool: Pool, blue_noise: torch.Tensor, state_in, perm, lo: int, hi: int,
                  outputs: dict, boxes: torch.Tensor | None = None, fast_quads: bool | None = None):
     """One K2 launch on the current stream, with ``trace_phase_reference``'s
@@ -409,6 +411,7 @@ def _key_grid(device: torch.device) -> int:
     return 4 * torch.cuda.get_device_properties(device).multi_processor_count
 
 
+@spanned("bpt.kernels.key")
 def launch_key(state, mode: str = "oct-morton", boxes: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The key kernel (``csrc/sort_key.cu``) on the current stream:
@@ -447,6 +450,7 @@ def launch_key(state, mode: str = "oct-morton", boxes: torch.Tensor | None = Non
 # the driver
 # ---------------------------------------------------------------------------
 
+@spanned("bpt.staged.pool")
 def trace_staged(scene, camera, cfg, width: int, height: int, frame_counters, rand_vec2s, blue_noise: torch.Tensor,
                  splits=None, key_mode: str = "oct-morton", row_offset: int = 0, full_height: int | None = None,
                  grads: bool = False, lane_counts: list | None = None, record: list | None = None,
@@ -487,7 +491,8 @@ def trace_staged(scene, camera, cfg, width: int, height: int, frame_counters, ra
         if lo > 0:
             key = launch_key(state, key_mode, boxes)[0] if device.type == "cuda" else sort_key(state, key_mode)
             mark(f"key {lo}")
-            perm = torch.sort(key, stable=True).indices
+            with span("bpt.staged.sort"):
+                perm = torch.sort(key, stable=True).indices
             mark(f"sort {lo}")
         if kernel:
             boxes = None if hi >= cfg.bounces else phase_boxes(pool, lo, device)

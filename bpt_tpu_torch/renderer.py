@@ -21,6 +21,7 @@ from bpt_tpu_torch.integrator.frame import finish_frame
 from bpt_tpu_torch.kernels.megakernel import trace_image_fused
 from bpt_tpu_torch.postprocess import screen_output
 from bpt_tpu_torch.scenes.types import Scene
+from bpt_tpu_torch.utils.profiling import span, spanned
 
 
 class RenderState(NamedTuple):
@@ -57,7 +58,8 @@ def step_state(scene: Scene, camera: Camera, cfg: IntegratorConfig, state: Rende
     height, width = state.accum.shape[0], state.accum.shape[1]
     result = trace_image_fused(scene, camera, cfg, width, height, frame_counter, rand_vec2, blue_noise,
                                fast_quads=fast_quads)
-    accum = finish_frame(result, state.accum, frame_counter, camera_is_moving)
+    with span("bpt.renderer.finish"):
+        accum = finish_frame(result, state.accum, frame_counter, camera_is_moving)
     return RenderState(accum=accum, sample_counter=sample_counter, frame_counter=frame_counter)
 
 
@@ -124,9 +126,12 @@ class ProgressiveRenderer:
                                 moving, np.asarray(rand_vec2, np.float32), self.blue_noise, self.fast_quads)
         return self.state
 
+    @spanned("bpt.renderer.frame")
     def render_sample(self, camera: Camera, force_reset: bool = False) -> RenderState:
         """Advance one frame; returns the new state (also stored)."""
-        moving = self.camera_moved(camera) or force_reset
+        with span("bpt.renderer.camera"):
+            moving = self.camera_moved(camera) or force_reset
+            camera = self._device_camera(camera)
         return self._step(camera, moving, self._np_rng.random(2))
 
     def render(self, camera: Camera, spp: int, batch: int = 8) -> torch.Tensor:
@@ -156,6 +161,7 @@ class ProgressiveRenderer:
             done += k
         return self.display()
 
+    @spanned("bpt.renderer.display")
     def display(self, apply_denoise: bool = True, exposure: float = 1.0) -> torch.Tensor:
         inv_n = np.float32(1.0) / np.float32(max(self.state.sample_counter, 1.0))
         return screen_output(self.state.accum, float(inv_n), exposure, apply_denoise)

@@ -1,91 +1,93 @@
-"""Profiling: timers, rays/s accounting, device traces (port of
-``bpt_tpu.utils.profiling``).
+"""Profiling: the program's spans, device traces and CUDA-event timing
+(port of ``bpt_tpu.utils.profiling``'s trace context).
 
-The reference's instruments are a stats.js FPS meter and overlay counters
-(SURVEY.md §5).  Here: a wall-clock section timer with ray-throughput
-accounting, and a thin wrapper over ``torch.profiler`` for device traces
-(Chrome trace JSON, viewable in Perfetto or TensorBoard).  Importing this
-module initialises no CUDA.
+``span(name)`` marks where a layer's work happens.  While spans are on
+(``spans_on()``; ``device_trace`` turns them on for its duration) it opens
+a ``torch.profiler.record_function`` range, which the profiler records on
+the timeline of the device's operations and the CUDA runtime calls, so a
+span shares the device trace's clock.  While they are off it tests one
+module flag and returns a shared no-op context: no range, no clock read,
+no allocation.  The spans, each at the work it names:
+
+- ``bpt.optim.step`` (``diff.inverse.optimize``, one Adam step) and its
+  children ``bpt.optim.forward`` (the scene, the render, the loss),
+  ``bpt.optim.backward`` (``loss.backward()``) and ``bpt.optim.update``
+  (Adam and the clip);
+- ``bpt.replay.forward`` and ``bpt.replay.backward``
+  (``kernels.megakernel._PathReplay``; the backward runs on autograd's
+  thread on a card) and ``bpt.replay.compose`` (``compose_deferred``);
+- ``bpt.renderer.frame`` (``ProgressiveRenderer.render_sample``), its child
+  ``bpt.renderer.camera`` (the motion test and the camera's copy),
+  ``bpt.renderer.finish`` (each ``finish_frame``) and
+  ``bpt.renderer.display``;
+- ``bpt.staged.batch`` (``kernels.integration.staged_batch_step``'s step:
+  the pool and its frames' ``finish_frame``), ``bpt.staged.pool``
+  (``kernels.staged.trace_staged``) and ``bpt.staged.sort`` (the sort
+  between phases);
+- ``bpt.kernels.k1``, ``bpt.kernels.k2`` and ``bpt.kernels.key``: the host
+  side of each launch of K1, K2 and the key kernel (packing and launch).
+
+Frames, pools and steps are counted by their spans.  Importing this module
+initialises no CUDA.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
-from dataclasses import dataclass, field
-from typing import Dict, List, Optional
 
 import torch
 
-
-@dataclass
-class FrameStats:
-    """Rolling per-frame stats — the stats.js analog."""
-
-    times: List[float] = field(default_factory=list)
-    window: int = 60
-
-    def tick(self, seconds: float) -> None:
-        self.times.append(seconds)
-        if len(self.times) > self.window:
-            self.times.pop(0)
-
-    @property
-    def fps(self) -> float:
-        if not self.times:
-            return 0.0
-        return len(self.times) / sum(self.times)
-
-    def rays_per_second(self, rays_per_frame: int) -> float:
-        if not self.times:
-            return 0.0
-        return rays_per_frame * len(self.times) / sum(self.times)
+_ON = False  # whether span() opens a profiler range
+_OFF = contextlib.nullcontext()
 
 
-class Profiler:
-    """Named section timing with ray accounting.
+def span(name: str):
+    """``with span("bpt.layer.part"): ...``: a ``record_function(name)``
+    range while spans are on, else a shared context that does nothing."""
+    if not _ON:
+        return _OFF
+    return torch.profiler.record_function(name)
 
-    with prof.section("render", rays=H*W*bounces):
-        out = step(...)
 
-    Where CUDA is in use, a section synchronises the card at its end, so
-    that it times the work it launched, not its launch."""
+def spanned(name: str):
+    """Decorator: every call of the function inside ``span(name)``; while
+    spans are off the call costs the same one flag test."""
 
-    def __init__(self) -> None:
-        self.sections: Dict[str, List[float]] = {}
-        self.rays: Dict[str, int] = {}
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not _ON:
+                return fn(*args, **kwargs)
+            with torch.profiler.record_function(name):
+                return fn(*args, **kwargs)
 
-    @contextlib.contextmanager
-    def section(self, name: str, rays: Optional[int] = None):
-        t0 = time.perf_counter()
+        return call
+
+    return wrap
+
+
+@contextlib.contextmanager
+def spans_on():
+    """Turn the program's spans on for the duration (for every thread)."""
+    global _ON
+    was, _ON = _ON, True
+    try:
         yield
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        self.sections.setdefault(name, []).append(dt)
-        if rays is not None:
-            self.rays[name] = rays
-
-    def summary(self) -> str:
-        lines = []
-        for name, times in self.sections.items():
-            mean = sum(times) / len(times)
-            line = f"{name}: {mean*1000:.2f} ms avg over {len(times)}"
-            if name in self.rays:
-                line += f", {self.rays[name]/mean/1e6:.1f} Mrays/s"
-            lines.append(line)
-        return "\n".join(lines)
+    finally:
+        _ON = was
 
 
 @contextlib.contextmanager
 def device_trace(logdir: str):
     """Capture a trace of the host and, where CUDA is available, the card
-    into ``logdir`` as a Chrome trace file (``*.pt.trace.json``):
-    ``with device_trace('traces') as prof: ...``."""
+    into ``logdir`` as a Chrome trace file (``*.pt.trace.json``), with the
+    program's spans on: ``with device_trace('traces') as prof: ...``."""
     from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
 
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+    with spans_on(), profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
 
 

@@ -1,5 +1,5 @@
-"""The port's K5 (the walk-loop cost microbenchmark), its tool and its
-profiling module against the JAX package on the CPU.
+"""The port's K5 (the walk-loop cost microbenchmark) and its tool against
+the JAX package on the CPU, and the port's profiling module's trace.
 
 ``tools/loop_cost.py``'s Pallas kernel runs in interpret mode with the
 VMEM specs of its ``run``; the port's wrapper runs its plain version on CPU
@@ -9,6 +9,7 @@ one FMA, which the plain version rounds exactly (see
 """
 
 import importlib.util
+import json
 import re
 from fractions import Fraction
 from pathlib import Path
@@ -21,7 +22,6 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
-from bpt_tpu.utils import profiling as jax_profiling
 from bpt_tpu_torch.kernels import loop_cost as k5
 from bpt_tpu_torch.tools import loop_cost as tool
 from bpt_tpu_torch.utils import profiling
@@ -147,38 +147,21 @@ def test_loop_cost_refuses_bad_inputs():
         k5.loop_cost(tab.to("meta"), x, 1, 40, False, False)
 
 
-def test_frame_stats_and_profiler_match_jax(monkeypatch, tmp_path):
-    """FrameStats and Profiler against bpt_tpu.utils.profiling on one tick
-    sequence and one clock: fps, rays/s, the 60-frame window, the summary's
-    lines; device_trace writes a Chrome trace."""
-    rng = np.random.default_rng(2)
-    ticks = rng.uniform(0.005, 0.05, 75).tolist()
-    ours, theirs = profiling.FrameStats(), jax_profiling.FrameStats()
-    assert ours.fps == theirs.fps == 0.0 and ours.rays_per_second(10) == theirs.rays_per_second(10) == 0.0
-    for i, t in enumerate(ticks):
-        ours.tick(t)
-        theirs.tick(t)
-        assert ours.times == theirs.times and len(ours.times) == min(i + 1, 60)
-        assert ours.fps == theirs.fps
-        assert ours.rays_per_second(1024 * 1024 * 4) == theirs.rays_per_second(1024 * 1024 * 4)
+def test_frame_stats_and_profiler_match_jax(tmp_path):
+    """utils.profiling keeps device_trace (FrameStats and Profiler, the
+    JAX module's meter and section timer, are gone): its Chrome trace holds
+    the program's bpt.* spans of a frame, and the spans are off again after
+    it."""
+    from bpt_tpu_torch.integrator import IntegratorConfig
+    from bpt_tpu_torch.renderer import ProgressiveRenderer
+    from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
 
-    stamps = np.cumsum(rng.uniform(0.001, 0.01, 40)).tolist()
-    summaries = []
-    for module in (profiling, jax_profiling):
-        it = iter(stamps)
-        monkeypatch.setattr(module.time, "perf_counter", lambda: next(it))
-        prof = module.Profiler()
-        for i in range(6):
-            with prof.section("render", rays=256 * 256 * 4):
-                pass
-            if i % 2:
-                with prof.section("display"):
-                    pass
-        summaries.append((prof.summary(), prof.sections, prof.rays))
-    assert summaries[0] == summaries[1]
-    assert summaries[0][0].splitlines()[0].startswith("render: ") and "Mrays/s" in summaries[0][0]
-    monkeypatch.undo()
-
+    r = ProgressiveRenderer(cornell_scene(), IntegratorConfig(bounces=1), 8, 8, device="cpu")
     with profiling.device_trace(str(tmp_path)):
-        torch.ones(8).sum()
-    assert list(tmp_path.glob("*.pt.trace.json"))
+        r.render_sample(cornell_camera())
+        r.display()
+    assert not profiling._ON
+    [path] = tmp_path.glob("*.pt.trace.json")
+    names = [e["name"] for e in json.loads(path.read_text())["traceEvents"] if e.get("cat") == "user_annotation"]
+    assert sorted(n for n in names if n.startswith("bpt.")) == [
+        "bpt.renderer.camera", "bpt.renderer.display", "bpt.renderer.finish", "bpt.renderer.frame"]
