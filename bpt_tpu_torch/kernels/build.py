@@ -8,8 +8,9 @@ of every ``csrc/`` header it includes and of the flags, and loaded with
 beside the library as ``<library>.log``.  The kernels are
 ``megakernel`` (the fused radiance pass), ``staged`` (its staged phase
 kernel; both include ``csrc/path.cuh``), ``sort_key`` (the staged path's
-sort key), ``closest_hit`` (the wavefront's closest-hit query) and
-``loop_cost`` (the walk-loop cost microbenchmark).  Nothing is built or loaded until a
+sort key), ``closest_hit`` (the wavefront's closest-hit query),
+``texel_grad`` (the bilinear sample's VJP into its map) and ``loop_cost``
+(the walk-loop cost microbenchmark).  Nothing is built or loaded until a
 wrapper first launches on a CUDA tensor; that first load builds every
 kernel of ``csrc/`` at once, one nvcc process each.  A failed build raises.
 """

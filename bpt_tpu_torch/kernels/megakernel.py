@@ -52,8 +52,8 @@ from bpt_tpu_torch.kernels.launch_args import (  # noqa: F401  (pack_*, plane_co
     CONFIGURATIONS, ENVS, NEES, TraceArgs, configuration, empty_outputs, outputs_result, pack_camera, pack_mesh,
     pack_params, pack_scene, plane_counts, trace_args)
 from bpt_tpu_torch.kernels.staged import KEY_LAUNCHES, STAGED_GRAD_LAUNCHES, STAGED_LAUNCHES
+from bpt_tpu_torch.kernels.texel_grad import TEXEL_GRAD_LAUNCHES, sample_learnt
 from bpt_tpu_torch.scenes.types import Scene, is_textured
-from bpt_tpu_torch.textures import sample_bilinear
 from bpt_tpu_torch.utils.profiling import spanned
 
 KERNEL = "megakernel"
@@ -65,8 +65,8 @@ GRAD_LAUNCHES = dict.fromkeys(CONFIGURATIONS, 0)
 
 def reset_launches() -> None:
     """Set every launch count to 0 (K1's here, K2's and the key kernel's of
-    ``kernels/staged.py``)."""
-    for counts in (LAUNCHES, GRAD_LAUNCHES, STAGED_LAUNCHES, STAGED_GRAD_LAUNCHES, KEY_LAUNCHES):
+    ``kernels/staged.py``, the texel VJP's of ``kernels/texel_grad.py``)."""
+    for counts in (LAUNCHES, GRAD_LAUNCHES, STAGED_LAUNCHES, STAGED_GRAD_LAUNCHES, KEY_LAUNCHES, TEXEL_GRAD_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -172,8 +172,13 @@ def compose_deferred(result: RadianceResult, deferred: torch.Tensor, scene: Scen
     factors, each bilinear sample decoded as pow(max(x, 0), 2.2)
     (differentiable in the albedo and emissive maps; a bounce whose uv is
     -INFINITY applied no factor).  No albedo is divided by: a texel may be
-    0.  The environment's CDF tables stay constants, as in JAX.  The planes
-    may carry a leading frame axis (a pool's (n_def, F, H, W))."""
+    0.  The environment's CDF tables stay constants, as in JAX.  The UV
+    planes are taken detached: ``_PathReplay``'s backward reads only the
+    weights' cotangents, so a UV's would be computed for nothing.  The maps
+    are sampled by ``texel_grad.sample_learnt``: a learnt map's gradient
+    comes from the texel VJP kernel (``texel_grad.texel_kernel_route``), the
+    plain routes' from autograd.  The planes may carry a leading frame
+    axis (a pool's (n_def, F, H, W))."""
     layout = deferred_layout(cfg, is_textured(scene.mesh))
     if not layout:
         return result
@@ -188,16 +193,16 @@ def compose_deferred(result: RadianceResult, deferred: torch.Tensor, scene: Scen
     mesh = scene.mesh
     if "emw" in layout:
         if mesh.emissive is not None:
-            emission = torch.pow(torch.clamp(sample_bilinear(mesh.emissive, planes("em_uv")), min=0.0), 2.2)
+            em_uv = planes("em_uv").detach()
+            emission = torch.pow(torch.clamp(sample_learnt(mesh.emissive, em_uv), min=0.0), 2.2)
             color = color + planes("emw") * emission
         if mesh.albedo is not None:
-            uvs = planes("albedo_uv")
+            uvs = planes("albedo_uv").detach()
             prod = torch.ones_like(color)
             for b in range(cfg.bounces):
                 uv = uvs[..., 2 * b:2 * b + 2]
                 applied = (uv[..., :1] > -INFINITY)
-                albedo = torch.pow(torch.clamp(sample_bilinear(mesh.albedo, torch.where(applied, uv, 0.0)),
-                                               min=0.0), 2.2)
+                albedo = torch.pow(torch.clamp(sample_learnt(mesh.albedo, torch.where(applied, uv, 0.0)), min=0.0), 2.2)
                 prod = prod * torch.where(applied, albedo, 1.0)
             color = color * prod
     return result._replace(color=color)

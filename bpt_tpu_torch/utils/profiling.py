@@ -15,7 +15,9 @@ no allocation.  The spans, each at the work it names:
   (Adam and the clip);
 - ``bpt.replay.forward`` and ``bpt.replay.backward``
   (``kernels.megakernel._PathReplay``; the backward runs on autograd's
-  thread on a card) and ``bpt.replay.compose`` (``compose_deferred``);
+  thread on a card), ``bpt.replay.compose`` (``compose_deferred``) and
+  ``bpt.replay.texel_grad`` (each launch of the texel VJP,
+  ``kernels.texel_grad.texel_grad``, on autograd's thread);
 - ``bpt.renderer.frame`` (``ProgressiveRenderer.render_sample``), its child
   ``bpt.renderer.camera`` (the motion test and the camera's copy),
   ``bpt.renderer.finish`` (each ``finish_frame``) and

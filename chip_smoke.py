@@ -8,8 +8,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   (nvidia-smi) and the torch, CUDA and nvcc versions.
 2. build        — builds the kernels from bpt_tpu_torch/csrc with nvcc, one
                   process per source, all at once (the megakernel, the
-                  staged kernel, the sort key, the closest-hit kernel and
-                  loop_cost).
+                  staged kernel, the sort key, the closest-hit kernel, the
+                  texel VJP and loop_cost).
 3. parity       — the forward kernel against its plain PyTorch version at
                   1024², 4 bounces, frame 2, for both right-sphere materials
                   (the parallelogram quad test, as the Cornell box decides);
@@ -164,8 +164,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   the stand-in at 1024², 4 bounces, a 64² albedo: 10 Adam
                   steps of the fused route (loss and albedo error fall) and
                   3 of the wavefront route (loss falls), each route's
-                  launches counted; 3 Adam steps of each other new grads
-                  configuration.
+                  launches counted (the fused route's backward launches the
+                  texel VJP once a frame and bounce, the wavefront's never);
+                  3 Adam steps of each other new grads configuration.
 28. timing-closest-hit / timing-grads-mesh / timing-inverse-rendering —
                   device time (torch.profiler), time through the wrapper
                   (CUDA events), plain time, bound and share of the
@@ -174,7 +175,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
                   for it) and of each new grads configuration;
                   the wavefront pass with either walk; the textured
                   inverse-rendering fwd+bwd step of both routes (ms,
-                  Mrays/s, peak device memory).
+                  Mrays/s, peak device memory).  timing-texel-vjp: the
+                  albedo samples of one fused step (1024² lanes of the 64²
+                  map, about 95% of them unapplied) fed to the texel VJP
+                  kernel alone, held to texel_grad_reference within the
+                  order bound of tests/test_torch_texel_grad.py, its
+                  device time, time through the wrapper, the plain route's
+                  time, its bytes bound and the share reached.
 29. parity-staged — the staged kernel (K2, csrc/staged.cu) in every K1
                   configuration (Cornell METAL and TRANSPARENT, quadric,
                   sky, the capacity mesh, HDRI sun and env NEE, the
@@ -1178,7 +1185,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
     from bpt_tpu_torch.diff.inverse import optimize, render_avg
     from bpt_tpu_torch.integrator import IntegratorConfig
     from bpt_tpu_torch.integrator.frame import pixel_grid, trace_image
-    from bpt_tpu_torch.kernels import megakernel
+    from bpt_tpu_torch.kernels import megakernel, texel_grad
     from bpt_tpu_torch.kernels import traverse as closest_hit
     from bpt_tpu_torch.scenes.gltf_scene import gltf_camera, gltf_scene, hdri_camera, hdri_scene, mesh_from_model
     from bpt_tpu_torch.scenes.sky_scene import physical_sky_scene
@@ -1431,7 +1438,7 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         launches = dict(closest_hit=closest_hit.LAUNCHES["closest_hit"], grads=megakernel.GRAD_LAUNCHES["textured"],
-                        forward=megakernel.LAUNCHES["textured"],
+                        forward=megakernel.LAUNCHES["textured"], texel_grad=texel_grad.TEXEL_GRAD_LAUNCHES["shared"],
                         other=sum(megakernel.LAUNCHES.values()) + sum(megakernel.GRAD_LAUNCHES.values())
                         - megakernel.GRAD_LAUNCHES["textured"] - megakernel.LAUNCHES["textured"])
         losses = out["losses"]
@@ -1439,8 +1446,10 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
         phase("train-textured", f"{route} route, {SIZE}x{SIZE}, {BOUNCES} bounces, {steps} Adam steps on a 64x64 "
                                 f"albedo in {train_s:.2f} s: loss {losses[0]:.6g} -> {losses[-1]:.6g}, albedo mean abs "
                                 f"error {out['err0']:.4f} -> {out['err1']:.4f}; launches {launches}")
-        want = (dict(closest_hit=0, grads=steps * len(TRAIN_FRAMES), forward=len(TRAIN_FRAMES), other=0) if fused
-                else dict(closest_hit=(steps + 1) * len(TRAIN_FRAMES) * BOUNCES, grads=0, forward=0, other=0))
+        want = (dict(closest_hit=0, grads=steps * len(TRAIN_FRAMES), forward=len(TRAIN_FRAMES),
+                     texel_grad=steps * len(TRAIN_FRAMES) * BOUNCES, other=0) if fused
+                else dict(closest_hit=(steps + 1) * len(TRAIN_FRAMES) * BOUNCES, grads=0, forward=0, texel_grad=0,
+                          other=0))
         if not (np.isfinite(losses).all() and losses[-1] < losses[0]) or launches != want:
             raise AssertionError(f"the {route} route did not lower the loss through its kernels ({launches})")
         if fused and not out["err1"] < out["err0"]:
@@ -1554,7 +1563,93 @@ def inverse_rendering(card: str, bn: torch.Tensor, capacity, stand_in, stand_in_
                                           f"({step_rays / ms / 1e3:.1f} Mrays/s), peak device memory {peak:.3f} GB; "
                                           f"under torch.profiler host {host_ms:.3f} ms, device busy {busy_ms:.3f} ms; "
                                           f"largest: {top}")
+    # the texel VJP alone, on the albedo samples of one fused step
+    samples, launch = [], texel_grad.texel_grad
+
+    def keep(uv, g, shape):
+        samples.append((uv.detach().clone(), g.detach().clone(), tuple(shape)))
+        return launch(uv, g, shape)
+
+    texel_grad.texel_grad = keep
+    try:
+        step(fused=True)
+        torch.cuda.synchronize()
+    finally:
+        texel_grad.texel_grad = launch
+    entries.append(texel_vjp_entry(card, samples, train["fused"]["texel_grad"]))
     return entries
+
+
+def texel_vjp_entry(card: str, samples: list, launches: int) -> dict:
+    """Phase 28's texel VJP: each (uv, cotangent, map shape) sample of a
+    fused step through the kernel, held to ``texel_grad_reference`` within
+    the order bound (n eps sum|terms| a texel: the same float32 terms added
+    in another order, tests/test_torch_texel_grad.py), timed, and its bound
+    by bytes: every lane's cotangent read, a live lane's UV, the map's
+    gradient written.  Returns its entry of the kernels line (the worst
+    sample's error, the mean of the times and bounds)."""
+    from bpt_tpu_torch import textures
+    from bpt_tpu_torch.kernels import texel_grad
+
+    if len(samples) != BOUNCES * len(TRAIN_FRAMES):
+        raise AssertionError(f"a fused step made {len(samples)} texel VJP launches, not {BOUNCES * len(TRAIN_FRAMES)}")
+    rows, worst = [], 0.0
+    for uv, g, shape in samples:
+        h, w, c = shape
+        got = texel_grad.texel_grad(uv, g, shape)
+        want = texel_grad.texel_grad_reference(uv, g, shape)
+        live = (g != 0).any(-1)
+        terms = torch.zeros(h * w, device=g.device)
+        x0i, x1i, y0i, y1i, _, _ = textures._coords(h, w, uv)
+        for y in (y0i, y1i):
+            for x in (x0i, x1i):
+                idx = (y * w + x)[live]
+                terms.index_add_(0, idx, torch.ones_like(idx, dtype=terms.dtype))
+        order = terms.reshape(h, w, 1) * torch.finfo(torch.float32).eps * texel_grad.texel_grad_reference(
+            uv, g.abs(), shape)
+        err = (got - want).abs()
+        n_live = int(live.sum())
+        if not bool((err <= order).all()) or bool(got.any()) != (n_live > 0):
+            raise AssertionError(f"the texel VJP is off its plain version by {float((err - order).max())} over the "
+                                 f"order bound, or is 0 where {n_live} lanes are live, or not 0 where none is")
+        worst = max(worst, float(err.max()))
+
+        def kernel(uv=uv, g=g, shape=shape):
+            return texel_grad.texel_grad(uv, g, shape)
+
+        def plain(uv=uv, g=g, shape=shape):
+            return texel_grad.texel_grad_reference(uv, g, shape)
+
+        ms = event_ms(kernel, iters=20, warmup=2)
+        plain_ms = event_ms(plain, iters=5, warmup=1)
+        dev_ms = None
+        for _ in range(3):  # a profiler session may record no device activity: run it again
+            timed = [t for key, t, _ in profiled_step(kernel, 20)[2] if "texel_grad" in key]
+            if timed:
+                dev_ms = sum(timed)
+                break
+        nbytes = 4 * c * g[..., 0].numel() + 8 * n_live + 4 * h * w * c
+        bound_ms, bound_by = bound(n_live * (8 + 12 * c), nbytes)
+        rows.append(dict(ms=ms, dev_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                         live=n_live, lanes=g[..., 0].numel(), bytes=nbytes))
+    if not any(r["live"] for r in rows):
+        raise AssertionError("no albedo sample of the fused step had a live lane")
+    dev = [r["dev_ms"] for r in rows if r["dev_ms"] is not None]
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in ("ms", "plain_ms", "bound_ms")}
+    dev_ms = sum(dev) / len(dev) if dev else None
+    share = 100 * mean["bound_ms"] / dev_ms if dev_ms else None
+    phase("timing-texel-vjp", f"{card}: {len(rows)} albedo samples of a fused step, map {samples[0][2]}, "
+                              f"{rows[0]['lanes']} lanes each, live {[r['live'] for r in rows]}: kernel device "
+                              f"{[None if r['dev_ms'] is None else round(r['dev_ms'], 5) for r in rows]} ms, through "
+                              f"its wrapper {mean['ms']:.4f} ms, plain route (four index_add_) {mean['plain_ms']:.4f} "
+                              f"ms; max abs err {worst:.3e} (within the order bound); bytes "
+                              f"{[r['bytes'] for r in rows]} -> bound {mean['bound_ms']:.5f} ms ({rows[0]['bound_by']}), "
+                              + (f"{share:.2f}% of it reached" if share else "not measured"))
+    return {"name": "texel_grad", "route": "cuda", "source": "bpt_tpu_torch/csrc/texel_grad.cu",
+            "replaces": "none (the transpose of bpt_tpu/textures.py sample_bilinear's gather, left to XLA)",
+            "launches": launches, "max_abs_err": worst, "ms": mean["ms"], "device_ms": dev_ms,
+            "plain_ms": mean["plain_ms"], "bound_ms": mean["bound_ms"], "bound_by": rows[0]["bound_by"],
+            "library_ms": None, **nvcc_report(texel_grad.KERNEL)}
 
 
 STATE_ROW_BYTES = 56  # the words of a live lane's staged state row that carry state (csrc/staged.cu: 14 of 16)
@@ -2578,6 +2673,7 @@ def main() -> int:
     from bpt_tpu_torch.integrator.frame import trace_image
     from bpt_tpu_torch.kernels import build, megakernel, staged
     from bpt_tpu_torch.kernels import loop_cost as k5
+    from bpt_tpu_torch.kernels import texel_grad
     from bpt_tpu_torch.kernels import traverse as closest_hit
     from bpt_tpu_torch.renderer import ProgressiveRenderer
     from bpt_tpu_torch.scenes.cornell import cornell_camera, cornell_scene
@@ -2597,10 +2693,11 @@ def main() -> int:
     staged._library()
     staged._key_library()
     closest_hit._library()
+    texel_grad._library()
     k5._library()
     libraries = [build.build(name) for name in build.kernels()]  # already built: their paths
-    phase("build", f"{megakernel.KERNEL}, {staged.KERNEL}, {staged.KEY_KERNEL}, {closest_hit.KERNEL} and {k5.KERNEL} "
-                   f"ready in {time.perf_counter() - t0:.2f} s "
+    phase("build", f"{megakernel.KERNEL}, {staged.KERNEL}, {staged.KEY_KERNEL}, {closest_hit.KERNEL}, "
+                   f"{texel_grad.KERNEL} and {k5.KERNEL} ready in {time.perf_counter() - t0:.2f} s "
                    f"(flags {' '.join(build.NVCC_FLAGS)})")
     for lib in libraries:
         log = lib.with_suffix(".so.log")

@@ -55,7 +55,7 @@ SLICE_MODULES = [
     "bpt_tpu_torch.textures", "bpt_tpu_torch.apps.debug_gltf_loading", "bpt_tpu_torch.kernels.traverse",
     "bpt_tpu_torch.apps.inverse_rendering", "bpt_tpu_torch.kernels.staged", "bpt_tpu_torch.kernels.launch_args",
     "bpt_tpu_torch.kernels.loop_cost", "bpt_tpu_torch.tools.loop_cost", "bpt_tpu_torch.utils.profiling",
-    "bpt_tpu_torch.tools.key_sweep",
+    "bpt_tpu_torch.tools.key_sweep", "bpt_tpu_torch.kernels.texel_grad",
 ]
 
 
